@@ -1,0 +1,15 @@
+"""MCMC samplers of the port (counterpart of ``zhusuan_tpu/mcmc``).
+
+Ported so far: :class:`HMC` with its shared machinery (:mod:`.base`).
+"""
+
+from zhusuan_tpu_torch.mcmc.hmc import (
+    HMC,
+    HMCInfo,
+    HMCState,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+__all__ = ["HMC", "HMCInfo", "HMCState", "state_from_numpy",
+           "state_to_numpy"]

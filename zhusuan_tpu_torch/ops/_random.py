@@ -1,0 +1,166 @@
+"""Random numbers of the HMC kernel, of its plain version, and of the
+sampler's plain path.
+
+Counterparts of ``zhusuan_tpu/ops/_pallas_utils.py::uniform_from_bits`` and
+``split_boxmuller_normal`` and of ``zhusuan_tpu/ops/random.py::_key_to_seed``.
+The TPU kernels draw from the TPU's hardware PRNG; a CUDA kernel has none,
+so the port writes Philox4x32-10 (Salmon et al., SC'11) into the kernel by
+hand (``csrc/hmc_step.cu``) and keeps this plain torch version beside it:
+both give the same bits for the same key and counter, so the kernel's plain
+version (``ops/hmc_step.py::fused_hmc_step_reference``) draws the kernel's
+momentum and MH uniforms. The torch Philox costs a few hundred small
+integer ops per draw, so the sampler's plain path does not use it: it
+draws from torch's own generator, seeded per iteration
+(:func:`iteration_generator`), as the JAX package's scan path draws from
+``jax.random`` while its kernel uses the hardware PRNG.
+
+A key is a pair of uint32 Python ints, drawn once from a
+``torch.Generator`` (:func:`philox_key`). The Philox counter is
+``(t, row, group, stream)``: the iteration, the chain (row), the group of 4
+consecutive elements along the last axis, and the stream (0 for the MH
+uniform, ``1 + i`` for the momentum of the i-th latent in sorted-name
+order). Either way a loop over iterations needs no host sync to draw.
+Streams differ from ``jax.random`` by design.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = [
+    "STREAM_MH",
+    "STREAM_MOMENTUM",
+    "philox_key",
+    "iteration_generator",
+    "philox4x32_10",
+    "uniform_from_bits",
+    "split_boxmuller_normal",
+    "philox_normal",
+    "philox_uniform",
+]
+
+STREAM_MH = 0
+STREAM_MOMENTUM = 1  # + index of the latent in sorted-name order
+
+_MASK32 = 0xFFFFFFFF
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_TWO_PI = 2.0 * math.pi
+
+Key = Tuple[int, int]
+
+
+def philox_key(generator: Optional[torch.Generator] = None) -> Key:
+    """Draw a Philox key ``(k0, k1)`` of two uint32 ints from ``generator``.
+
+    One draw per ``HMC.run``; with a CUDA generator this reads two numbers
+    back from the card once.
+    """
+    device = generator.device if generator is not None else "cpu"
+    k = torch.randint(0, 1 << 32, (2,), generator=generator,
+                      dtype=torch.int64, device=device)
+    k0, k1 = k.tolist()
+    return int(k0), int(k1)
+
+
+def iteration_generator(key: Key, t: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` for iteration ``t`` of the run
+    keyed by ``key``: seeded with a splitmix64 hash of ``(key, t)`` on the
+    host, so one key serves a whole run with no host sync and no state
+    carried between iterations."""
+    z = (((int(key[0]) & _MASK32) << 32) | (int(key[1]) & _MASK32))
+    z = (z + (int(t) + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    g = torch.Generator(device=device if device is not None else "cpu")
+    g.manual_seed(z ^ (z >> 31))
+    return g
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit halves of ``a * m`` for int64 ``a`` in [0, 2^32),
+    exact in int64 by splitting ``a`` into 16-bit halves."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    p_hi, p_lo = a_hi * m, a_lo * m  # each < 2^48
+    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK32
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding uint32 counter words.
+
+    Returns four int64 tensors of uint32 output words, broadcast over the
+    counter words' shapes.
+    """
+    c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)
+    for r in range(10):
+        if r > 0:
+            k0 = (k0 + _W0) & _MASK32
+            k1 = (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_from_bits(bits):
+    """uint32 bits (held in int64) -> float32 uniforms in [0, 1).
+
+    Sets the 23 mantissa bits with exponent 0, so the bit pattern is a
+    float in [1, 2), then subtracts 1.
+    """
+    pattern = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return pattern.view(torch.float32) - 1.0
+
+
+def split_boxmuller_normal(bits1, bits2):
+    """Two float32 standard-normal tensors from two tensors of uint32 bits,
+    using both Box-Muller outputs: ``(r cos theta, r sin theta)``."""
+    u1 = torch.clamp(uniform_from_bits(bits1), min=1e-7)
+    u2 = uniform_from_bits(bits2)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def _counter(t: int, n_rows: int, n_groups: int, device):
+    rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
+    groups = torch.arange(n_groups, dtype=torch.int64, device=device)[None]
+    return torch.full((), t & _MASK32, dtype=torch.int64, device=device), rows, groups
+
+
+def philox_normal(key: Key, t: int, shape, stream: int, device=None):
+    """float32 standard normals of ``shape``, laid out as the kernel draws
+    them: the last axis is the column axis, every other axis is flattened
+    into rows, and the counter ``(t, row, g, stream)`` gives the normals of
+    columns ``4g .. 4g+3``."""
+    shape = tuple(shape)
+    n_cols = shape[-1] if shape else 1
+    n_rows = math.prod(shape[:-1]) if shape else 1
+    n_groups = -(-n_cols // 4)
+    tt, rows, groups = _counter(t, n_rows, n_groups, device)
+    stream_w = torch.full((), stream, dtype=torch.int64, device=device)
+    b0, b1, b2, b3 = philox4x32_10(tt, rows, groups, stream_w, *key)
+    n0, n1 = split_boxmuller_normal(b0, b1)
+    n2, n3 = split_boxmuller_normal(b2, b3)
+    out = torch.stack([n0, n1, n2, n3], dim=-1).reshape(n_rows, 4 * n_groups)
+    return out[:, :n_cols].reshape(shape)
+
+
+def philox_uniform(key: Key, t: int, shape, stream: int = STREAM_MH,
+                   device=None):
+    """float32 uniforms in [0, 1) of ``shape``, one per flattened element:
+    word 0 of the counter ``(t, element, 0, stream)`` (the kernel's
+    per-chain MH uniform)."""
+    shape = tuple(shape)
+    n = math.prod(shape) if shape else 1
+    tt, rows, _ = _counter(t, n, 1, device)
+    stream_w = torch.full((), stream, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    b0, _, _, _ = philox4x32_10(tt, rows[:, 0], zero, stream_w, *key)
+    return uniform_from_bits(b0).reshape(shape)

@@ -1,0 +1,57 @@
+"""General utilities (port of ``zhusuan_tpu/utils.py``).
+
+Capability parity with reference ``zhusuan/utils.py`` (log_sum_exp at
+utils.py:156, log_mean_exp at utils.py:177, merge_dicts at utils.py:220),
+on torch tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+__all__ = ["log_sum_exp", "log_mean_exp", "merge_dicts"]
+
+
+def _dims(x, axis):
+    return tuple(range(x.ndim)) if axis is None else axis
+
+
+def log_sum_exp(x, axis=None, keepdims=False):
+    """Numerically stable log-sum-exp along ``axis`` (all axes when None).
+
+    Parity: reference ``zhusuan/utils.py:156-174``.
+    """
+    x = torch.as_tensor(x)
+    return torch.logsumexp(x, dim=_dims(x, axis), keepdim=keepdims)
+
+
+def log_mean_exp(x, axis=None, keepdims=False):
+    """Numerically stable log-mean-exp along ``axis`` (all axes when None).
+
+    Parity: reference ``zhusuan/utils.py:177-208``. An all ``-inf`` slice
+    is shifted by 0 instead of its (infinite) max, so it gives ``-inf``
+    rather than NaN.
+    """
+    x = torch.as_tensor(x)
+    dims = _dims(x, axis)
+    x_max = torch.amax(x, dim=dims, keepdim=True).detach()
+    x_max = torch.where(torch.isfinite(x_max), x_max, torch.zeros_like(x_max))
+    out = torch.log(torch.mean(torch.exp(x - x_max), dim=dims,
+                               keepdim=True)) + x_max
+    if not keepdims:
+        out = out.reshape(()) if axis is None else out.squeeze(dims)
+    return out
+
+
+def merge_dicts(*dict_list: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge dicts; later dicts take precedence on key conflicts.
+
+    Parity: reference ``zhusuan/utils.py:220-231``.
+    """
+    out: Dict[str, Any] = {}
+    for d in dict_list:
+        if d:
+            out.update(d)
+    return out
