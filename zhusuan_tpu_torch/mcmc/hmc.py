@@ -168,41 +168,14 @@ class HMC:
     @staticmethod
     def _fused_ineligible(log_joint, observed, q, mass, n_chain_dims):
         """Why the kernel cannot take this transition (None if it can)."""
-        if len(q) != 1:
-            return "the latent must be a single tensor"
-        if not isinstance(log_joint, DiagonalGaussianLogJoint):
-            return ("the log-joint must be the built-in "
-                    "DiagonalGaussianLogJoint")
-        ((name, x),) = q.items()
-        if log_joint.name != name or name in (observed or {}):
-            return "the built-in density must be over the latent {!r}".format(
-                name)
-        if n_chain_dims != 1 or not hmc_step_supported(x.shape, x.dtype):
-            return ("the latent must be [n_chains, dim] float32/bfloat16 "
-                    "with dim <= {}; got {} {}".format(
-                        MAX_DIM, tuple(x.shape), x.dtype))
-        d = x.shape[1]
-        if tuple(mass[name].shape) != (1, d) or \
-                mass[name].dtype != torch.float32:
-            return "the mass must be [1, dim] float32"
-        if tuple(log_joint.loc.shape) != (d,):
-            return "the density's dim differs from the latent's"
-        return None
+        return builtin_density_ineligible(
+            log_joint, observed, q, mass, n_chain_dims, hmc_step_supported,
+            "float32/bfloat16 with dim <= {}".format(MAX_DIM))
 
     def _use_fused_step(self, log_joint, observed, q, mass, n_chain_dims):
-        if not self.experimental_fused_step:
-            return False
-        if not any(v.is_cuda for v in q.values()):
-            return False
-        reason = self._fused_ineligible(log_joint, observed, q, mass,
-                                        n_chain_dims)
-        if reason is None:
-            return True
-        if self.experimental_fused_step is True:
-            raise ValueError(
-                "experimental_fused_step=True, but the CUDA kernel cannot "
-                "take this transition: {}.".format(reason))
-        return False
+        return use_kernel(self.experimental_fused_step, q,
+                          lambda: self._fused_ineligible(
+                              log_joint, observed, q, mass, n_chain_dims))
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -215,52 +188,10 @@ class HMC:
         :param n_chain_dims: number of leading chain axes. If None, it is
             the rank of ``log_joint``'s output (which then must be given).
         """
-        q = {k: torch.as_tensor(v) for k, v in latent.items()}
-        if n_chain_dims is None:
-            if log_joint is None:
-                raise ValueError(
-                    "Provide either n_chain_dims or log_joint (+observed) "
-                    "so the chain rank can be inferred."
-                )
-            log_post = make_log_joint_fn(log_joint, observed or {})
-            n_chain_dims = log_post(q).ndim
-        n_chain_dims = int(n_chain_dims)
-        dtype = q[next(iter(q))].dtype
-        for v in q.values():
-            dtype = torch.promote_types(dtype, v.dtype)
-        # bf16 state keeps only the positions in bf16; the adaptation
-        # state stays f32.
-        if dtype == torch.bfloat16:
-            dtype = torch.float32
-        device = next(iter(q.values())).device
-
-        def full(shape, value):
-            return torch.full(shape, value, dtype=dtype, device=device)
-
-        shapes = {k: (1,) * n_chain_dims + tuple(v.shape[n_chain_dims:])
-                  for k, v in q.items()}
-        return HMCState(
-            q=q,
-            t=0,
-            step_size=full((), self.init_step_size),
-            da_step=full((), 0.0),
-            h_bar=full((), 0.0),
-            log_epsilon_bar=full((), 0.0),
-            ewmv_t=full((), 0.0),
-            ewmv_mean={k: full(s, 0.0) for k, s in shapes.items()},
-            ewmv_var={k: full(s, 0.0) for k, s in shapes.items()},
-            mass={k: full(s, 1.0) for k, s in shapes.items()},
-        )
+        return init_state(latent, self.init_step_size, n_chain_dims,
+                          log_joint, observed)
 
     # ------------------------------------------------------------------ #
-    def _ewmv_update(self, state: HMCState, gate, n_chain_dims):
-        """EW moving variance update over chain axes (reference
-        hmc.py:115-159), delegating to :func:`..base.ewmv_update`."""
-        return ewmv_update(
-            state.q, state.ewmv_t, state.ewmv_mean, state.ewmv_var,
-            gate, n_chain_dims, self.mass_decay,
-        )
-
     def _init_step_size_search(self, q, p, mass, grad_fn, log_post,
                                n_chain_dims, current_step_size):
         """Heuristic initial step-size search: scale by 1.5 up or down until
@@ -375,19 +306,9 @@ class HMC:
         if self.adapt_mass is not None:
             gate_mass = (adapt_mass if adapt_mass is not None
                          else self.adapt_mass)
-            ewmv_t, ewmv_mean, ewmv_var = self._ewmv_update(
-                state, gate_mass, n_chain_dims)
-            # Adapted mass only after the collect window AND at least one
-            # gated accumulator update (else var == 0 gives mass 1e20).
-            mass = {}
-            for k in q:
-                ones = torch.ones_like(ewmv_var[k])
-                if new_t >= self.mass_collect_iters:
-                    mass[k] = torch.where(
-                        ewmv_t > 0,
-                        1.0 / torch.clamp(ewmv_var[k], min=1e-20), ones)
-                else:
-                    mass[k] = ones
+            ewmv_t, ewmv_mean, ewmv_var, mass = mass_update(
+                state, gate_mass, n_chain_dims, self.mass_decay,
+                self.mass_collect_iters)
         else:
             ewmv_t, ewmv_mean, ewmv_var = (
                 state.ewmv_t, state.ewmv_mean, state.ewmv_var)
@@ -601,6 +522,113 @@ class HMC:
             if collect and hit == 0 and row <= n_out:
                 store(row - 1, info)
         return state, outputs
+
+
+def mass_update(state: HMCState, gate, n_chain_dims: int, decay: float,
+                mass_collect_iters: int):
+    """One gated EW moving-variance update over the chain axes and the mass
+    iteration ``state.t + 1`` uses (reference hmc.py:115-159, 283-305): the
+    inverse variance from ``mass_collect_iters`` on, once the accumulator
+    has had a gated update (else var == 0 would give mass 1e20), unit mass
+    before. Returns ``(ewmv_t, ewmv_mean, ewmv_var, mass)``."""
+    ewmv_t, ewmv_mean, ewmv_var = ewmv_update(
+        state.q, state.ewmv_t, state.ewmv_mean, state.ewmv_var, gate,
+        n_chain_dims, decay)
+    mass = {}
+    for k in state.q:
+        ones = torch.ones_like(ewmv_var[k])
+        if state.t + 1 >= mass_collect_iters:
+            mass[k] = torch.where(
+                ewmv_t > 0, 1.0 / torch.clamp(ewmv_var[k], min=1e-20), ones)
+        else:
+            mass[k] = ones
+    return ewmv_t, ewmv_mean, ewmv_var, mass
+
+
+def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
+                               supported, wants):
+    """Why a kernel over the built-in density cannot take a transition on
+    the latent dict ``q`` (None if it can). ``supported(shape, dtype)`` is
+    the kernel's gate; ``wants`` says in words what it takes."""
+    if len(q) != 1:
+        return "the latent must be a single tensor"
+    if not isinstance(log_joint, DiagonalGaussianLogJoint):
+        return ("the log-joint must be the built-in "
+                "DiagonalGaussianLogJoint")
+    ((name, x),) = q.items()
+    if log_joint.name != name or name in (observed or {}):
+        return "the built-in density must be over the latent {!r}".format(
+            name)
+    if n_chain_dims != 1 or not supported(x.shape, x.dtype):
+        return "the latent must be [n_chains, dim] {}; got {} {}".format(
+            wants, tuple(x.shape), x.dtype)
+    d = x.shape[1]
+    if tuple(mass[name].shape) != (1, d) or \
+            mass[name].dtype != torch.float32:
+        return "the mass must be [1, dim] float32"
+    if tuple(log_joint.loc.shape) != (d,):
+        return "the density's dim differs from the latent's"
+    return None
+
+
+def use_kernel(flag, q, ineligible) -> bool:
+    """The ``experimental_fused_step`` rule: ``flag`` False or CPU tensors
+    take the plain path; otherwise the kernel runs when ``ineligible()``
+    gives no reason, and when it gives one, ``"auto"`` takes the plain
+    path and ``True`` raises."""
+    if not flag or not any(v.is_cuda for v in q.values()):
+        return False
+    reason = ineligible()
+    if reason is None:
+        return True
+    if flag is True:
+        raise ValueError(
+            "experimental_fused_step=True, but the CUDA kernel cannot take "
+            "this transition: {}.".format(reason))
+    return False
+
+
+def init_state(latent: Latent, step_size: float,
+               n_chain_dims: Optional[int] = None, log_joint=None,
+               observed=None) -> HMCState:
+    """The initial :class:`HMCState` of HMC and NUTS (see :meth:`HMC.init`).
+    """
+    q = {k: torch.as_tensor(v) for k, v in latent.items()}
+    if n_chain_dims is None:
+        if log_joint is None:
+            raise ValueError(
+                "Provide either n_chain_dims or log_joint (+observed) "
+                "so the chain rank can be inferred."
+            )
+        log_post = make_log_joint_fn(log_joint, observed or {})
+        n_chain_dims = log_post(q).ndim
+    n_chain_dims = int(n_chain_dims)
+    dtype = q[next(iter(q))].dtype
+    for v in q.values():
+        dtype = torch.promote_types(dtype, v.dtype)
+    # bf16 state keeps only the positions in bf16; the adaptation
+    # state stays f32.
+    if dtype == torch.bfloat16:
+        dtype = torch.float32
+    device = next(iter(q.values())).device
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    shapes = {k: (1,) * n_chain_dims + tuple(v.shape[n_chain_dims:])
+              for k, v in q.items()}
+    return HMCState(
+        q=q,
+        t=0,
+        step_size=full((), step_size),
+        da_step=full((), 0.0),
+        h_bar=full((), 0.0),
+        log_epsilon_bar=full((), 0.0),
+        ewmv_t=full((), 0.0),
+        ewmv_mean={k: full(s, 0.0) for k, s in shapes.items()},
+        ewmv_var={k: full(s, 0.0) for k, s in shapes.items()},
+        mass={k: full(s, 1.0) for k, s in shapes.items()},
+    )
 
 
 # ---------------------------------------------------------------------- #

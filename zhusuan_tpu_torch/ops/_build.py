@@ -2,20 +2,23 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``zhusuan_tpu_torch/_build/`` (git-ignored),
-under a file name keyed by a hash of the source and the flags, and loaded
-with ``ctypes``. Nothing here runs at import time.
+under a file name keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, and loaded with ``ctypes``. Nothing here
+runs at import time. :func:`build_libraries` starts one ``nvcc`` per
+source, all at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 
-__all__ = ["load_library", "BUILD_DIR"]
+__all__ = ["build_libraries", "load_library", "BUILD_DIR"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -24,6 +27,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# nuts_step.cu rounds every product and sum on its own, as the plain torch
+# version's separate elementwise ops do, so the two leapfrog trajectories
+# agree bit for bit (an FMA would round once where torch rounds twice).
+EXTRA_FLAGS = {"nuts_step": ("-fmad=false",)}
 
 _LOADED = {}  # name -> (ctypes.CDLL, build record)
 
@@ -43,41 +50,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH.")
 
 
+def _paths(name: str):
+    """``(source, flags, library path, log path)`` of ``csrc/<name>.cu``."""
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    stem = "{}-{}".format(name, digest.hexdigest()[:16])
+    return (src, flags, os.path.join(BUILD_DIR, stem + ".so"),
+            os.path.join(BUILD_DIR, stem + ".log"))
+
+
+def build_libraries(names):
+    """Load ``csrc/<name>.cu`` for every name, compiling the missing ones
+    in parallel (one ``nvcc`` each, all started together); returns
+    ``{name: (cdll, record)}`` (see :func:`load_library`)."""
+    requested = list(names)
+    names = [n for n in requested if n not in _LOADED]
+    jobs = {}
+    for name in names:
+        src, flags, lib_path, _ = _paths(name)
+        if not os.path.exists(lib_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = "{}.{}.tmp".format(lib_path, os.getpid())
+            proc = subprocess.Popen(
+                [_nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, time.perf_counter())
+    seconds = {}
+    failures = []
+    for name, (proc, tmp, start) in jobs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - start
+        src, _, lib_path, log_path = _paths(name)
+        if proc.returncode != 0:
+            failures.append("nvcc failed to build {} (exit {}):\n{}".format(
+                src, proc.returncode, log))
+            continue
+        with open(log_path, "w") as f:
+            f.write(log)
+        os.replace(tmp, lib_path)  # atomic: concurrent builders agree
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    for name in names:
+        _, _, lib_path, log_path = _paths(name)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        record = {"path": lib_path, "build_seconds": seconds.get(name, 0.0),
+                  "log": log}
+        _LOADED[name] = (ctypes.CDLL(lib_path), record)
+    return {name: _LOADED[name] for name in requested}
+
+
 def load_library(name: str):
     """Compile ``csrc/<name>.cu`` if its hashed library is missing, load it
     and return ``(cdll, record)``; ``record`` holds ``path``,
     ``build_seconds`` (0.0 when already built) and the compiler's
     ``log`` (its ``-Xptxas -v`` register and spill report)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = "{}-{}".format(name, digest.hexdigest()[:16])
-    lib_path = os.path.join(BUILD_DIR, stem + ".so")
-    log_path = os.path.join(BUILD_DIR, stem + ".log")
-    seconds = 0.0
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = "{}.{}.tmp".format(lib_path, os.getpid())
-        start = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed to build {} (exit {}):\n{}".format(
-                    src, proc.returncode, log))
-        with open(log_path, "w") as f:
-            f.write(log)
-        os.replace(tmp, lib_path)  # atomic: concurrent builders agree
-    log = ""
-    if os.path.exists(log_path):
-        with open(log_path) as f:
-            log = f.read()
-    record = {"path": lib_path, "build_seconds": seconds, "log": log}
-    _LOADED[name] = (ctypes.CDLL(lib_path), record)
+    if name not in _LOADED:
+        build_libraries([name])
     return _LOADED[name]

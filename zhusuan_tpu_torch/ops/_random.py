@@ -1,16 +1,17 @@
-"""Random numbers of the HMC kernel, of its plain version, and of the
-sampler's plain path.
+"""Random numbers of the port's kernels, of their plain versions, and of
+the samplers' plain paths.
 
 Counterparts of ``zhusuan_tpu/ops/_pallas_utils.py::uniform_from_bits`` and
 ``split_boxmuller_normal`` and of ``zhusuan_tpu/ops/random.py::_key_to_seed``.
 The TPU kernels draw from the TPU's hardware PRNG; a CUDA kernel has none,
-so the port writes Philox4x32-10 (Salmon et al., SC'11) into the kernel by
-hand (``csrc/hmc_step.cu``) and keeps this plain torch version beside it:
-both give the same bits for the same key and counter, so the kernel's plain
-version (``ops/hmc_step.py::fused_hmc_step_reference``) draws the kernel's
-momentum and MH uniforms. The torch Philox costs a few hundred small
-integer ops per draw, so the sampler's plain path does not use it: it
-draws from torch's own generator, seeded per iteration
+so the port writes Philox4x32-10 (Salmon et al., SC'11) into the kernels by
+hand (``csrc/philox.cuh``) and keeps this plain torch version beside it:
+both give the same bits for the same key and counter, so a kernel's plain
+version (``ops/hmc_step.py::fused_hmc_step_reference``,
+``ops/nuts_step.py::fused_nuts_transition_reference``) draws the kernel's
+own numbers. The torch Philox costs a few hundred small integer ops per
+draw, so the samplers' plain paths do not use it: they draw from torch's
+own generator, seeded per iteration
 (:func:`iteration_generator`), as the JAX package's scan path draws from
 ``jax.random`` while its kernel uses the hardware PRNG.
 
@@ -19,8 +20,9 @@ A key is a pair of uint32 Python ints, drawn once from a
 ``(t, row, group, stream)``: the iteration, the chain (row), the group of 4
 consecutive elements along the last axis, and the stream (0 for the MH
 uniform, ``1 + i`` for the momentum of the i-th latent in sorted-name
-order). Either way a loop over iterations needs no host sync to draw.
-Streams differ from ``jax.random`` by design.
+order, ``0x100 + k`` for the NUTS kernel's uniforms: tree directions,
+leaf selections and merge selections). Either way a loop over iterations
+needs no host sync to draw. Streams differ from ``jax.random`` by design.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ import torch
 __all__ = [
     "STREAM_MH",
     "STREAM_MOMENTUM",
+    "STREAM_NUTS_DIRECTION",
+    "STREAM_NUTS_LEAF",
+    "STREAM_NUTS_MERGE",
     "philox_key",
     "iteration_generator",
     "philox4x32_10",
@@ -40,10 +45,14 @@ __all__ = [
     "split_boxmuller_normal",
     "philox_normal",
     "philox_uniform",
+    "philox_uniform_rows",
 ]
 
 STREAM_MH = 0
 STREAM_MOMENTUM = 1  # + index of the latent in sorted-name order
+STREAM_NUTS_DIRECTION = 0x100  # [chains, max_tree_depth]
+STREAM_NUTS_LEAF = 0x101  # [chains, 2**max_tree_depth - 1]
+STREAM_NUTS_MERGE = 0x102  # [chains, max_tree_depth]
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
@@ -128,39 +137,49 @@ def split_boxmuller_normal(bits1, bits2):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def _counter(t: int, n_rows: int, n_groups: int, device):
-    rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
-    groups = torch.arange(n_groups, dtype=torch.int64, device=device)[None]
-    return torch.full((), t & _MASK32, dtype=torch.int64, device=device), rows, groups
-
-
-def philox_normal(key: Key, t: int, shape, stream: int, device=None):
-    """float32 standard normals of ``shape``, laid out as the kernel draws
-    them: the last axis is the column axis, every other axis is flattened
-    into rows, and the counter ``(t, row, g, stream)`` gives the normals of
-    columns ``4g .. 4g+3``."""
+def _row_words(key: Key, t: int, shape, stream: int, device):
+    """``(n_rows, n_cols, words)`` for ``shape`` laid out as the kernels
+    draw it: the last axis is the column axis, every other axis is
+    flattened into rows, and the counter ``(t, row, g, stream)`` gives the
+    four words of columns ``4g .. 4g+3``."""
     shape = tuple(shape)
     n_cols = shape[-1] if shape else 1
     n_rows = math.prod(shape[:-1]) if shape else 1
     n_groups = -(-n_cols // 4)
-    tt, rows, groups = _counter(t, n_rows, n_groups, device)
+    tt = torch.full((), t & _MASK32, dtype=torch.int64, device=device)
+    rows = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
+    groups = torch.arange(n_groups, dtype=torch.int64, device=device)[None]
     stream_w = torch.full((), stream, dtype=torch.int64, device=device)
-    b0, b1, b2, b3 = philox4x32_10(tt, rows, groups, stream_w, *key)
+    return n_rows, n_cols, philox4x32_10(tt, rows, groups, stream_w, *key)
+
+
+def philox_normal(key: Key, t: int, shape, stream: int, device=None):
+    """float32 standard normals of ``shape`` (layout of
+    :func:`_row_words`; Box-Muller on words (0, 1) and (2, 3))."""
+    n_rows, n_cols, (b0, b1, b2, b3) = _row_words(key, t, shape, stream,
+                                                  device)
     n0, n1 = split_boxmuller_normal(b0, b1)
     n2, n3 = split_boxmuller_normal(b2, b3)
-    out = torch.stack([n0, n1, n2, n3], dim=-1).reshape(n_rows, 4 * n_groups)
+    out = torch.stack([n0, n1, n2, n3], dim=-1).reshape(n_rows, -1)
+    return out[:, :n_cols].reshape(shape)
+
+
+def philox_uniform_rows(key: Key, t: int, shape, stream: int, device=None):
+    """float32 uniforms in [0, 1) of ``shape`` (layout of
+    :func:`_row_words`: word ``j % 4`` of group ``j // 4`` is column
+    ``j``), as the NUTS kernel draws its directions, leaf and merge
+    selections."""
+    n_rows, n_cols, words = _row_words(key, t, shape, stream, device)
+    out = uniform_from_bits(torch.stack(words, dim=-1)).reshape(n_rows, -1)
     return out[:, :n_cols].reshape(shape)
 
 
 def philox_uniform(key: Key, t: int, shape, stream: int = STREAM_MH,
                    device=None):
     """float32 uniforms in [0, 1) of ``shape``, one per flattened element:
-    word 0 of the counter ``(t, element, 0, stream)`` (the kernel's
+    word 0 of the counter ``(t, element, 0, stream)`` (the HMC kernel's
     per-chain MH uniform)."""
     shape = tuple(shape)
     n = math.prod(shape) if shape else 1
-    tt, rows, _ = _counter(t, n, 1, device)
-    stream_w = torch.full((), stream, dtype=torch.int64, device=device)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    b0, _, _, _ = philox4x32_10(tt, rows[:, 0], zero, stream_w, *key)
+    _, _, (b0, _, _, _) = _row_words(key, t, (n, 1), stream, device)
     return uniform_from_bits(b0).reshape(shape)
