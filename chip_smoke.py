@@ -7,10 +7,12 @@ It needs one CUDA device and ``nvcc`` (it builds the kernels from
 soon as a phase fails (nothing is caught). Each phase prints its seconds.
 
 1. device: the card, as ``nvidia-smi`` reports its name and power limit;
-2. build: compiles the fused HMC-step and NUTS kernels, one ``nvcc`` each,
+2. build: compiles ``csrc/hmc_step.cu`` (the HMC step, ChEES step and
+   trajectory kernels) and ``csrc/nuts_step.cu``, one ``nvcc`` each,
    started together, timing the build and printing ptxas' register and
    spill report;
-3. kernel vs plain: the kernel against its plain torch version on the same
+3. kernel vs plain: the HMC step kernel (diagonal density) against its
+   plain torch version on the same
    injected noise (the main path's 32768 x 100, 4096 x 100 and a ragged
    1000 x 37, each in float32 and bfloat16), and both timed at
    32768 x 100 (the plain version drawing from torch's generator, as the
@@ -44,7 +46,33 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    the kernel's launch count read around each;
 9. NUTS deep trees: ``bench.py``'s sweep on the ``linspace(0.1, 30)``
    target, kernel path at depths 6, 8 and 10 (150 adaptive, 50 sampling
-   iterations, 2 trials), and a few timed plain-path iterations at 10.
+   iterations, 2 trials), and a few timed plain-path iterations at 10;
+10. HMC family vs plain: the HMC step with the equicorrelated density, the
+   ChEES step and the leapfrog trajectory against their plain torch
+   versions on the same injected noise, float32, at 4096 x 100 (the mixing
+   width) and a ragged 1000 x 37, for both built-in densities: the ChEES
+   step at counts 1, 37, 190 and ``CHEES_MAX_LEAPFROGS``, and at 190 with a
+   step past the stability limit (every chain diverges); the trajectory
+   with a ``[1, dim]`` and a ``[chains, dim]`` mass. A sum's order differs
+   between the kernel and torch, so a chain may take the other MH decision
+   at a near-tie: at most ``MAX_DIFFERING`` (0.1%) of the chains may differ
+   in the decision (or in whether the proposal is finite); on the rest
+   q', p' within ``Q_TOL`` relative to ``1 + |ref|`` and log-probs and
+   energies within ``LP_TOL``. Then each timed against its plain version at
+   4096 x 100 (the ChEES step at 100 and 190 leapfrogs);
+11. mixing: ``bench.py``'s ``measure_mixing`` through the port, 4096 chains
+   x 100 dims of the equicorrelated Gaussian (rho 0.95), 300 adaptive then
+   3 timed runs of 300 sampling iterations per arm: (a) fixed-L HMC with
+   step-size and mass adaptation (the HMC step kernel), (a') the same with
+   ``experimental_fused_step=False, experimental_fused_leapfrog=True`` (the
+   trajectory kernel), (b) ChEES (the ChEES kernel), (c) pilot ->
+   ``fit_dense_preconditioner`` -> ``whiten_log_joint`` -> HMC (a plain
+   callable: the plain path, 0 launches); (a) and (b) again on the plain
+   path (one timed run). Each reports min-coordinate and slow-projection
+   ESS and their rates; gated on finite samples, on acceptance (whitened
+   HMC in [0.6, 0.95]; fixed-L in [``FIXED_L_MIN_ACCEPTANCE``, 0.95], as
+   the JAX package samples it at ~0.58; ChEES's harmonic mean within 0.1
+   of 0.651) and on ChEES's slow-projection ESS above fixed-L's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -68,6 +96,17 @@ NUTS_ITERS = 200
 NUTS_TOL = (1e-4, 1e-5)  # (abs, rel) on log_prob, energy; abs on accept
 NUTS_Q_TOL = 1e-5  # the leapfrog arithmetic is the same on both sides
 NUTS_MAX_DIFFERING = 0.001  # share of chains
+MIX_CHAINS = 4096
+MIX_RHO = 0.95
+MIX_ITERS = 300  # adaptive, then sampling iterations per run
+CHEES_MAX_LEAPFROGS = 1000  # ChEESHMC's default cap
+MAX_DIFFERING = 0.001  # share of chains (MH decision or finiteness)
+Q_TOL = 1e-4  # q', p' relative to 1 + |ref|
+LP_TOL = (1e-4, 1e-5)  # (abs, rel) on log-probs and energies
+# The fixed-L arm's dual-averaged step (exp(log_epsilon_bar)) samples this
+# target at ~0.58 mean acceptance in the JAX package too (4096 x 100,
+# float32, CPU), below its 0.8 target; the whitened arm samples at 0.80.
+FIXED_L_MIN_ACCEPTANCE = 0.5
 
 
 def fail(msg):
@@ -633,6 +672,423 @@ def phase_nuts_deep(torch, dev):
     print("phase9 nuts_deep " + json.dumps(deep))
 
 
+def _family_problem(torch, dev, c, d, density, seed, unit_mass=False):
+    """A built-in density, positions in its typical set, a mass and the
+    injected noise (normals [c, d], uniforms [c])."""
+    from zhusuan_tpu_torch.ops import (
+        DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    if density == "diagonal":
+        dens = DiagonalGaussianLogJoint(
+            "x", 0.1 * randn(d), torch.linspace(0.1, 1.0, d, device=dev))
+        q = dens.loc + dens.scale * randn(c, d)
+    else:
+        dens = EquicorrelatedGaussianLogJoint("x", d, MIX_RHO)
+        q = MIX_RHO ** 0.5 * randn(c, 1) + (1.0 - MIX_RHO) ** 0.5 * randn(c, d)
+    mass = (torch.ones(1, d, device=dev) if unit_mass
+            else 0.5 + 1.5 * torch.rand(1, d, generator=g, device=dev))
+    noise = (randn(c, d), torch.rand(c, generator=g, device=dev))
+    return dens, q, mass, noise
+
+
+def _hold(torch, label, u, acc, proposal, q_pairs, lp_pairs):
+    """Hold a kernel's outputs against its plain version's (see the module
+    docstring, phase 10). ``acc`` and ``proposal`` are (kernel, plain)
+    pairs or None (no MH test; no proposal); ``q_pairs`` and ``lp_pairs``
+    map names to (kernel, plain, decision-dependent)."""
+    c = u.shape[0]
+    same = (torch.ones_like(u, dtype=torch.bool) if acc is None
+            else (u < acc[0]) == (u < acc[1]))
+    if proposal is not None:
+        same &= (torch.isfinite(proposal[0]).all(1)
+                 == torch.isfinite(proposal[1]).all(1))
+    n_diff = int((~same).sum())
+    check(n_diff <= MAX_DIFFERING * c,
+          "{}: {} of {} chains differ in the MH decision or the proposal's "
+          "finiteness (at most {} allowed)".format(label, n_diff, c,
+                                                  MAX_DIFFERING * c))
+    errs = {}
+    for name, (g, w, dependent) in q_pairs.items():
+        rows = same if dependent else torch.ones_like(same)
+        g, w = g[rows].float(), w[rows].float()
+        both = torch.isfinite(g) & torch.isfinite(w)
+        check(bool((both == torch.isfinite(w)).all()),
+              "{}: {} finite on one side only".format(label, name))
+        err = (g - w).abs()[both]
+        rel = float((err / (1.0 + w.abs()[both])).max()) if err.numel() \
+            else 0.0
+        check(rel <= Q_TOL, "{}: {} differs by {} relative to 1 + |ref|"
+              .format(label, name, rel))
+        errs[name] = float(err.max()) if err.numel() else 0.0
+    for name, (g, w, dependent) in lp_pairs.items():
+        rows = same if dependent else torch.ones_like(same)
+        g, w = g[rows].float(), w[rows].float()
+        fin = torch.isfinite(w)
+        err = (g - w).abs()[fin]
+        over = float((err / (LP_TOL[0] + LP_TOL[1] * w.abs()[fin])).max()) \
+            if err.numel() else 0.0
+        check(over <= 1.0, "{}: {} differs by {} times the tolerance {}"
+              .format(label, name, over, LP_TOL))
+        errs[name] = float(err.max()) if err.numel() else 0.0
+    rec = {"decisions_differing": n_diff, "max_abs_err": errs}
+    if acc is not None:
+        rec["accept_rate"] = float((u < acc[1]).float().mean())
+    return rec
+
+
+def phase_family_vs_plain(torch, dev):
+    from zhusuan_tpu_torch.mcmc import ChEESHMC
+    from zhusuan_tpu_torch.ops import (
+        fused_chees_step, fused_chees_step_reference, fused_hmc_step,
+        fused_hmc_step_reference, fused_leapfrog, fused_leapfrog_reference,
+    )
+
+    cases = {"hmc_step": [], "chees_step": [], "leapfrog": []}
+    max_err = {k: 0.0 for k in cases}
+
+    def record(kind, rec, **info):
+        rec.update(info)
+        cases[kind].append(rec)
+        max_err[kind] = max([max_err[kind]]
+                            + list(rec["max_abs_err"].values()))
+
+    for c, d in ((MIX_CHAINS, DIM), (1000, 37)):
+        for density, step in (("equicorrelated", 0.25), ("diagonal", 0.15)):
+            # The HMC step (K1), 5 leapfrogs.
+            dens, q, mass, noise = _family_problem(torch, dev, c, d, density,
+                                                   c + d)
+            got = fused_hmc_step(dens, q, mass, step, 5, (1, 2), 1,
+                                 noise=noise)
+            torch.cuda.synchronize()
+            want = fused_hmc_step_reference(dens, q, mass, step, 5, (1, 2), 1,
+                                            noise=noise)
+            rec = _hold(torch, "hmc_step {} {}x{}".format(density, c, d),
+                        noise[1], (got[2], want[2]), None,
+                        {"q'": (got[0], want[0], True),
+                         "p0": (got[1], want[1], False)},
+                        {"acc": (got[2], want[2], False),
+                         "old_lp": (got[3], want[3], False),
+                         "new_lp": (got[4], want[4], True),
+                         "old_h": (got[5], want[5], False),
+                         "new_h": (got[6], want[6], False)})
+            record("hmc_step", rec, density=density, shape=[c, d], step=step)
+
+            # The trajectory (K2), with both mass shapes.
+            p = noise[0]
+            for per_chain in (False, True):
+                m = (0.5 + 1.5 * torch.rand(c, d, device=dev) if per_chain
+                     else mass)
+                got = fused_leapfrog(dens, q, p, step, 5, m)
+                torch.cuda.synchronize()
+                want = fused_leapfrog_reference(dens, q, p, step, 5, m)
+                rec = _hold(torch, "leapfrog {} {}x{}".format(density, c, d),
+                            noise[1], None, None,
+                            {"q'": (got[0], want[0], False),
+                             "p'": (got[1], want[1], False)}, {})
+                record("leapfrog", rec, density=density, shape=[c, d],
+                       step=step, mass="[{}, dim]".format(c if per_chain
+                                                          else 1))
+
+            # The ChEES step (K7): unit mass, the device count; the last
+            # case is past the stability limit (0.447 for the
+            # equicorrelated density's fast directions, 0.2 for the
+            # diagonal one's std 0.1), where every chain diverges.
+            dens, q, mass, noise = _family_problem(torch, dev, c, d, density,
+                                                   c + d + 1, unit_mass=True)
+            eps = 0.2 if density == "equicorrelated" else 0.15
+            past = 0.5 if density == "equicorrelated" else 0.25
+            for n, ss in ((1, eps), (37, eps), (190, eps),
+                          (CHEES_MAX_LEAPFROGS, eps), (190, past)):
+                n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+                got = fused_chees_step(dens, q, mass, ss, n_dev, (1, 2), 1,
+                                       noise=noise)
+                torch.cuda.synchronize()
+                want = fused_chees_step_reference(dens, q, mass, ss, n_dev,
+                                                  (1, 2), 1, noise=noise)
+                label = "chees_step {} {}x{} n={} step={}".format(
+                    density, c, d, n, ss)
+                rec = _hold(torch, label, noise[1], (got[3], want[3]),
+                            (got[1], want[1]),
+                            {"q'": (got[0], want[0], True),
+                             "prop_q": (got[1], want[1], True),
+                             "prop_p": (got[2], want[2], True)},
+                            {"acc": (got[3], want[3], True),
+                             "old_lp": (got[4], want[4], False),
+                             "sel_lp": (got[5], want[5], True)})
+                rec["divergent"] = float(
+                    (~torch.isfinite(want[1]).all(1)).float().mean())
+                record("chees_step", rec, density=density, shape=[c, d],
+                       n_leapfrogs=n, step=ss)
+            check(cases["chees_step"][-1]["divergent"] > 0.5,
+                  "the ChEES step past the stability limit: only {} of the "
+                  "chains diverged".format(cases["chees_step"][-1][
+                      "divergent"]))
+
+    # ChEESHMC(experimental_fused_step=True) on an ineligible CUDA input
+    # raises.
+    ch = ChEESHMC(step_size=0.1, experimental_fused_step=True)
+    st = ch.init({"z": torch.zeros(16, 4, device=dev)})
+    try:
+        ch.sample(lambda obs: -0.5 * (obs["z"] ** 2).sum(-1), {}, st, (1, 2))
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "ChEES experimental_fused_step=True did not raise on an "
+                  "ineligible CUDA input")
+
+    # Times at the mixing width: each kernel with its own Philox; its plain
+    # version with torch's generator, as the samplers' plain paths draw.
+    timing = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dens, q, mass, _ = _family_problem(torch, dev, MIX_CHAINS, DIM,
+                                       "equicorrelated", 7)
+    step = torch.full((), 0.2, device=dev)
+
+    def draws():
+        return (torch.randn(MIX_CHAINS, DIM, generator=gen, device=dev),
+                torch.rand(MIX_CHAINS, generator=gen, device=dev))
+
+    timing["hmc_step_equicorrelated_n5"] = {
+        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, 5, (3, 4), 1), 200),
+        "plain_ms": _time_ms(torch, lambda: fused_hmc_step_reference(
+            dens, q, mass, step, 5, None, 1, noise=draws()), 20)}
+    p = draws()[0]
+    timing["leapfrog_equicorrelated_n5"] = {
+        "kernel_ms": _time_ms(torch, lambda: fused_leapfrog(
+            dens, q, p, step, 5, mass), 200),
+        "plain_ms": _time_ms(torch, lambda: fused_leapfrog_reference(
+            dens, q, p, step, 5, mass), 20)}
+    ones = torch.ones(1, DIM, device=dev)
+    for n in (100, 190):
+        n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+        timing["chees_step_equicorrelated_n%d" % n] = {
+            "kernel_ms": _time_ms(torch, lambda: fused_chees_step(
+                dens, q, ones, step, n_dev, (3, 4), 1), 50),
+            "plain_ms": _time_ms(torch, lambda: fused_chees_step_reference(
+                dens, q, ones, step, n_dev, None, 1, noise=draws()), 3)}
+    print("phase10 family_vs_plain " + json.dumps({
+        "cases": cases, "chees_fused_true_raises_on_ineligible": raised,
+        "timing_shape": [MIX_CHAINS, DIM], "timing": timing}))
+    return max_err, timing
+
+
+def _slow_sd():
+    """std of sum(z) under the equicorrelated target (bench.py:316)."""
+    return (DIM * (1.0 + (DIM - 1) * MIX_RHO)) ** 0.5
+
+
+def _mixing_ess(torch, traj):
+    """(sum over chains of the min-coordinate ESS, sum over chains of the
+    slow projection sum(z) / sd's ESS) of a [T, C, D] trajectory
+    (bench.py:318-332)."""
+    from zhusuan_tpu_torch.diagnostics import ess_batch_device
+
+    t, c, d = traj.shape
+    traj = traj.float()
+    ess = ess_batch_device(traj.reshape(t, c * d)).reshape(c, d)
+    coord = float(ess.min(dim=1).values.sum())
+    slow = ess_batch_device(traj.sum(dim=-1) / _slow_sd())
+    return coord, float(slow.sum())
+
+
+def _timed_trials(torch, sample, trials, postmap=None, launch_fns=()):
+    """bench.py's timed_trials: an untimed sampling run, then ``trials``
+    timed runs from the same warm state with distinct keys; the trial with
+    the median slow-projection ESS/s is reported, with every trial's
+    numbers and the kernels' launches per run."""
+    sample(100)
+    torch.cuda.synchronize()
+    rows = []
+    for trial in range(trials):
+        before = [f.launches for f in launch_fns]
+        t0 = time.perf_counter()
+        out = sample(101 + trial)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        traj = out["samples"]["z"]
+        if postmap is not None:
+            traj = postmap(traj)
+        check(bool(torch.isfinite(traj).all()), "non-finite samples")
+        coord, slow = _mixing_ess(torch, traj)
+        rows.append({"sample_sec": dt, "min_coord_ess": coord,
+                     "slow_proj_ess": slow, "ess_per_sec": coord / dt,
+                     "slow_proj_ess_per_sec": slow / dt,
+                     "out": out, "traj": traj,
+                     "launches": [f.launches - b
+                                  for f, b in zip(launch_fns, before)]})
+    order = sorted(range(trials),
+                   key=lambda i: rows[i]["slow_proj_ess_per_sec"])
+    mid = rows[order[trials // 2]]
+    rec = {k: v for k, v in mid.items() if k not in ("out", "traj")}
+    rec["trials_slow_proj_ess_per_sec"] = [r["slow_proj_ess_per_sec"]
+                                           for r in rows]
+    rec["trials_launches"] = [r["launches"] for r in rows]
+    return rec, mid["out"], mid["traj"]
+
+
+def _acceptance(out):
+    acc = out["acceptance_rate"].double()
+    return float(acc.mean()), float(
+        (1.0 / (1.0 / acc.clamp(min=1e-10)).mean(dim=1)).mean())
+
+
+def _mixing_hmc(torch, dev, fused, leapfrog_kernel, trials):
+    """Arm (a): fixed-L HMC with step-size and mass adaptation
+    (bench.py:371-383). Returns the record, the warm state and the
+    median trial's trajectory (the pilot of arm (c))."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.ops import fused_hmc_step, fused_leapfrog
+
+    dens = zt.EquicorrelatedGaussianLogJoint("z", DIM, MIX_RHO)
+    hmc = zt.HMC(step_size=0.1, n_leapfrogs=5, adapt_step_size=True,
+                 adapt_mass=True, mass_collect_iters=50,
+                 experimental_fused_step="auto" if fused else False,
+                 experimental_fused_leapfrog=leapfrog_kernel)
+    fns = (fused_hmc_step, fused_leapfrog)
+    before = [f.launches for f in fns]
+    st = hmc.init({"z": torch.zeros(MIX_CHAINS, DIM, device=dev)},
+                  log_joint=dens)
+    st, _ = hmc.run(dens, {}, st, torch.Generator().manual_seed(11),
+                    MIX_ITERS, n_adapt=MIX_ITERS, collect=False)
+    torch.cuda.synchronize()
+    warm = [f.launches - b for f, b in zip(fns, before)]
+    rec, out, traj = _timed_trials(
+        torch, lambda seed: hmc.run(
+            dens, {}, st, torch.Generator().manual_seed(seed), MIX_ITERS,
+            collect_fields=("samples", "acceptance_rate"))[1], trials,
+        launch_fns=fns)
+    rec["mean_acceptance"] = _acceptance(out)[0]
+    rec["step_size"] = float(st.step_size)
+    rec["warmup_launches"] = warm
+    rec["launch_counters"] = ["fused_hmc_step", "fused_leapfrog"]
+    return rec, st, traj
+
+
+def _mixing_chees(torch, dev, fused, trials):
+    """Arm (b): ChEES-HMC (bench.py:386-394)."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.ops import fused_chees_step
+
+    dens = zt.EquicorrelatedGaussianLogJoint("z", DIM, MIX_RHO)
+    ch = zt.ChEESHMC(step_size=0.05, trajectory_length=1.0,
+                     experimental_fused_step="auto" if fused else False)
+    before = fused_chees_step.launches
+    st = ch.init({"z": torch.zeros(MIX_CHAINS, DIM, device=dev)})
+    st, _ = ch.run(dens, {}, st, torch.Generator().manual_seed(21),
+                   MIX_ITERS, n_adapt=MIX_ITERS, collect=False)
+    torch.cuda.synchronize()
+    warm = fused_chees_step.launches - before
+    rec, out, _ = _timed_trials(
+        torch, lambda seed: ch.run(
+            dens, {}, st, torch.Generator().manual_seed(seed),
+            MIX_ITERS)[1], trials, launch_fns=(fused_chees_step,))
+    rec["mean_acceptance"], rec["harmonic_acceptance"] = _acceptance(out)
+    rec["step_size"] = float(st.step_size)
+    rec["trajectory_length"] = float(torch.exp(st.log_traj))
+    rec["mean_n_leapfrogs"] = float(out["n_leapfrogs"].double().mean())
+    rec["warmup_launches"] = [warm]
+    rec["launch_counters"] = ["fused_chees_step"]
+    return rec
+
+
+def _mixing_dense(torch, dev, warm_state, pilot_traj, trials):
+    """Arm (c): pilot -> fit_dense_preconditioner -> whiten_log_joint ->
+    HMC in whitened coordinates (bench.py:404-433)."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.ops import (
+        fused_chees_step, fused_hmc_step, fused_leapfrog,
+    )
+
+    dens = zt.EquicorrelatedGaussianLogJoint("z", DIM, MIX_RHO)
+    pilot = pilot_traj[::4].reshape(-1, DIM)
+    zt.fit_dense_preconditioner(pilot)  # warm-up (cuSOLVER's first call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chol = zt.fit_dense_preconditioner(pilot)
+    torch.cuda.synchronize()
+    fit_sec = time.perf_counter() - t0
+    wlj, to_w, from_w = zt.whiten_log_joint(dens, "z", chol)
+    phmc = zt.HMC(step_size=0.5, n_leapfrogs=5, adapt_step_size=True)
+    fns = (fused_hmc_step, fused_leapfrog, fused_chees_step)
+    before = [f.launches for f in fns]
+    pst = phmc.init({"z": to_w(warm_state.q["z"])}, log_joint=wlj)
+    pst, _ = phmc.run(wlj, {}, pst, torch.Generator().manual_seed(31),
+                      MIX_ITERS, n_adapt=MIX_ITERS, collect=False)
+    rec, out, _ = _timed_trials(
+        torch, lambda seed: phmc.run(
+            wlj, {}, pst, torch.Generator().manual_seed(seed), MIX_ITERS,
+            collect_fields=("samples", "acceptance_rate"))[1], trials,
+        postmap=from_w)
+    rec["launches"] = sum(f.launches - b for f, b in zip(fns, before))
+    rec["why_no_launches"] = ("the whitened density is a plain callable, "
+                              "not a built-in, so it takes the plain path")
+    rec["mean_acceptance"] = _acceptance(out)[0]
+    rec["step_size"] = float(pst.step_size)
+    rec["pilot_fit_sec"] = fit_sec
+    rec["pilot_draws"] = list(pilot.shape)
+    budget = 3000 / float(MIX_ITERS)
+    rec["ess_per_sec_amortized_3k_iters"] = (
+        rec["min_coord_ess"] * budget / (fit_sec + rec["sample_sec"] * budget))
+    return rec
+
+
+def phase_mixing(torch, dev):
+    from zhusuan_tpu_torch.ops import (
+        fused_chees_step, fused_hmc_step, fused_leapfrog,
+    )
+
+    kernels = (fused_hmc_step, fused_leapfrog, fused_chees_step)
+    for f in kernels:
+        f.launches = 0
+    arms = {}
+    arms["hmc_fixed_L"], warm, pilot = _mixing_hmc(torch, dev, True, False,
+                                                   N_TRIALS)
+    k1 = fused_hmc_step.launches
+    arms["hmc_fixed_L_leapfrog_kernel"], _, _ = _mixing_hmc(
+        torch, dev, False, True, N_TRIALS)
+    arms["chees"] = _mixing_chees(torch, dev, True, N_TRIALS)
+    arms["hmc_dense_precond"] = _mixing_dense(torch, dev, warm, pilot,
+                                              N_TRIALS)
+    launches = {f.__name__: f.launches for f in kernels}
+    for name, n in launches.items():
+        check(n > 0, "the mixing run launched {} no time".format(name))
+    check(launches["fused_hmc_step"] == k1,
+          "an arm other than (a) launched the HMC step kernel")
+    check(arms["hmc_dense_precond"]["launches"] == 0,
+          "the whitened arm launched a kernel")
+    # (a) and (b) on the plain path: one timed run each.
+    arms["hmc_fixed_L_plain"], _, _ = _mixing_hmc(torch, dev, False, False, 1)
+    arms["chees_plain"] = _mixing_chees(torch, dev, False, 1)
+    print("phase11 mixing " + json.dumps({
+        "target": "equicorrelated Gaussian rho={} dim={}".format(MIX_RHO,
+                                                                 DIM),
+        "n_chains": MIX_CHAINS, "n_adapt": MIX_ITERS, "n_iters": MIX_ITERS,
+        "launches": launches, "arms": arms}))
+    check(all(f.launches == launches[f.__name__] for f in kernels),
+          "a plain-path arm launched a kernel")
+    for name, rec in arms.items():
+        if "harmonic_acceptance" in rec:
+            check(abs(rec["harmonic_acceptance"] - 0.651) < 0.1,
+                  "{}: harmonic-mean acceptance {:.3f}".format(
+                      name, rec["harmonic_acceptance"]))
+        else:
+            lo = FIXED_L_MIN_ACCEPTANCE if "fixed_L" in name else 0.6
+            check(lo <= rec["mean_acceptance"] <= 0.95,
+                  "{}: mean acceptance {:.3f}".format(
+                      name, rec["mean_acceptance"]))
+    check(arms["chees"]["slow_proj_ess"]
+          > arms["hmc_fixed_L"]["slow_proj_ess"],
+          "ChEES's slow-projection ESS is not above fixed-L HMC's")
+    return launches
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -663,6 +1119,10 @@ def main():
     run_phase("phase7", phase_nuts_philox, torch, dev)
     nuts_launches = run_phase("phase8", phase_nuts_main_path, torch, dev)
     run_phase("phase9", phase_nuts_deep, torch, dev)
+    fam_err, fam_timing = run_phase("phase10", phase_family_vs_plain, torch,
+                                    dev)
+    mix_launches = run_phase("phase11", phase_mixing, torch, dev)
+    chees_t = fam_timing["chees_step_equicorrelated_n190"]
     print(json.dumps({"kernels": [{
         "name": "fused_hmc_step",
         "route": "cuda",
@@ -684,6 +1144,34 @@ def main():
         "plain_ms": nuts_timing["depth6"]["plain_ms"],
         "ms_depth10": nuts_timing["depth10"]["kernel_ms"],
         "plain_ms_depth10": nuts_timing["depth10"]["plain_ms"],
+    }, {
+        "name": "fused_hmc_step (equicorrelated density)",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/hmc_step.py:206",
+        "launches": mix_launches["fused_hmc_step"],
+        "max_abs_err": fam_err["hmc_step"],
+        "ms": fam_timing["hmc_step_equicorrelated_n5"]["kernel_ms"],
+        "plain_ms": fam_timing["hmc_step_equicorrelated_n5"]["plain_ms"],
+    }, {
+        "name": "fused_leapfrog",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/leapfrog.py:128",
+        "launches": mix_launches["fused_leapfrog"],
+        "max_abs_err": fam_err["leapfrog"],
+        "ms": fam_timing["leapfrog_equicorrelated_n5"]["kernel_ms"],
+        "plain_ms": fam_timing["leapfrog_equicorrelated_n5"]["plain_ms"],
+    }, {
+        "name": "fused_chees_step",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/chees_step.py:177",
+        "launches": mix_launches["fused_chees_step"],
+        "max_abs_err": fam_err["chees_step"],
+        "ms": chees_t["kernel_ms"],
+        "plain_ms": chees_t["plain_ms"],
+        "n_leapfrogs": 190,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

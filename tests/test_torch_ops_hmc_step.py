@@ -20,10 +20,12 @@ from zhusuan_tpu.mcmc import base as jbase
 from zhusuan_tpu.mcmc.hmc import HMC as JHMC
 from zhusuan_tpu_torch.mcmc import base as tbase
 from zhusuan_tpu_torch.mcmc.hmc import HMC as THMC
+from zhusuan_tpu_torch.mcmc.nuts import NUTS as TNUTS
 from zhusuan_tpu_torch.ops import _random
 from zhusuan_tpu_torch.ops.hmc_step import (
     MAX_DIM,
     DiagonalGaussianLogJoint,
+    EquicorrelatedGaussianLogJoint,
     fused_hmc_step,
     fused_hmc_step_reference,
     hmc_step_supported,
@@ -48,11 +50,25 @@ def _inputs(seed=0):
     )
 
 
-def _jax_step(x, cached):
-    inv_var = 1.0 / np.square(x["scale"])
+def _equi_closure(d, rho):
+    """bench.py:307-313, over the latent "x"."""
+    a_c = float(1.0 / (1.0 - rho))
+    b_c = float(rho / ((1.0 - rho) * (1.0 + (d - 1) * rho)))
 
     def log_joint(obs):
+        z = obs["x"]
+        return -0.5 * (a_c * jnp.sum(z * z, -1) - b_c * jnp.sum(z, -1) ** 2)
+
+    return log_joint
+
+
+def _jax_step(x, cached, log_joint=None):
+    inv_var = 1.0 / np.square(x["scale"])
+
+    def diag(obs):
         return jnp.sum(-0.5 * jnp.square(obs["x"] - x["loc"]) * inv_var, -1)
+
+    log_joint = log_joint or diag
 
     log_post = jbase.make_log_joint_fn(log_joint, {})
 
@@ -99,9 +115,9 @@ def _torch_cached_step(x):
     p = {"x": _torch(x, "eps") * torch.sqrt(m["x"])}
     step = torch.tensor(x["step"], dtype=torch.float64)
     g0 = grad_fn(q)
-    out_q, acc, old_lp, new_lp, old_h, new_h, new_g = tbase.hmc_transition(
-        q, p, _torch(x, "u"), step, L, grad_fn, log_post, m, 1, log_post(q),
-        g0)
+    (out_q, acc, old_lp, new_lp, old_h, new_h, new_g,
+     *_) = tbase.hmc_transition(q, p, _torch(x, "u"), step, L, grad_fn,
+                                log_post, m, 1, log_post(q), g0)
     # The kept point's gradient is carried on.
     torch.testing.assert_close(new_g["x"], grad_fn(out_q)["x"], rtol=1e-12,
                                atol=1e-12)
@@ -266,6 +282,87 @@ def test_wrapper_refuses(change, error):
 
 
 # --------------------------------------------------------------------- #
+# (h) the equicorrelated built-in (bench.py:297-313) and the gates
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("d,rho", [(D, 0.95), (100, 0.95), (5, -0.2)])
+def test_equicorrelated_matches_bench_closure(d, rho):
+    x = np.random.RandomState(9).randn(C, d)
+    jlj = _equi_closure(d, rho)
+    want = np.asarray(jlj({"x": x}))
+    want_g = np.asarray(jax.grad(lambda v: jnp.sum(jlj({"x": v})))(x))
+    dens = EquicorrelatedGaussianLogJoint("x", d, rho)
+    xt = torch.as_tensor(x)
+    np.testing.assert_allclose(dens({"x": xt}).numpy(), want, rtol=1e-12,
+                               atol=1e-12)
+    got_g = tbase.make_grad_fn(tbase.make_log_joint_fn(dens, {}))({"x": xt})
+    np.testing.assert_allclose(got_g["x"].numpy(), want_g, rtol=1e-12,
+                               atol=1e-12)
+    # The closed form is the Gaussian with covariance rho 11^T + (1-rho) I.
+    cov = rho * np.ones((d, d)) + (1 - rho) * np.eye(d)
+    quad = -0.5 * np.einsum("ci,ij,cj->c", x, np.linalg.inv(cov), x)
+    np.testing.assert_allclose(want, quad, rtol=1e-9)
+    ab, unused = dens.kernel_args("cpu")
+    assert unused is None and ab.dtype == torch.float32
+    # Second derivatives through the written-out gradient: minus the
+    # precision a I - b 11^T.
+    hess = torch.autograd.functional.hessian(dens.log_prob, xt[0])
+    np.testing.assert_allclose(
+        hess.numpy(), -(dens.a * np.eye(d) - dens.b * np.ones((d, d))),
+        rtol=1e-12, atol=1e-12)
+    # The kernel evaluates the centred form a sum((z - s/d)^2) + c s^2.
+    np.testing.assert_allclose(ab.numpy(), [dens.a, dens.c, 1.0 / d],
+                               rtol=1e-7)
+    np.testing.assert_allclose(dens.c, dens.a / d - dens.b, rtol=1e-12)
+
+
+@pytest.mark.parametrize("kwargs", [dict(dim=0, rho=0.5),
+                                    dict(dim=4, rho=1.0),
+                                    dict(dim=4, rho=-0.5)])
+def test_equicorrelated_rejects_bad_parameters(kwargs):
+    with pytest.raises(ValueError):
+        EquicorrelatedGaussianLogJoint("x", **kwargs)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reference_matches_jax_composition_equicorrelated(seed):
+    x = _inputs(seed)
+    x["q"] = x["q"] * 0.5
+    x["step"] = 0.3
+    want = _jax_step(x, False, _equi_closure(D, 0.9))
+    got = fused_hmc_step_reference(
+        EquicorrelatedGaussianLogJoint("x", D, 0.9), _torch(x, "q"),
+        _torch(x, "mass"), torch.tensor(x["step"], dtype=torch.float64), L,
+        None, 1, noise=(_torch(x, "eps"), _torch(x, "u")))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12, atol=1e-12)
+    assert 0 < np.mean(x["u"] < want[2]) < 1
+
+
+def test_kernel_gates_take_their_builtins():
+    """The HMC kernel takes both built-ins; NUTS only the diagonal one,
+    and says which it takes."""
+    q = {"x": torch.zeros(8, 4)}
+    m = {"x": torch.ones(1, 4)}
+    diag = DiagonalGaussianLogJoint("x", torch.zeros(4), torch.ones(4))
+    equi = EquicorrelatedGaussianLogJoint("x", 4, 0.9)
+    assert THMC._fused_ineligible(diag, {}, q, m, 1) is None
+    assert THMC._fused_ineligible(equi, {}, q, m, 1) is None
+    nuts = TNUTS(max_tree_depth=5)
+    assert nuts._fused_ineligible(diag, {}, q, m, 1) is None
+    reason = nuts._fused_ineligible(equi, {}, q, m, 1)
+    assert "built-in" in reason and "DiagonalGaussianLogJoint" in reason
+    assert "Equicorrelated" not in reason
+    # NUTS still samples the equicorrelated density, on the plain path.
+    st = nuts.init({"x": torch.zeros(8, 4)}, log_joint=equi)
+    st, info = nuts.sample(equi, {}, st, (1, 2))
+    assert st.t == 1 and torch.isfinite(st.q["x"]).all()
+    with pytest.raises(TypeError):
+        from zhusuan_tpu_torch.ops.nuts_step import fused_nuts_transition
+        fused_nuts_transition(equi, torch.zeros(8, 4), torch.ones(1, 4), 0.1,
+                              3, 1000.0, (1, 2), 1)
+
+
+# --------------------------------------------------------------------- #
 # random numbers
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("ctr,key,want", [
@@ -340,15 +437,19 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("density", ["diagonal", "equicorrelated"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_reference_on_card(dtype):
+def test_kernel_matches_reference_on_card(dtype, density):
     _need_cuda()
     dev = torch.device("cuda")
     x = _inputs(8)
     q = _torch(x, "q").to(dev, dtype)
     mass = _torch(x, "mass").to(dev, torch.float32)
-    dens = DiagonalGaussianLogJoint("x", _torch(x, "loc").float().to(dev),
-                                    _torch(x, "scale").float().to(dev))
+    if density == "equicorrelated":
+        dens = EquicorrelatedGaussianLogJoint("x", D, 0.9)
+    else:
+        dens = DiagonalGaussianLogJoint("x", _torch(x, "loc").float().to(dev),
+                                        _torch(x, "scale").float().to(dev))
     noise = (_torch(x, "eps").float().to(dev), _torch(x, "u").float().to(dev))
     before = fused_hmc_step.launches
     got = fused_hmc_step(dens, q, mass, 0.2, L, (1, 2), 1, noise=noise)

@@ -2,22 +2,47 @@
 H100.
 
 Imports ``torch`` and never ``jax``. Module names mirror ``zhusuan_tpu``.
-Ported so far: adaptive HMC and NUTS, each with its hand-written CUDA
-transition kernel (:mod:`.mcmc`, :mod:`.ops`), the ESS diagnostics
-(:mod:`.diagnostics`) and the utilities they use (:mod:`.utils`).
+Ported so far: adaptive HMC, NUTS and ChEES-HMC, each with its
+hand-written CUDA transition kernel, and dense preconditioning
+(:mod:`.mcmc`, :mod:`.ops`), the ESS diagnostics (:mod:`.diagnostics`)
+and the utilities they use (:mod:`.utils`).
 """
 
 from zhusuan_tpu_torch import diagnostics, mcmc, ops, utils
-from zhusuan_tpu_torch.mcmc import HMC, NUTS, HMCInfo, HMCState, NUTSInfo
-from zhusuan_tpu_torch.ops import DiagonalGaussianLogJoint
+from zhusuan_tpu_torch.mcmc import (
+    HMC,
+    NUTS,
+    ChEESHMC,
+    ChEESInfo,
+    ChEESState,
+    HMCInfo,
+    HMCState,
+    NUTSInfo,
+    fit_dense_preconditioner,
+    whiten_log_joint,
+)
+from zhusuan_tpu_torch.ops import (
+    DiagonalGaussianLogJoint,
+    EquicorrelatedGaussianLogJoint,
+    fused_chees_step,
+    fused_leapfrog,
+)
 
 __all__ = [
+    "ChEESHMC",
+    "ChEESInfo",
+    "ChEESState",
     "HMC",
     "HMCInfo",
     "HMCState",
     "NUTS",
     "NUTSInfo",
     "DiagonalGaussianLogJoint",
+    "EquicorrelatedGaussianLogJoint",
+    "fit_dense_preconditioner",
+    "fused_chees_step",
+    "fused_leapfrog",
+    "whiten_log_joint",
     "diagnostics",
     "mcmc",
     "ops",

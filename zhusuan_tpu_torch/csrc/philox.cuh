@@ -78,8 +78,9 @@ __device__ __forceinline__ void normals4(uint32_t t, uint32_t row, uint32_t g,
 }
 
 // Sum over the 32 lanes; every lane gets the same bits (each butterfly step
-// adds the same two numbers on both lanes, and float addition commutes).
-__device__ __forceinline__ float warp_sum(float v) {
+// adds the same two numbers on both lanes, and addition commutes).
+template <typename F>
+__device__ __forceinline__ F warp_sum(F v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;

@@ -1,9 +1,11 @@
 """MCMC samplers of the port (counterpart of ``zhusuan_tpu/mcmc``).
 
-Ported so far: :class:`HMC` with its shared machinery (:mod:`.base`) and
-:class:`NUTS`.
+Ported so far: :class:`HMC` with its shared machinery (:mod:`.base`),
+:class:`NUTS`, :class:`ChEESHMC` and dense preconditioning
+(:func:`fit_dense_preconditioner`, :func:`whiten_log_joint`).
 """
 
+from zhusuan_tpu_torch.mcmc.chees import ChEESHMC, ChEESInfo, ChEESState
 from zhusuan_tpu_torch.mcmc.hmc import (
     HMC,
     HMCInfo,
@@ -12,6 +14,11 @@ from zhusuan_tpu_torch.mcmc.hmc import (
     state_to_numpy,
 )
 from zhusuan_tpu_torch.mcmc.nuts import NUTS, NUTSInfo
+from zhusuan_tpu_torch.mcmc.precondition import (
+    fit_dense_preconditioner,
+    whiten_log_joint,
+)
 
-__all__ = ["HMC", "HMCInfo", "HMCState", "NUTS", "NUTSInfo",
-           "state_from_numpy", "state_to_numpy"]
+__all__ = ["ChEESHMC", "ChEESInfo", "ChEESState", "HMC", "HMCInfo",
+           "HMCState", "NUTS", "NUTSInfo", "fit_dense_preconditioner",
+           "state_from_numpy", "state_to_numpy", "whiten_log_joint"]

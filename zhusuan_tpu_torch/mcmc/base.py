@@ -286,25 +286,35 @@ def _finish_acceptance(old_h, old_log_prob, new_q, new_p, log_posterior,
 
 def hmc_transition(q, p, u, step_size, n_leapfrogs: int, grad_fn,
                    log_posterior, mass, n_chain_dims, old_log_prob=None,
-                   g0=None):
+                   g0=None, trajectory=None):
     """One HMC transition from drawn momentum ``p`` and MH uniforms ``u``
     (reference hmc.py:474-498): the boundary-aware trajectory, both
     Hamiltonians with the non-finite -> reject guard, and the per-chain MH
-    select. The plain path of ``HMC.sample`` and the fused kernel's plain
-    version (``ops/hmc_step.py::fused_hmc_step_reference``) both run it.
+    select. The plain paths of ``HMC.sample`` and ``ChEESHMC.sample`` and
+    the kernels' plain versions (``ops/hmc_step.py::
+    fused_hmc_step_reference``, ``ops/chees_step.py::
+    fused_chees_step_reference``) all run it.
 
     :param old_log_prob: ``log_posterior(q)`` when already known (the
         carried cache); evaluated here otherwise.
     :param g0: the gradient at ``q`` when carried; the trajectory then
         takes ``n_leapfrogs`` gradient evaluations and the kept point's
         gradient is returned.
+    :param trajectory: optional ``(q, p, step_size, n_leapfrogs) ->
+        (q', p')`` replacing :func:`leapfrog_trajectory` when ``g0`` is
+        None (``HMC(experimental_fused_leapfrog=True)`` passes the
+        trajectory kernel here).
     :return: ``(q', acceptance_rate, old_log_prob, log_prob, old_h, new_h,
-        grad')``: ``q'``, ``log_prob`` and ``grad'`` are those of the kept
-        point (``grad'`` is None unless ``g0`` was given).
+        grad', prop_q, prop_p)``: ``q'``, ``log_prob`` and ``grad'`` are
+        those of the kept point (``grad'`` is None unless ``g0`` was
+        given); ``(prop_q, prop_p)`` is the trajectory's endpoint, kept or
+        not.
     """
     if g0 is not None:
         prop_q, prop_p, prop_g = leapfrog_trajectory_cached(
             q, p, step_size, n_leapfrogs, grad_fn, mass, g0)
+    elif trajectory is not None:
+        prop_q, prop_p = trajectory(q, p, step_size, n_leapfrogs)
     else:
         prop_q, prop_p = leapfrog_trajectory(q, p, step_size, n_leapfrogs,
                                              grad_fn, mass)
@@ -323,4 +333,5 @@ def hmc_transition(q, p, u, step_size, n_leapfrogs: int, grad_fn,
         if g0 is not None:
             new_g[k] = torch.where(cond, prop_g[k], g0[k])
     new_log_prob = torch.where(take, new_log_prob, old_log_prob)
-    return new_q, acc, old_log_prob, new_log_prob, old_h, new_h, new_g
+    return (new_q, acc, old_log_prob, new_log_prob, old_h, new_h, new_g,
+            prop_q, prop_p)

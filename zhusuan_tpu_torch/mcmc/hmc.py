@@ -18,10 +18,13 @@ random-number counter) never read the device. The only host syncs in ``run`` are
 the init step-size search's trials.
 
 On a CUDA device, a single ``[n_chains, dim]`` float32/bfloat16 latent
-under the built-in :class:`~zhusuan_tpu_torch.ops.hmc_step.
-DiagonalGaussianLogJoint` takes the hand-written CUDA kernel
-(:func:`~zhusuan_tpu_torch.ops.hmc_step.fused_hmc_step`) for the whole
-transition; everything else takes the plain torch path.
+under a built-in density (:mod:`~zhusuan_tpu_torch.ops.densities`: the
+diagonal or the equicorrelated Gaussian) takes the hand-written CUDA
+kernel (:func:`~zhusuan_tpu_torch.ops.hmc_step.fused_hmc_step`) for the
+whole transition. With ``experimental_fused_leapfrog=True``, a transition
+that does not take it runs its trajectory through the trajectory kernel
+(:func:`~zhusuan_tpu_torch.ops.leapfrog.fused_leapfrog`) when that is
+eligible. Everything else takes the plain torch path.
 """
 
 from __future__ import annotations
@@ -44,13 +47,15 @@ from zhusuan_tpu_torch.mcmc.base import (
     make_log_joint_fn,
     tree_random_momentum,
 )
+from zhusuan_tpu_torch.ops import hmc_step, leapfrog
 from zhusuan_tpu_torch.ops._random import iteration_generator, philox_key
+from zhusuan_tpu_torch.ops.densities import BuiltinDensity
 from zhusuan_tpu_torch.ops.hmc_step import (
     MAX_DIM,
-    DiagonalGaussianLogJoint,
     fused_hmc_step,
     hmc_step_supported,
 )
+from zhusuan_tpu_torch.ops.leapfrog import fused_leapfrog, leapfrog_supported
 
 __all__ = ["HMC", "HMCState", "HMCInfo", "state_from_numpy",
            "state_to_numpy"]
@@ -114,6 +119,13 @@ class HMC:
     :param mass_collect_iters: iterations before the adapted mass is used
         (forced to 0 when ``adapt_mass`` is None, as in the reference).
     :param mass_decay: EW variance decay.
+    :param experimental_fused_leapfrog: when the whole-step kernel is not
+        taken, run the trajectory through the trajectory kernel
+        (:func:`~zhusuan_tpu_torch.ops.leapfrog.fused_leapfrog`) if it is
+        eligible: CUDA, a built-in density over a single ``[n_chains,
+        dim]`` float32 latent with one chain axis, ``[1, dim]`` float32
+        mass. Otherwise the plain trajectory runs. :meth:`run` then carries
+        no density cache, as in the JAX package.
     :param experimental_fused_step: ``"auto"`` (default) runs the whole
         transition in the CUDA kernel whenever it is eligible (see the
         module docstring) and the plain path otherwise; ``False`` always
@@ -134,6 +146,7 @@ class HMC:
         adapt_mass: Optional[bool] = None,
         mass_collect_iters: int = 10,
         mass_decay: float = 0.99,
+        experimental_fused_leapfrog: bool = False,
         experimental_fused_step="auto",
     ):
         self.init_step_size = float(step_size)
@@ -158,6 +171,7 @@ class HMC:
             int(mass_collect_iters) if adapt_mass is not None else 0
         )
         self.mass_decay = float(mass_decay)
+        self.experimental_fused_leapfrog = bool(experimental_fused_leapfrog)
         if experimental_fused_step not in (True, False, "auto"):
             raise ValueError(
                 "experimental_fused_step must be True, False, or 'auto'."
@@ -170,12 +184,34 @@ class HMC:
         """Why the kernel cannot take this transition (None if it can)."""
         return builtin_density_ineligible(
             log_joint, observed, q, mass, n_chain_dims, hmc_step_supported,
+            hmc_step.DENSITIES,
             "float32/bfloat16 with dim <= {}".format(MAX_DIM))
 
     def _use_fused_step(self, log_joint, observed, q, mass, n_chain_dims):
         return use_kernel(self.experimental_fused_step, q,
                           lambda: self._fused_ineligible(
                               log_joint, observed, q, mass, n_chain_dims))
+
+    def _fused_trajectory(self, log_joint, observed, q, mass, n_chain_dims):
+        """The trajectory kernel as a ``trajectory`` of
+        :func:`..base.hmc_transition`, or None when the flag is off, the
+        tensors are not on a CUDA device or the kernel is ineligible."""
+        if not (self.experimental_fused_leapfrog
+                and any(v.is_cuda for v in q.values())):
+            return None
+        if builtin_density_ineligible(
+                log_joint, observed, q, mass, n_chain_dims,
+                leapfrog_supported, leapfrog.DENSITIES,
+                "float32 with dim <= {}".format(MAX_DIM)) is not None:
+            return None
+        ((name, _),) = q.items()
+
+        def trajectory(q, p, step_size, n_leapfrogs):
+            nq, np_ = fused_leapfrog(log_joint, q[name], p[name], step_size,
+                                     n_leapfrogs, mass[name])
+            return {name: nq}, {name: np_}
+
+        return trajectory
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -253,7 +289,7 @@ class HMC:
         """Run ONE HMC iteration: ``(state, key) -> (state, info)``.
 
         :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
-            :class:`~zhusuan_tpu_torch.ops.hmc_step.DiagonalGaussianLogJoint`.
+            built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`.
         :param observed: dict of observations.
         :param state: current :class:`HMCState`.
         :param key: key ``(k0, k1)`` or a ``torch.Generator`` to draw one
@@ -293,7 +329,7 @@ class HMC:
         old_lp_pre = None
         if cache is not None:
             n_chain_dims = cache[0].ndim
-        elif (len(q) == 1 and isinstance(log_joint, DiagonalGaussianLogJoint)
+        elif (len(q) == 1 and isinstance(log_joint, BuiltinDensity)
               and log_joint.name in q):
             n_chain_dims = q[log_joint.name].ndim - 1
         else:
@@ -360,9 +396,11 @@ class HMC:
                                   dtype=x0.dtype, device=x0.device)
             # --- leapfrog + MH test (hmc.py:474-498) ------------------- #
             (accepted_q, acceptance_rate, old_log_prob, new_log_prob, old_h,
-             new_h, accepted_g) = hmc_transition(
+             new_h, accepted_g, _, _) = hmc_transition(
                 q, p, u_in, step_size, self.n_leapfrogs, grad_fn, log_post,
-                mass, n_chain_dims, old_lp_in, g0)
+                mass, n_chain_dims, old_lp_in, g0,
+                self._fused_trajectory(log_joint, observed, q, mass,
+                                       n_chain_dims))
             if cache is not None:
                 new_cache = (new_log_prob, accepted_g)
 
@@ -473,11 +511,14 @@ class HMC:
         key = _as_key(key)
         adapt_enabled = self.adapt_step_size is not None
         # Carry (log_prob, grad) at the current position on the plain
-        # path; the kernel re-evaluates in registers and ignores it. The
-        # mass stays [1, dim] throughout, so the gate's answer for the
-        # initial state holds for the whole run.
-        cache = (None if self._use_fused_step(log_joint, observed, state.q,
-                                              state.mass, 1)
+        # path; the kernels re-evaluate in registers and ignore it, and
+        # with experimental_fused_leapfrog no cache is carried (as in the
+        # JAX package, mcmc/hmc.py:850-853). The mass stays [1, dim]
+        # throughout, so the gate's answer for the initial state holds for
+        # the whole run.
+        cache = (None if self.experimental_fused_leapfrog
+                 or self._use_fused_step(log_joint, observed, state.q,
+                                         state.mass, 1)
                  else self.make_cache(log_joint, observed, state))
         n_out = n_iters // thinning if collect else 0
         outputs = {} if collect else None
@@ -546,15 +587,16 @@ def mass_update(state: HMCState, gate, n_chain_dims: int, decay: float,
 
 
 def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
-                               supported, wants):
-    """Why a kernel over the built-in density cannot take a transition on
+                               supported, densities, wants):
+    """Why a kernel over built-in densities cannot take a transition on
     the latent dict ``q`` (None if it can). ``supported(shape, dtype)`` is
-    the kernel's gate; ``wants`` says in words what it takes."""
+    the kernel's gate, ``densities`` the built-ins it evaluates; ``wants``
+    says in words what it takes."""
     if len(q) != 1:
         return "the latent must be a single tensor"
-    if not isinstance(log_joint, DiagonalGaussianLogJoint):
-        return ("the log-joint must be the built-in "
-                "DiagonalGaussianLogJoint")
+    if not isinstance(log_joint, densities):
+        return "the log-joint must be one of the built-in densities {}".format(
+            ", ".join(c.__name__ for c in densities))
     ((name, x),) = q.items()
     if log_joint.name != name or name in (observed or {}):
         return "the built-in density must be over the latent {!r}".format(
@@ -566,7 +608,7 @@ def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
     if tuple(mass[name].shape) != (1, d) or \
             mass[name].dtype != torch.float32:
         return "the mass must be [1, dim] float32"
-    if tuple(log_joint.loc.shape) != (d,):
+    if log_joint.dim != d:
         return "the density's dim differs from the latent's"
     return None
 

@@ -21,13 +21,14 @@ and the kernel's plain version
 both run it.
 
 On a CUDA device, a single ``[n_chains, dim]`` float32 latent under the
-built-in :class:`~zhusuan_tpu_torch.ops.hmc_step.DiagonalGaussianLogJoint`
-takes the hand-written CUDA kernel
-(:func:`~zhusuan_tpu_torch.ops.nuts_step.fused_nuts_transition`) for the
-whole tree, at every depth from 1 to 12; everything else takes the plain
-path. The state is the port's :class:`~zhusuan_tpu_torch.mcmc.hmc.HMCState`
-(``t`` a host int), so ``state_from_numpy`` / ``state_to_numpy`` carry a
-JAX NUTS state unchanged.
+built-in :class:`~zhusuan_tpu_torch.ops.densities.DiagonalGaussianLogJoint`
+(the one built-in the NUTS kernel evaluates) takes the hand-written CUDA
+kernel (:func:`~zhusuan_tpu_torch.ops.nuts_step.fused_nuts_transition`)
+for the whole tree, at every depth from 1 to 12; everything else takes the
+plain path. The state is the port's
+:class:`~zhusuan_tpu_torch.mcmc.hmc.HMCState` (``t`` a host int), so
+``state_from_numpy`` / ``state_to_numpy`` carry a JAX NUTS state
+unchanged.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ from zhusuan_tpu_torch.mcmc.hmc import (
     use_kernel,
 )
 from zhusuan_tpu_torch.ops._random import iteration_generator
-from zhusuan_tpu_torch.ops.hmc_step import DiagonalGaussianLogJoint
+from zhusuan_tpu_torch.ops.densities import BuiltinDensity
 from zhusuan_tpu_torch.ops.nuts_step import (
+    DENSITIES,
     MAX_DIM,
     MAX_TREE_DEPTH,
     fused_nuts_transition,
@@ -407,6 +409,7 @@ class NUTS:
         return builtin_density_ineligible(
             log_joint, observed, q, mass, n_chain_dims,
             lambda shape, dtype: nuts_step_supported(shape, depth, dtype),
+            DENSITIES,
             "float32 with dim <= {} at 1 <= max_tree_depth <= {} (depth "
             "{})".format(MAX_DIM, MAX_TREE_DEPTH, depth))
 
@@ -421,7 +424,7 @@ class NUTS:
         model whose density is not scalar per chain carries the chain
         shape on some observed leaf (the JAX package's per-chain observed
         leaves)."""
-        if (len(q) == 1 and isinstance(log_joint, DiagonalGaussianLogJoint)
+        if (len(q) == 1 and isinstance(log_joint, BuiltinDensity)
                 and log_joint.name in q):
             return tuple(q[log_joint.name].shape[:-1])
         chain_shape = tuple(log_post(q).shape)
@@ -449,7 +452,7 @@ class NUTS:
         (state, NUTSInfo)``.
 
         :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
-            :class:`~zhusuan_tpu_torch.ops.hmc_step.DiagonalGaussianLogJoint`.
+            built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`.
         :param observed: dict of observations; a leaf may carry the chain
             shape (per-chain conditioning).
         :param state: current :class:`HMCState`.

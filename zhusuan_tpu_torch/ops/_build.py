@@ -23,14 +23,14 @@ __all__ = ["build_libraries", "load_library", "BUILD_DIR"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+# -fmad=false: the kernels round every product and sum on their own, as
+# the plain torch versions' separate elementwise ops do, so a trajectory
+# over the diagonal Gaussian agrees bit for bit (an FMA would round once
+# where torch rounds twice).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# nuts_step.cu rounds every product and sum on its own, as the plain torch
-# version's separate elementwise ops do, so the two leapfrog trajectories
-# agree bit for bit (an FMA would round once where torch rounds twice).
-EXTRA_FLAGS = {"nuts_step": ("-fmad=false",)}
 
 _LOADED = {}  # name -> (ctypes.CDLL, build record)
 
@@ -53,7 +53,7 @@ def _nvcc() -> str:
 def _paths(name: str):
     """``(source, flags, library path, log path)`` of ``csrc/<name>.cu``."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    flags = NVCC_FLAGS
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:

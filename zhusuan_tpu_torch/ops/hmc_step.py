@@ -10,12 +10,14 @@ trajectory. It reads q once and writes q' and p0 once, so at the main
 path's 32768 x 100 it is bound by instruction latency in the per-warp loop
 (Philox, Box-Muller, six gradient evaluations, four warp reductions), not
 by device-memory bandwidth: 0.09 ms per launch on an H100 80GB HBM3 (700 W
-limit), at about 13% of peak bandwidth, the same for bfloat16 q.
+limit), at about 13% of peak bandwidth, the same for bfloat16 q. The same
+library holds the ChEES transition (:mod:`.chees_step`) and the trajectory
+alone (:mod:`.leapfrog`), instantiations of one kernel body.
 
 The Pallas kernel traces any user density into its body. A CUDA kernel
-cannot, so the kernel computes one built-in density,
-:class:`DiagonalGaussianLogJoint`, whose parameters it reads through
-pointers; any other log-joint takes the sampler's plain path.
+cannot, so the kernel computes the built-in densities of
+:mod:`.densities` named in :data:`DENSITIES`, whose parameters it reads
+through pointers; any other log-joint takes the sampler's plain path.
 
 Random numbers: Philox4x32-10 written into the kernel, keyed by a pair of
 ints drawn once from a ``torch.Generator`` and counted by (iteration,
@@ -31,7 +33,7 @@ old_h [c], new_h [c])``, float32 on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -41,9 +43,16 @@ from zhusuan_tpu_torch.ops._random import (
     philox_normal,
     philox_uniform,
 )
+from zhusuan_tpu_torch.ops.densities import (
+    BuiltinDensity,
+    DiagonalGaussianLogJoint,
+    EquicorrelatedGaussianLogJoint,
+)
 
 __all__ = [
+    "DENSITIES",
     "DiagonalGaussianLogJoint",
+    "EquicorrelatedGaussianLogJoint",
     "fused_hmc_step",
     "fused_hmc_step_reference",
     "hmc_step_supported",
@@ -53,50 +62,8 @@ __all__ = [
 # One lane holds up to 4 groups of 4 elements (csrc/hmc_step.cu dispatch).
 MAX_DIM = 512
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-
-class DiagonalGaussianLogJoint:
-    """Built-in density the fused kernel can evaluate:
-    ``log p(obs[name]) = sum_j -0.5 (x_j - loc_j)^2 / scale_j^2`` over the
-    last axis (normalising constant omitted, as in ``bench.py:72-74``).
-
-    Callable as a plain ``log_joint(obs)``, so the plain path and the CPU
-    tests use it like any closure; the kernel reads ``loc`` and
-    ``inv_var = 1 / scale^2`` as explicit pointer arguments.
-
-    :param name: the latent's name in the latent dict.
-    :param loc: ``[dim]`` tensor of means.
-    :param scale: ``[dim]`` tensor of standard deviations.
-    """
-
-    def __init__(self, name: str, loc, scale):
-        loc = torch.as_tensor(loc)
-        scale = torch.as_tensor(scale, dtype=loc.dtype, device=loc.device)
-        if loc.ndim != 1 or scale.shape != loc.shape:
-            raise ValueError(
-                "loc and scale must be 1-D tensors of one shape; got {} and "
-                "{}.".format(tuple(loc.shape), tuple(scale.shape)))
-        self.name = name
-        self.loc = loc
-        self.scale = scale
-        self.inv_var = 1.0 / torch.square(scale)
-        self._kernel_args = {}
-
-    def log_prob(self, x):
-        return torch.sum(-0.5 * torch.square(x - self.loc) * self.inv_var,
-                         dim=-1)
-
-    def __call__(self, obs):
-        return self.log_prob(obs[self.name])
-
-    def kernel_args(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """float32 contiguous ``(loc, inv_var)`` on ``device`` (cached)."""
-        key = str(device)
-        if key not in self._kernel_args:
-            self._kernel_args[key] = tuple(
-                v.to(device=device, dtype=torch.float32).contiguous()
-                for v in (self.loc, self.inv_var))
-        return self._kernel_args[key]
+#: The built-in densities the HMC-family kernels evaluate.
+DENSITIES = (DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint)
 
 
 def hmc_step_supported(q_shape, dtype: Optional[torch.dtype] = None) -> bool:
@@ -111,53 +78,112 @@ def hmc_step_supported(q_shape, dtype: Optional[torch.dtype] = None) -> bool:
 
 
 def kernel_library():
-    """Build (at first use) and load the kernel's shared library; returns
-    ``(cdll, build_record)`` (see :func:`._build.load_library`)."""
+    """Build (at first use) and load the HMC-family kernels' shared
+    library; returns ``(cdll, build_record)`` (see
+    :func:`._build.load_library`)."""
     from zhusuan_tpu_torch.ops._build import load_library
 
     lib, record = load_library("hmc_step")
     if not getattr(lib, "_zs_typed", False):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.zs_fused_hmc_step.argtypes = (
-            [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+            [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
              u32, u32, u32] + [ptr] * 8)
-        lib.zs_fused_hmc_step.restype = i32
+        lib.zs_fused_chees_step.argtypes = (
+            [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, u32, u32,
+             u32] + [ptr] * 7)
+        lib.zs_fused_leapfrog.argtypes = (
+            [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32]
+            + [ptr] * 3)
+        for fn in (lib.zs_fused_hmc_step, lib.zs_fused_chees_step,
+                   lib.zs_fused_leapfrog):
+            fn.restype = i32
         lib.zs_cuda_error_string.argtypes = [i32]
         lib.zs_cuda_error_string.restype = ctypes.c_char_p
         lib._zs_typed = True
     return lib, record
 
 
-def _check_inputs(density, q, mass, noise):
-    if not isinstance(density, DiagonalGaussianLogJoint):
+def check_density(fn_name, density, densities, d):
+    """Raise unless ``density`` is one of the built-ins ``densities`` over
+    a last axis of size ``d``."""
+    if not isinstance(density, densities):
         raise TypeError(
-            "fused_hmc_step evaluates only the built-in "
-            "DiagonalGaussianLogJoint; got {!r}.".format(type(density)))
+            "{} evaluates only the built-in densities {}; got {!r}.".format(
+                fn_name, [c.__name__ for c in densities], type(density)))
+    if density.dim != d:
+        raise ValueError("density has dim {}, q has dim {}.".format(
+            density.dim, d))
+
+
+def check_device(q, *others):
+    """Raise unless ``q`` is on the CPU or a CUDA device and every other
+    tensor is on its device."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError("q must be on the CPU or a CUDA device; got "
+                         "{}.".format(q.device))
+    for name, v in others:
+        if v.device != q.device:
+            raise ValueError("{} is on {}, q on {}.".format(name, v.device,
+                                                            q.device))
+
+
+def check_noise(noise, q):
+    """Raise unless ``noise`` is None or ``(eps [c, d], u [c])`` on q's
+    device."""
+    if noise is None:
+        return
+    c, d = q.shape
+    eps, u = noise
+    if tuple(eps.shape) != (c, d) or tuple(u.shape) != (c,):
+        raise ValueError(
+            "noise must be (eps [{0}, {1}], u [{0}]); got {2} and "
+            "{3}.".format(c, d, tuple(eps.shape), tuple(u.shape)))
+    if eps.device != q.device or u.device != q.device:
+        raise ValueError("noise must be on q's device {}.".format(q.device))
+
+
+def _check_inputs(density, q, mass, noise):
     if q.ndim != 2:
         raise ValueError(
             "q must be [n_chains, dim]; got shape {}.".format(tuple(q.shape)))
     c, d = q.shape
+    check_density("fused_hmc_step", density, DENSITIES, d)
     if tuple(mass.shape) != (1, d):
         raise ValueError("mass must be [1, {}]; got {}.".format(
             d, tuple(mass.shape)))
-    if tuple(density.loc.shape) != (d,):
-        raise ValueError("density has dim {}, q has dim {}.".format(
-            density.loc.shape[0], d))
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError("q must be on the CPU or a CUDA device; got "
-                         "{}.".format(q.device))
-    if mass.device != q.device:
-        raise ValueError("mass is on {}, q on {}.".format(mass.device,
-                                                          q.device))
-    if noise is not None:
-        eps, u = noise
-        if tuple(eps.shape) != (c, d) or tuple(u.shape) != (c,):
-            raise ValueError(
-                "noise must be (eps [{0}, {1}], u [{0}]); got {2} and "
-                "{3}.".format(c, d, tuple(eps.shape), tuple(u.shape)))
-        if eps.device != q.device or u.device != q.device:
-            raise ValueError("noise must be on q's device {}.".format(
-                q.device))
+    check_device(q, ("mass", mass))
+    check_noise(noise, q)
+
+
+def device_scalar(value, dev, dtype=torch.float32):
+    """``value`` (a tensor or a number) as a ``[1]`` tensor on ``dev``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=dev, dtype=dtype).reshape(1)
+    return torch.full((1,), value, dtype=dtype, device=dev)
+
+
+def density_pointers(density: BuiltinDensity, dev):
+    """``(kernel_id, dens0, dens1)``: the density's id and its parameter
+    arrays' device pointers (None for an unused one)."""
+    p0, p1 = density.kernel_args(dev)
+    return (density.kernel_id, p0.data_ptr(),
+            None if p1 is None else p1.data_ptr())
+
+
+def noise_pointers(noise):
+    """float32 contiguous copies of ``noise`` and their pointers, or
+    ``(None, (None, None))``."""
+    if noise is None:
+        return None, (None, None)
+    kept = tuple(v.to(torch.float32).contiguous() for v in noise)
+    return kept, tuple(v.data_ptr() for v in kept)
+
+
+def raise_on_error(rc, lib, fn_name):
+    if rc != 0:
+        raise RuntimeError("{} launch failed: CUDA error {} ({}).".format(
+            fn_name, rc, lib.zs_cuda_error_string(rc).decode()))
 
 
 def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
@@ -167,7 +193,7 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
     On a CUDA tensor this launches the CUDA kernel (or raises); on a CPU
     tensor it runs :func:`fused_hmc_step_reference`.
 
-    :param density: a :class:`DiagonalGaussianLogJoint` over ``q``.
+    :param density: a built-in density of :data:`DENSITIES` over ``q``.
     :param q: ``[n_chains, dim]`` positions, float32 or bfloat16 on the
         card (bfloat16 is read and written as such; all compute is f32).
     :param mass: ``[1, dim]`` diagonal mass (float32 on the card).
@@ -198,18 +224,8 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
         raise ValueError("n_leapfrogs must be >= 0.")
     c, d = q.shape
     dev = q.device
-    loc, inv_var = density.kernel_args(dev)
-    if isinstance(step_size, torch.Tensor):
-        ss = step_size.to(device=dev, dtype=torch.float32).reshape(1)
-    else:
-        ss = torch.full((1,), float(step_size), dtype=torch.float32,
-                        device=dev)
-    if noise is not None:
-        eps = noise[0].to(torch.float32).contiguous()
-        u = noise[1].to(torch.float32).contiguous()
-        eps_ptr, u_ptr = eps.data_ptr(), u.data_ptr()
-    else:
-        eps_ptr = u_ptr = None
+    ss = device_scalar(step_size, dev)
+    _kept, (eps_ptr, u_ptr) = noise_pointers(noise)
     out_q = torch.empty_like(q)
     out_p = torch.empty((c, d), dtype=torch.float32, device=dev)
     vecs = [torch.empty((c,), dtype=torch.float32, device=dev)
@@ -220,14 +236,11 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.zs_fused_hmc_step(
             q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
-            loc.data_ptr(), inv_var.data_ptr(), ss.data_ptr(), eps_ptr,
-            u_ptr, c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
+            *density_pointers(density, dev), ss.data_ptr(), eps_ptr, u_ptr,
+            c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
             out_q.data_ptr(), out_p.data_ptr(),
             *[v.data_ptr() for v in vecs], stream)
-    if rc != 0:
-        raise RuntimeError("fused_hmc_step launch failed: CUDA error {} "
-                           "({}).".format(rc, lib.zs_cuda_error_string(rc)
-                                          .decode()))
+    raise_on_error(rc, lib, "fused_hmc_step")
     fused_hmc_step.launches += 1
     acc, old_lp, new_lp, old_h, new_h = vecs
     return out_q, out_p, acc, old_lp, new_lp, old_h, new_h
@@ -258,7 +271,7 @@ def fused_hmc_step_reference(density, q, mass, step_size, n_leapfrogs: int,
     p0 = base.tree_random_momentum(None, x0, m, {name: eps})
     log_post = base.make_log_joint_fn(density, {})
     with torch.no_grad():
-        out_q, acc, old_lp, new_lp, old_h, new_h, _ = base.hmc_transition(
+        out_q, acc, old_lp, new_lp, old_h, new_h, *_ = base.hmc_transition(
             x0, p0, u, torch.as_tensor(step_size, dtype=compute,
                                        device=q.device),
             int(n_leapfrogs), base.make_grad_fn(log_post), log_post, m, 1)

@@ -10,8 +10,8 @@ unrolled tree fastest but its size grows as ``2**depth``. One CUDA kernel
 chain stops, where the Pallas kernels mask every chain of a block in
 lock-step to its slowest chain.
 
-The kernel computes one built-in density,
-:class:`~zhusuan_tpu_torch.ops.hmc_step.DiagonalGaussianLogJoint`, whose
+The kernel computes one built-in density (:data:`DENSITIES`),
+:class:`~zhusuan_tpu_torch.ops.densities.DiagonalGaussianLogJoint`, whose
 parameters it reads through pointers; any other log-joint takes the
 sampler's plain path.
 
@@ -41,9 +41,11 @@ from zhusuan_tpu_torch.ops._random import (
     philox_normal,
     philox_uniform_rows,
 )
-from zhusuan_tpu_torch.ops.hmc_step import DiagonalGaussianLogJoint
+from zhusuan_tpu_torch.ops.densities import DiagonalGaussianLogJoint
+from zhusuan_tpu_torch.ops.hmc_step import check_density
 
 __all__ = [
+    "DENSITIES",
     "MAX_DIM",
     "MAX_TREE_DEPTH",
     "fused_nuts_transition",
@@ -59,6 +61,8 @@ MAX_DIM = 512
 # shared memory (csrc/nuts_step.cu); the JAX package's looped kernel has the
 # same cap.
 MAX_TREE_DEPTH = 12
+#: The built-in densities the NUTS kernel evaluates.
+DENSITIES = (DiagonalGaussianLogJoint,)
 
 
 def nuts_step_supported(q_shape, max_tree_depth: int,
@@ -110,20 +114,14 @@ def nuts_noise(key, t: int, n_chains: int, dim: int, max_tree_depth: int,
 
 
 def _check_inputs(density, q, inv_mass, max_tree_depth, noise):
-    if not isinstance(density, DiagonalGaussianLogJoint):
-        raise TypeError(
-            "fused_nuts_transition evaluates only the built-in "
-            "DiagonalGaussianLogJoint; got {!r}.".format(type(density)))
     if q.ndim != 2:
         raise ValueError(
             "q must be [n_chains, dim]; got shape {}.".format(tuple(q.shape)))
     c, d = q.shape
+    check_density("fused_nuts_transition", density, DENSITIES, d)
     if tuple(inv_mass.shape) != (1, d):
         raise ValueError("inv_mass must be [1, {}]; got {}.".format(
             d, tuple(inv_mass.shape)))
-    if tuple(density.loc.shape) != (d,):
-        raise ValueError("density has dim {}, q has dim {}.".format(
-            density.loc.shape[0], d))
     if int(max_tree_depth) < 1:
         raise ValueError("max_tree_depth must be >= 1.")
     if q.device.type not in ("cpu", "cuda"):
