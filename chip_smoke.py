@@ -8,9 +8,10 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
 
 1. device: the card, as ``nvidia-smi`` reports its name and power limit;
 2. build: compiles ``csrc/hmc_step.cu`` (the HMC step, ChEES step and
-   trajectory kernels) and ``csrc/nuts_step.cu``, one ``nvcc`` each,
-   started together, timing the build and printing ptxas' register and
-   spill report;
+   trajectory kernels), ``csrc/nuts_step.cu`` and ``csrc/sgmcmc_step.cu``
+   (the SGLD, PSGLD, SGHMC and SGNHT kernels), one ``nvcc`` each, started
+   together, timing the build and printing ptxas' register and spill
+   report;
 3. kernel vs plain: the HMC step kernel (diagonal density) against its
    plain torch version on the same
    injected noise (the main path's 32768 x 100, 4096 x 100 and a ragged
@@ -72,7 +73,36 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ESS and their rates; gated on finite samples, on acceptance (whitened
    HMC in [0.6, 0.95]; fixed-L in [``FIXED_L_MIN_ACCEPTANCE``, 0.95], as
    the JAX package samples it at ~0.58; ChEES's harmonic mean within 0.1
-   of 0.651) and on ChEES's slow-projection ESS above fixed-L's.
+   of 0.651) and on ChEES's slow-projection ESS above fixed-L's;
+12. SGMCMC kernels vs plain: the SGLD, PSGLD, SGHMC (first and second
+   order, each on a plain and a momentum-resampling iteration) and SGNHT
+   (vector thermostat, first and second order) kernels against their plain
+   torch versions, float32, at ``SG_CHAINS`` x 100 and a ragged 1000 x 37,
+   for both built-in densities: once on the same Philox draws injected
+   into both (every element bit for bit on the diagonal density; the rest
+   within ``Q_TOL`` relative to ``1 + |ref|``), once on the kernel's own
+   draws against the plain Philox (within ``Q_TOL``). Then each timed
+   against its plain version at ``SG_CHAINS`` x 100, beside its bound:
+   back to back with CUDA events, and replayed from a CUDA graph (the
+   device's time alone, the record's ``ms``);
+13. SGMCMC main path: ``zhusuan_tpu_torch.SGLD``, ``PSGLD``, ``SGHMC``
+   (second order) and ``SGNHT`` (vector thermostat) through ``init`` and
+   ``run`` on ``bench.py``'s target, ``SG_CHAINS`` chains x 100 dims:
+   ``SG_WARMUP`` warm-up iterations (``collect=False``), then sampling runs
+   of ``SG_ITERS`` iterations keeping every ``SG_THINNING``-th, on the
+   kernel path (an untimed run, then 3 timed) and on the plain path (1
+   timed); chain-iterations/s and each kernel's launches read around each
+   path. Gated on finite samples and on each dimension's variance: SGLD's
+   and SGHMC's against their exact values (both updates are linear on a
+   Gaussian, so the covariance follows exactly) within ``SG_VAR_TOL``,
+   SGNHT's against the JAX package's run of the same recipe
+   (``SG_REFERENCE``, from ``scripts/sgmcmc_jax_reference.py``) and
+   PSGLD's kernel path against its plain path, within ``SG_REF_TOL``.
+
+Each entry of the kernels' record carries its bound (``bound_ms``: the
+larger of the bytes it must move over 3.35 TB/s and the operations it does
+over 67 TFLOP/s, counted from the sources by the ``_*_bound`` helpers at
+the timed call's shape and, for NUTS, its trees).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +137,30 @@ LP_TOL = (1e-4, 1e-5)  # (abs, rel) on log-probs and energies
 # target at ~0.58 mean acceptance in the JAX package too (4096 x 100,
 # float32, CPU), below its 0.8 target; the whitened arm samples at 0.80.
 FIXED_L_MIN_ACCEPTANCE = 0.5
+# Phase 13, the SGMCMC samplers on bench.py's target (diagonal Gaussian,
+# std linspace(0.1, 1.0), 100 dims) at the width the JAX package sizes
+# their path for (zhusuan_tpu/mcmc/sgmcmc.py:103-104). The std-0.1
+# coordinate sets the stability limit: SGLD contracts it by
+# 1 - lr / (2 0.1^2) = 0.5 per iteration at lr 0.01.
+SG_CHAINS = 32768
+SG_WARMUP = 1000  # iterations, collect=False
+SG_ITERS = 500  # sampling iterations per run, every SG_THINNING-th kept
+SG_THINNING = 10
+SG_SAMPLERS = {
+    "SGLD": {"learning_rate": 0.01},
+    # epsilon 0.1 bounds the preconditioner at 10: with the default 1e-3
+    # the std-0.1 coordinate's variance comes out 14-33 times too large.
+    "PSGLD": {"learning_rate": 0.01, "epsilon": 0.1},
+    # friction 0.25, a momentum resample every 20 iterations, second order.
+    "SGHMC": {"learning_rate": 0.01},
+    # the vector thermostat, second order; variance_extra 0 would inject
+    # no noise at all.
+    "SGNHT": {"learning_rate": 0.01, "variance_extra": 0.1},
+}
+SG_VAR_TOL = 0.03  # SGLD, SGHMC: per-dim variance / its exact value - 1
+SG_REF_TOL = 0.05  # SGNHT vs the JAX package; PSGLD kernel vs plain path
+SG_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "scripts", "sgmcmc_jax_reference.json")
 
 
 def fail(msg):
@@ -137,7 +191,7 @@ def phase_device(torch):
 def phase_build():
     from zhusuan_tpu_torch.ops._build import build_libraries
 
-    libs = build_libraries(["hmc_step", "nuts_step"])
+    libs = build_libraries(["hmc_step", "nuts_step", "sgmcmc_step"])
     for name, (_, record) in libs.items():
         ptxas = [ln.strip() for ln in record["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -175,6 +229,22 @@ def _time_ms(torch, fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _graph_ms(torch, fn, n):
+    """Device milliseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph and replayed, so that the host's time to enqueue a call
+    (which back-to-back calls also time) drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return _time_ms(torch, graph.replay, 5) / n
 
 
 def phase_kernel_vs_plain(torch, dev):
@@ -505,6 +575,9 @@ def phase_nuts_kernel_vs_plain(torch, dev):
                                           std_max, 7)
         ms = _time_ms(torch, lambda: fused_nuts_transition(
             dens, q, inv_mass, 0.1, depth, 1000.0, (3, 4), 1), 50)
+        # The leapfrogs the timed call's trees take (its bound's work).
+        leapfrogs = int(fused_nuts_transition(
+            dens, q, inv_mass, 0.1, depth, 1000.0, (3, 4), 1)[5].sum())
 
         def plain():
             noise = draw_noise(gen, NUTS_CHAINS, DIM, depth, torch.float32,
@@ -513,7 +586,10 @@ def phase_nuts_kernel_vs_plain(torch, dev):
                 dens, q, inv_mass, 0.1, depth, 1000.0, None, 1, noise=noise)
 
         plain_ms = _time_ms(torch, plain, 5 if depth == 6 else 2)
-        timing["depth%d" % depth] = {"kernel_ms": ms, "plain_ms": plain_ms}
+        timing["depth%d" % depth] = {
+            "kernel_ms": ms, "plain_ms": plain_ms,
+            **_nuts_bound(NUTS_CHAINS, DIM, leapfrogs),
+            "leapfrogs_total": leapfrogs}
         if depth == 6:
             timing["depth6"]["plain_philox_ms"] = _time_ms(
                 torch, lambda: fused_nuts_transition_reference(
@@ -1089,6 +1165,412 @@ def phase_mixing(torch, dev):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# The least time the card could take for a kernel's work
+# --------------------------------------------------------------------- #
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Operations per element the kernels spend, counted from their sources
+# (csrc/*.cu): Philox4x32-10 and Box-Muller for one normal (the ten
+# rounds' multiplies, xors and key adds per 4 normals; log, sqrt, cos or
+# sin and the products per 2), and one evaluation of each built-in
+# density's gradient and log-density. Integer and float64 operations (the
+# equicorrelated row sums) are counted at the float32 rate.
+OPS_NORMAL = 50
+OPS_GRAD = {"diagonal": 3, "equicorrelated": 5}
+OPS_LOG_PROB = {"diagonal": 5, "equicorrelated": 7}
+
+
+def _bound(n_bytes, n_ops):
+    """``{"bound_ms", "bound_by"}``: the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def _hmc_step_bound(c, d, n_leapfrogs, density):
+    """K1: reads q, writes q', p0 and five floats per chain; per element
+    a normal, the momentum, two kinetic energies and log-densities,
+    n_leapfrogs + 1 sub-steps (drift 3, gradient, kick 2) and the
+    select."""
+    ops = (OPS_NORMAL + 2 + 6 + 2 * OPS_LOG_PROB[density] + 1
+           + (n_leapfrogs + 1) * (5 + OPS_GRAD[density]))
+    return _bound(4 * (3 * c * d + 5 * c + 3 * d), c * d * ops)
+
+
+def _leapfrog_bound(c, d, n_leapfrogs, density):
+    """K2: reads q, p, writes q', p'; n_leapfrogs + 1 sub-steps."""
+    return _bound(4 * (4 * c * d + d),
+                  c * d * (n_leapfrogs + 1) * (5 + OPS_GRAD[density]))
+
+
+def _chees_step_bound(c, d, n_leapfrogs, density):
+    """K7: K1's work with the proposal (q', p') also written."""
+    ops = (OPS_NORMAL + 2 + 6 + 2 * OPS_LOG_PROB[density] + 1
+           + (n_leapfrogs + 1) * (5 + OPS_GRAD[density]))
+    return _bound(4 * (4 * c * d + 3 * c + d), c * d * ops)
+
+
+def _nuts_bound(c, d, total_leapfrogs):
+    """K8/K9: reads q, writes q' and eight values per chain; per element a
+    normal, and per leapfrog the drift, gradient and kick, the leaf's
+    energy and the U-turn products (about 20), counted over the leapfrogs
+    this run's trees took."""
+    return _bound(4 * (2 * c * d + 8 * c + 2 * d),
+                  c * d * OPS_NORMAL + total_leapfrogs * d * 20)
+
+
+def _sgmcmc_bound(kind, c, d):
+    """K3-K6 at ``[c, d]`` float32 on the diagonal density, on an iteration
+    that does not resample: each reads its state once and writes it once;
+    per element a normal, the gradient and the update's arithmetic."""
+    n_state, n_out, update = {
+        "sgld": (1, 1, 4), "psgld": (2, 2, 12), "sghmc": (2, 2, 11),
+        "sgnht": (3, 3, 18)}[kind]
+    extra = 4 * c if kind == "sghmc" else 0  # sum_d v'^2 per chain
+    ops = OPS_NORMAL + OPS_GRAD["diagonal"] + update
+    return _bound(4 * (n_state + n_out) * c * d + extra + 8 * d, c * d * ops)
+
+
+# --------------------------------------------------------------------- #
+# Phase 12: the SGMCMC kernels against their plain versions
+# --------------------------------------------------------------------- #
+SG_LR = 0.01  # phase 12's learning rate (SG_SAMPLERS' learning rates)
+
+
+def _sg_cases():
+    """``(label, kind, wrapper name, call)``: each kernel case of phase 12;
+    ``call(fn, dens, state, noise, key)`` runs a wrapper or its plain
+    version."""
+    cases = [("sgld", "sgld", "fused_sgld_step", False,
+              lambda fn, dn, s, nz, key: (fn(dn, s["q"], SG_LR, key, 3,
+                                             noise=nz),)),
+             ("psgld", "psgld", "fused_psgld_step", False,
+              lambda fn, dn, s, nz, key: fn(dn, s["q"], s["rms"], SG_LR, 0.9,
+                                            0.1, key, 3, noise=nz))]
+    for order in (False, True):
+        for resample in (False, True):
+            def sghmc(fn, dn, s, nz, key, order=order, resample=resample):
+                return fn(dn, s["q"], s["v"], SG_LR, 0.25, 0.0, order, key, 3,
+                          resample=resample, noise=nz)
+            cases.append(("sghmc order={} resample={}".format(
+                2 if order else 1, resample), "sghmc", "fused_sghmc_step",
+                resample, sghmc))
+        def sgnht(fn, dn, s, nz, key, order=order):
+            return fn(dn, s["q"], s["v"], s["alpha"], SG_LR, 0.1, 1.0, order,
+                      key, 3, noise=nz)
+        cases.append(("sgnht order={}".format(2 if order else 1), "sgnht",
+                      "fused_sgnht_step", False, sgnht))
+    return cases
+
+
+def _sg_compare(torch, got, want):
+    """Per output: the elements that differ at all, and the largest error
+    relative to ``1 + |ref|`` (non-finite on both sides counts as
+    equal)."""
+    rec = []
+    for g, w in zip(got, want):
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        fin = torch.isfinite(w)
+        err = ((g - w).abs() / (1.0 + w.abs()))[fin]
+        rec.append({"differing": int((~same).sum()),
+                    "finite_mismatch": int((torch.isfinite(g) != fin).sum()),
+                    "max_rel_err": float(err.max()) if err.numel() else 0.0,
+                    "max_abs_err": float((g - w).abs()[fin].max())
+                    if err.numel() else 0.0})
+    return rec
+
+
+def phase_sgmcmc_vs_plain(torch, dev):
+    from zhusuan_tpu_torch import ops
+    from zhusuan_tpu_torch.ops._random import (
+        STREAM_SGMCMC_NOISE, STREAM_SGMCMC_RESAMPLE, philox_normal,
+    )
+
+    cases, failures = [], []
+    max_err = {}
+    key = (7, 8)
+    for c, d in ((SG_CHAINS, DIM), (1000, 37)):
+        for density in ("diagonal", "equicorrelated"):
+            dens, q, _, _ = _family_problem(torch, dev, c, d, density, c + d)
+            g = torch.Generator(device=dev).manual_seed(c - d)
+            state = {
+                "q": q,
+                "v": 0.1 * torch.randn(c, d, generator=g, device=dev),
+                "alpha": 0.1 + 0.02 * torch.randn(c, d, generator=g,
+                                                  device=dev),
+                "rms": 0.5 + 3.5 * torch.rand(c, d, generator=g, device=dev)}
+            eps = philox_normal(key, 3, (c, d), STREAM_SGMCMC_NOISE, dev)
+            eps_v = philox_normal(key, 3, (c, d), STREAM_SGMCMC_RESAMPLE, dev)
+            for label, kind, wrapper, resample, call in _sg_cases():
+                fn = getattr(ops, wrapper)
+                ref = getattr(ops, wrapper + "_reference")
+                noise = ((eps, eps_v if resample else None)
+                         if kind in ("sghmc", "sgnht") else eps)
+                # On the same Philox draws, injected into both sides.
+                got = call(fn, dens, state, noise, key)
+                torch.cuda.synchronize()
+                want = call(ref, dens, state, noise, key)
+                same_draws = _sg_compare(torch, got, want)
+                # The kernel's own draws against the plain Philox.
+                own = call(fn, dens, state, None, key)
+                torch.cuda.synchronize()
+                own_cmp = _sg_compare(torch, own, want)
+                rec = {"case": label, "density": density, "shape": [c, d],
+                       "same_draws": same_draws, "own_draws": own_cmp}
+                cases.append(rec)
+                worst = max(r["max_rel_err"] for r in same_draws + own_cmp)
+                max_err[kind] = max(max_err.get(kind, 0.0), max(
+                    r["max_abs_err"] for r in same_draws))
+                if worst > Q_TOL or any(r["finite_mismatch"]
+                                        for r in same_draws + own_cmp):
+                    failures.append("{} {} {}x{}: relative error {}".format(
+                        label, density, c, d, worst))
+                if density == "diagonal" and any(r["differing"]
+                                                 for r in same_draws):
+                    failures.append("{} diagonal {}x{}: {} elements differ "
+                                    "on the same draws".format(
+                                        label, c, d, [r["differing"]
+                                                      for r in same_draws]))
+
+    # Times at the main path's width, diagonal density: each kernel with its
+    # own Philox; its plain version with torch's generator, as the
+    # samplers' plain paths draw.
+    dens, q, _, _ = _family_problem(torch, dev, SG_CHAINS, DIM, "diagonal", 5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    state = {"q": q, "v": 0.1 * torch.randn(SG_CHAINS, DIM, generator=g,
+                                            device=dev),
+             "alpha": torch.full((SG_CHAINS, DIM), 0.1, device=dev),
+             "rms": torch.ones(SG_CHAINS, DIM, device=dev)}
+
+    def draws():
+        return torch.randn(SG_CHAINS, DIM, generator=g, device=dev)
+
+    timing = {}
+    for label, kind, wrapper, resample, call in _sg_cases():
+        # The main path's cases: SGHMC and SGNHT second order, SGHMC on a
+        # plain iteration.
+        if resample or "order=1" in label:
+            continue
+        fn = getattr(ops, wrapper)
+        ref = getattr(ops, wrapper + "_reference")
+        plain_noise = ((lambda: (draws(), None)) if kind in ("sghmc", "sgnht")
+                       else draws)
+        def kernel():
+            return call(fn, dens, state, None, (3, 4))
+
+        timing[kind] = {
+            "case": label,
+            "kernel_ms": _time_ms(torch, kernel, 200),
+            "kernel_graph_ms": _graph_ms(torch, kernel, 50),
+            "plain_ms": _time_ms(torch, lambda: call(ref, dens, state,
+                                                     plain_noise(), None), 20),
+            **_sgmcmc_bound(kind, SG_CHAINS, DIM)}
+    print("phase12 sgmcmc_vs_plain " + json.dumps({
+        "timing_shape": [SG_CHAINS, DIM], "lr": SG_LR, "cases": cases,
+        "timing": timing}))
+    check(not failures, "; ".join(failures))
+    return max_err, timing
+
+
+# --------------------------------------------------------------------- #
+# Phase 13: the SGMCMC samplers through their entry points
+# --------------------------------------------------------------------- #
+def _exact_variance(name, kwargs, std):
+    """Per-dimension variance of phase 13's kept draws of SGLD or SGHMC on
+    a zero-mean diagonal Gaussian of stds ``std`` (numpy). Both updates
+    are linear there, so the covariance of (q, v) follows exactly, in
+    float64, from the initial state (q = 0, v ~ sqrt(lr) N(0, 1)) through
+    the resample schedule and the warm-up to each kept iteration; the
+    mean over those. Also the stationary variance (without resampling)
+    from the discrete Lyapunov equation ``S = A S A^T + Q``."""
+    import numpy as np
+    from scipy.linalg import solve_discrete_lyapunov
+
+    lr = kwargs["learning_rate"]
+    kept = [SG_WARMUP + i for i in range(SG_THINNING, SG_ITERS + 1,
+                                         SG_THINNING)]
+    out, stationary = [], []
+    for s in std:
+        if name == "SGLD":
+            # q' = rho q + sqrt(lr) eps, rho = 1 - lr / (2 s^2)
+            a = np.array([[1.0 - 0.5 * lr / s ** 2]])
+            q_noise = np.array([[lr]])
+            cov = np.zeros((1, 1))
+            period = 0
+        else:
+            alpha = kwargs.get("friction", 0.25)
+            beta = kwargs.get("variance_estimate", 0.0)
+            period = kwargs.get("n_iter_resample_v", 20)
+            dh = np.exp(-0.5 * alpha)
+            k = dh * lr / s ** 2
+            # Second order: q1 = q + v/2, v' = dh (dh v - lr q1 / s^2 + n),
+            # q' = q1 + v'/2, n ~ N(0, 2 (alpha - beta) lr).
+            a = np.array([[1.0 - 0.5 * k, 0.5 + 0.5 * dh ** 2 - 0.25 * k],
+                          [-k, dh ** 2 - 0.5 * k]])
+            b = dh * np.sqrt(2.0 * (alpha - beta) * lr) * np.array([0.5, 1.0])
+            q_noise = np.outer(b, b)
+            cov = np.diag([0.0, lr])
+        acc = 0.0
+        for t in range(kept[-1]):
+            if period and t % period == 0:  # a fresh v ~ sqrt(lr) N(0, 1)
+                cov = np.array([[cov[0, 0], 0.0], [0.0, lr]])
+            cov = a @ cov @ a.T + q_noise
+            if t + 1 in kept:
+                acc += cov[0, 0]
+        out.append(acc / len(kept))
+        stationary.append(solve_discrete_lyapunov(a, q_noise)[0, 0])
+    return np.array(out), np.array(stationary)
+
+
+def _sg_run(torch, dev, name, fused, trials):
+    """One sampler through ``init`` + ``run``: the warm-up, an untimed
+    sampling run (kernel path), then ``trials`` timed sampling runs from
+    the warm state with distinct keys. Returns the record and the last
+    run's per-dimension variance (float64)."""
+    import zhusuan_tpu_torch as zt
+
+    std = torch.linspace(0.1, 1.0, DIM, device=dev)
+    dens = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev), std)
+    sampler = getattr(zt, name)(
+        experimental_fused_step="auto" if fused else False,
+        **SG_SAMPLERS[name])
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    state = sampler.init({"x": torch.zeros(SG_CHAINS, DIM, device=dev)},
+                         key=gen(60))
+    t0 = time.perf_counter()
+    state, _ = sampler.run(dens, {}, state, gen(61), SG_WARMUP,
+                           collect=False)
+    torch.cuda.synchronize()
+    warm_sec = time.perf_counter() - t0
+    if trials > 1:
+        sampler.run(dens, {}, state, gen(62), SG_ITERS, thinning=SG_THINNING)
+        torch.cuda.synchronize()
+    dts = []
+    for trial in range(trials):
+        t0 = time.perf_counter()
+        _, qs = sampler.run(dens, {}, state, gen(63 + trial), SG_ITERS,
+                            thinning=SG_THINNING)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    x = qs["x"]
+    check(bool(torch.isfinite(x).all()),
+          "{} {} path: non-finite samples".format(name, "kernel" if fused
+                                                  else "plain"))
+    var = _pooled_std(torch, x) ** 2
+    rate = [SG_CHAINS * SG_ITERS / dt for dt in dts]
+    return {"path": "kernel" if fused else "plain",
+            "warmup_sec": warm_sec, "sample_sec_trials": dts,
+            "chain_iters_per_sec_M_trials": [r / 1e6 for r in rate],
+            "chain_iters_per_sec_M": statistics.median(rate) / 1e6,
+            "kept_draws": list(x.shape),
+            "max_abs": float(x.abs().max())}, var.double().cpu()
+
+
+def phase_sgmcmc_main_path(torch, dev):
+    import numpy as np
+
+    from zhusuan_tpu_torch import ops
+
+    with open(SG_REFERENCE) as f:
+        reference = json.load(f)
+    for field, want in (("samplers", SG_SAMPLERS), ("warmup", SG_WARMUP),
+                        ("iters", SG_ITERS), ("thinning", SG_THINNING)):
+        check(reference[field] == want, "{} was made for another recipe "
+              "({}); rerun scripts/sgmcmc_jax_reference.py".format(
+                  SG_REFERENCE, field))
+    kernels = {"SGLD": ops.fused_sgld_step, "PSGLD": ops.fused_psgld_step,
+               "SGHMC": ops.fused_sghmc_step, "SGNHT": ops.fused_sgnht_step}
+    std = np.linspace(0.1, 1.0, DIM)
+    std_t = torch.linspace(0.1, 1.0, DIM, device=dev).double().cpu()
+    runs, failures = {}, []
+
+    def counted(fused):
+        for f in kernels.values():
+            f.launches = 0
+        out = {}
+        for name in kernels:
+            before = {f.__name__: f.launches for f in kernels.values()}
+            rec, var = _sg_run(torch, dev, name, fused,
+                               N_TRIALS if fused else 1)
+            rec["launches"] = {f.__name__: f.launches - before[f.__name__]
+                               for f in kernels.values()}
+            out[name] = (rec, var)
+        return out, {f.__name__: f.launches for f in kernels.values()}
+
+    kernel_runs, kernel_launches = counted(True)
+    plain_runs, plain_launches = counted(False)
+    for name in kernels:
+        rec, var = kernel_runs[name]
+        prec, pvar = plain_runs[name]
+        ratio = (var / std_t ** 2).numpy()
+        run = {"kernel": rec, "plain": prec,
+               "kernel_over_plain": rec["chain_iters_per_sec_M"]
+               / prec["chain_iters_per_sec_M"],
+               "var_over_std2_kernel": ratio[[0, 10, 50, 99]].tolist(),
+               "var_over_std2_plain": (pvar / std_t ** 2).numpy()[
+                   [0, 10, 50, 99]].tolist()}
+        jax_var = np.array(reference["runs"][name]["variance"])
+        run["jax_var_over_std2"] = (jax_var / std ** 2)[[0, 10, 50, 99]]\
+            .tolist()
+        run["max_rel_err_vs_jax"] = {
+            "kernel": float(np.abs(var.numpy() / jax_var - 1.0).max()),
+            "plain": float(np.abs(pvar.numpy() / jax_var - 1.0).max())}
+        gates = {}
+        if name in ("SGLD", "SGHMC"):
+            exact, stationary = _exact_variance(name, SG_SAMPLERS[name], std)
+            run["exact_var_over_std2"] = (exact / std ** 2)[[0, 10, 50, 99]]\
+                .tolist()
+            run["stationary_var_over_std2"] = (stationary / std ** 2)[
+                [0, 10, 50, 99]].tolist()
+            for path, v in (("kernel", var), ("plain", pvar)):
+                gates[path] = float(np.abs(v.numpy() / exact - 1.0).max())
+            limit = SG_VAR_TOL
+            run["gate"] = "per-dim variance vs exact"
+        elif name == "SGNHT":
+            gates = dict(run["max_rel_err_vs_jax"])
+            limit = SG_REF_TOL
+            run["gate"] = "per-dim variance vs the JAX package"
+        else:
+            gates["kernel_vs_plain"] = float(
+                np.abs(var.numpy() / pvar.numpy() - 1.0).max())
+            limit = SG_REF_TOL
+            run["gate"] = "per-dim variance, kernel vs plain path"
+        run["max_rel_err"] = gates
+        for path, err in gates.items():
+            if not err < limit:
+                failures.append("{} {}: per-dim variance off by {:.4f} "
+                                "(limit {})".format(name, path, err, limit))
+        runs[name] = run
+    # The warm-up, the untimed run (with more than one trial), the trials.
+    want = SG_WARMUP + (N_TRIALS + (N_TRIALS > 1)) * SG_ITERS
+    print("phase13 sgmcmc_main_path " + json.dumps({
+        "target": "diagonal Gaussian, std linspace(0.1, 1.0), dim {}".format(
+            DIM),
+        "n_chains": SG_CHAINS, "warmup": SG_WARMUP, "iters": SG_ITERS,
+        "thinning": SG_THINNING, "samplers": SG_SAMPLERS,
+        "jax_reference": {k: reference[k] for k in ("script", "chains",
+                                                    "jax", "device")},
+        "kernel_path_launches": kernel_launches,
+        "plain_path_launches": plain_launches, "runs": runs}))
+    for name, f in kernels.items():
+        rec = kernel_runs[name][0]
+        check(rec["launches"][f.__name__] == want,
+              "the {} kernel path launched {} {} times, not {}".format(
+                  name, f.__name__, rec["launches"][f.__name__], want))
+    check(all(n == 0 for n in plain_launches.values()),
+          "the plain path launched a kernel: {}".format(plain_launches))
+    check(not failures, "; ".join(failures))
+    return kernel_launches, {n: r["kernel"]["chain_iters_per_sec_M"]
+                             for n, r in runs.items()}
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1122,7 +1604,29 @@ def main():
     fam_err, fam_timing = run_phase("phase10", phase_family_vs_plain, torch,
                                     dev)
     mix_launches = run_phase("phase11", phase_mixing, torch, dev)
+    sg_err, sg_timing = run_phase("phase12", phase_sgmcmc_vs_plain, torch,
+                                  dev)
+    sg_launches, _ = run_phase("phase13", phase_sgmcmc_main_path, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
+    nuts6 = nuts_timing["depth6"]
+
+    def bound(rec):
+        return {"bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": None}
+
+    sgmcmc = [{
+        "name": "fused_{}_step".format(kind),
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/sgmcmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/{}_step.py:{}".format(kind, line),
+        "launches": sg_launches["fused_{}_step".format(kind)],
+        "max_abs_err": sg_err[kind],
+        "ms": sg_timing[kind]["kernel_graph_ms"],
+        "ms_back_to_back": sg_timing[kind]["kernel_ms"],
+        "plain_ms": sg_timing[kind]["plain_ms"],
+        **bound(sg_timing[kind]),
+    } for kind, line in (("sgld", 86), ("psgld", 102), ("sghmc", 117),
+                         ("sgnht", 124))]
     print(json.dumps({"kernels": [{
         "name": "fused_hmc_step",
         "route": "cuda",
@@ -1132,6 +1636,7 @@ def main():
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        **bound(_hmc_step_bound(N_CHAINS, DIM, 5, "diagonal")),
     }, {
         "name": "fused_nuts_transition",
         "route": "cuda",
@@ -1140,10 +1645,12 @@ def main():
                      "zhusuan_tpu/ops/nuts_step.py:641"],
         "launches": nuts_launches,
         "max_abs_err": nuts_err,
-        "ms": nuts_timing["depth6"]["kernel_ms"],
-        "plain_ms": nuts_timing["depth6"]["plain_ms"],
+        "ms": nuts6["kernel_ms"],
+        "plain_ms": nuts6["plain_ms"],
+        **bound(nuts6),
         "ms_depth10": nuts_timing["depth10"]["kernel_ms"],
         "plain_ms_depth10": nuts_timing["depth10"]["plain_ms"],
+        "bound_ms_depth10": nuts_timing["depth10"]["bound_ms"],
     }, {
         "name": "fused_hmc_step (equicorrelated density)",
         "route": "cuda",
@@ -1153,6 +1660,7 @@ def main():
         "max_abs_err": fam_err["hmc_step"],
         "ms": fam_timing["hmc_step_equicorrelated_n5"]["kernel_ms"],
         "plain_ms": fam_timing["hmc_step_equicorrelated_n5"]["plain_ms"],
+        **bound(_hmc_step_bound(MIX_CHAINS, DIM, 5, "equicorrelated")),
     }, {
         "name": "fused_leapfrog",
         "route": "cuda",
@@ -1162,6 +1670,7 @@ def main():
         "max_abs_err": fam_err["leapfrog"],
         "ms": fam_timing["leapfrog_equicorrelated_n5"]["kernel_ms"],
         "plain_ms": fam_timing["leapfrog_equicorrelated_n5"]["plain_ms"],
+        **bound(_leapfrog_bound(MIX_CHAINS, DIM, 5, "equicorrelated")),
     }, {
         "name": "fused_chees_step",
         "route": "cuda",
@@ -1171,8 +1680,9 @@ def main():
         "max_abs_err": fam_err["chees_step"],
         "ms": chees_t["kernel_ms"],
         "plain_ms": chees_t["plain_ms"],
+        **bound(_chees_step_bound(MIX_CHAINS, DIM, 190, "equicorrelated")),
         "n_leapfrogs": 190,
-    }]}))
+    }] + sgmcmc}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -457,12 +457,14 @@ def test_wrapper_refuses():
 
 
 # --------------------------------------------------------------------- #
-# (f) the new modules never import jax (the package-wide scan is in
-# tests/test_torch_hmc.py; this names the slice's files)
+# (f) the slices' modules never import jax (the package-wide scan is in
+# tests/test_torch_hmc.py; this names the ChEES and SGMCMC slices' files)
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("rel", [
     "mcmc/chees.py", "mcmc/precondition.py", "ops/chees_step.py",
-    "ops/leapfrog.py", "ops/densities.py"])
+    "ops/leapfrog.py", "ops/densities.py", "mcmc/sgmcmc.py",
+    "ops/sgld_step.py", "ops/psgld_step.py", "ops/sghmc_step.py",
+    "ops/sgnht_step.py"])
 def test_slice_modules_never_import_jax(rel):
     path = os.path.join(os.path.dirname(zhusuan_tpu_torch.__file__), rel)
     with open(path) as f:

@@ -2,10 +2,11 @@
 H100.
 
 Imports ``torch`` and never ``jax``. Module names mirror ``zhusuan_tpu``.
-Ported so far: adaptive HMC, NUTS and ChEES-HMC, each with its
-hand-written CUDA transition kernel, and dense preconditioning
-(:mod:`.mcmc`, :mod:`.ops`), the ESS diagnostics (:mod:`.diagnostics`)
-and the utilities they use (:mod:`.utils`).
+Ported so far: adaptive HMC, NUTS, ChEES-HMC and the stochastic-gradient
+samplers SGLD, PSGLD, SGHMC and SGNHT, each with its hand-written CUDA
+transition kernel, and dense preconditioning (:mod:`.mcmc`, :mod:`.ops`),
+the ESS diagnostics (:mod:`.diagnostics`) and the utilities they use
+(:mod:`.utils`).
 """
 
 from zhusuan_tpu_torch import diagnostics, mcmc, ops, utils
@@ -18,6 +19,12 @@ from zhusuan_tpu_torch.mcmc import (
     HMCInfo,
     HMCState,
     NUTSInfo,
+    PSGLD,
+    SGHMC,
+    SGLD,
+    SGNHT,
+    SGMCMCInfo,
+    SGMCMCState,
     fit_dense_preconditioner,
     whiten_log_joint,
 )
@@ -37,6 +44,12 @@ __all__ = [
     "HMCState",
     "NUTS",
     "NUTSInfo",
+    "PSGLD",
+    "SGHMC",
+    "SGLD",
+    "SGMCMCInfo",
+    "SGMCMCState",
+    "SGNHT",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
     "fit_dense_preconditioner",

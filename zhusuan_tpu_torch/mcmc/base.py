@@ -22,6 +22,7 @@ from zhusuan_tpu_torch.utils import merge_dicts
 
 __all__ = [
     "make_log_joint_fn",
+    "tree_normal_like",
     "tree_random_momentum",
     "tree_velocity",
     "kinetic_energy",
@@ -64,25 +65,29 @@ def _select(cond, a, b):
     return torch.where(cond, a, b)
 
 
+def tree_normal_like(generator, like: Latent, eps: Latent = None) -> Latent:
+    """Standard normals shaped like each latent of ``like`` and in its
+    dtype, drawn from ``generator`` (a ``torch.Generator`` on the latents'
+    device), one draw per name in sorted-name order (the order of
+    ``zhusuan_tpu/mcmc/base.py::tree_normal_like``); ``eps`` replaces them
+    exactly (a testing hook for feeding both packages the same noise)."""
+    out = {}
+    for name in sorted(like):
+        x = like[name]
+        if eps is not None:
+            out[name] = eps[name].to(x.dtype)
+        else:
+            out[name] = torch.randn(x.shape, generator=generator,
+                                    dtype=x.dtype, device=x.device)
+    return out
+
+
 def tree_random_momentum(generator, q: Latent, mass: Latent,
                          eps: Latent = None) -> Latent:
-    """p[name] = N(0, 1) draw * sqrt(mass[name]) (reference hmc.py:21-23).
-
-    The standard normals come from ``generator`` (a ``torch.Generator`` on
-    the latents' device), one draw per name in sorted order; ``eps``
-    replaces them exactly (a testing hook for feeding both packages the
-    same noise).
-    """
-    p = {}
-    for name in sorted(q):
-        x = q[name]
-        if eps is not None:
-            e = eps[name].to(x.dtype)
-        else:
-            e = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                            device=x.device)
-        p[name] = e * torch.sqrt(mass[name])
-    return p
+    """p[name] = N(0, 1) draw * sqrt(mass[name]) (reference hmc.py:21-23),
+    the draws of :func:`tree_normal_like`."""
+    return {name: e * torch.sqrt(mass[name])
+            for name, e in tree_normal_like(generator, q, eps).items()}
 
 
 def tree_velocity(p: Latent, mass: Latent) -> Latent:

@@ -591,7 +591,8 @@ def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
     """Why a kernel over built-in densities cannot take a transition on
     the latent dict ``q`` (None if it can). ``supported(shape, dtype)`` is
     the kernel's gate, ``densities`` the built-ins it evaluates; ``wants``
-    says in words what it takes."""
+    says in words what it takes. ``mass`` is None for a sampler without
+    one (SGMCMC)."""
     if len(q) != 1:
         return "the latent must be a single tensor"
     if not isinstance(log_joint, densities):
@@ -605,8 +606,8 @@ def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
         return "the latent must be [n_chains, dim] {}; got {} {}".format(
             wants, tuple(x.shape), x.dtype)
     d = x.shape[1]
-    if tuple(mass[name].shape) != (1, d) or \
-            mass[name].dtype != torch.float32:
+    if mass is not None and (tuple(mass[name].shape) != (1, d)
+                             or mass[name].dtype != torch.float32):
         return "the mass must be [1, dim] float32"
     if log_joint.dim != d:
         return "the density's dim differs from the latent's"

@@ -21,8 +21,10 @@ A key is a pair of uint32 Python ints, drawn once from a
 consecutive elements along the last axis, and the stream (0 for the MH
 uniform, ``1 + i`` for the momentum of the i-th latent in sorted-name
 order, ``0x100 + k`` for the NUTS kernel's uniforms: tree directions,
-leaf selections and merge selections). Either way a loop over iterations
-needs no host sync to draw. Streams differ from ``jax.random`` by design.
+leaf selections and merge selections, ``0x200`` for the SGMCMC kernels'
+integrator noise and ``0x201`` for the momentum that SGHMC and SGNHT
+resample). Either way a loop over iterations needs no host sync to draw.
+Streams differ from ``jax.random`` by design.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ __all__ = [
     "STREAM_NUTS_DIRECTION",
     "STREAM_NUTS_LEAF",
     "STREAM_NUTS_MERGE",
+    "STREAM_SGMCMC_NOISE",
+    "STREAM_SGMCMC_RESAMPLE",
     "philox_key",
     "iteration_generator",
     "philox4x32_10",
@@ -53,6 +57,8 @@ STREAM_MOMENTUM = 1  # + index of the latent in sorted-name order
 STREAM_NUTS_DIRECTION = 0x100  # [chains, max_tree_depth]
 STREAM_NUTS_LEAF = 0x101  # [chains, 2**max_tree_depth - 1]
 STREAM_NUTS_MERGE = 0x102  # [chains, max_tree_depth]
+STREAM_SGMCMC_NOISE = 0x200  # [chains, dim]: the integrator's N(0, 1)
+STREAM_SGMCMC_RESAMPLE = 0x201  # [chains, dim]: a resampled momentum
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
