@@ -8,10 +8,10 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
 
 1. device: the card, as ``nvidia-smi`` reports its name and power limit;
 2. build: compiles ``csrc/hmc_step.cu`` (the HMC step, ChEES step and
-   trajectory kernels), ``csrc/nuts_step.cu`` and ``csrc/sgmcmc_step.cu``
-   (the SGLD, PSGLD, SGHMC and SGNHT kernels), one ``nvcc`` each, started
-   together, timing the build and printing ptxas' register and spill
-   report;
+   trajectory kernels), ``csrc/nuts_step.cu``, ``csrc/sgmcmc_step.cu``
+   (the SGLD, PSGLD, SGHMC and SGNHT kernels) and ``csrc/linalg.cu`` (the
+   Cholesky-plus-inverse kernel), one ``nvcc`` each, started together,
+   timing the build and printing ptxas' register and spill report;
 3. kernel vs plain: the HMC step kernel (diagonal density) against its
    plain torch version on the same
    injected noise (the main path's 32768 x 100, 4096 x 100 and a ragged
@@ -98,6 +98,33 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    SGNHT's against the JAX package's run of the same recipe
    (``SG_REFERENCE``, from ``scripts/sgmcmc_jax_reference.py``) and
    PSGLD's kernel path against its plain path, within ``SG_REF_TOL``.
+14. Cholesky-plus-inverse vs plain: ``ops.cholesky_inverse`` (the kernel)
+   against ``cholesky_inverse_reference`` at n = 3, 17, 100, 256 and 512,
+   float32, on a well-conditioned SPD matrix and on SVGP-style RBF Gram
+   matrices of crowded points plus 1e-6 I: entrywise within ``CHOL_TOL``
+   where the matrix allows it, else each side's backward error (see
+   ``_chol_matrices``); on a matrix that is not positive definite the NaN
+   pattern must equal the plain version's. The VJP through the kernel
+   against autograd through ``torch.linalg`` at n = 9 and 100 (three
+   weightings) within ``CHOL_GRAD_TOL``. Then the kernel, the plain
+   version and the library pair ``cholesky_ex`` + ``solve_triangular``
+   timed at n = 100 and 512 with CUDA events;
+15. SVGP main path: the port's SVGP example
+   (``zhusuan_tpu_torch.examples.gaussian_process.svgp``) on the recipe of
+   ``baseline_ref/configs_protocol.py:56-57`` -- 456 x 13 synthetic rows
+   (seed 42), 100 inducing points, 20 particles, full batch, Adam 1e-2, 30
+   warm-up then 600 timed steps, float32, then the predict step on the 50
+   test rows -- on the kernel path (``kzz_factors``: one K10 launch per
+   step; an untimed run, then ``SVGP_TRIALS`` timed) and on the plain path
+   (``kzz_cholesky``: triangular solves, no launch; one timed run), with
+   steps/s and K10's launches read around each. Gated on finite bounds, on
+   the bound rising (mean of the last ``SVGP_TAIL`` steps over the first),
+   and on the final bound and test RMSE within three times the spread of
+   the JAX package's CPU float32 runs of the recipe (``SVGP_REFERENCE``,
+   from ``scripts/svgp_jax_reference.py``), for every run; the kernel and
+   the plain path on one seed within ``SVGP_PATH_RTOL`` of each other. Then
+   one step timed at Protein size (the
+   45730 x 9 synthetic fallback, minibatches of 5000), no gate.
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -161,6 +188,18 @@ SG_VAR_TOL = 0.03  # SGLD, SGHMC: per-dim variance / its exact value - 1
 SG_REF_TOL = 0.05  # SGNHT vs the JAX package; PSGLD kernel vs plain path
 SG_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "scripts", "sgmcmc_jax_reference.json")
+# Phase 15, the SVGP recipe (the port's svgp.SVGP_CONFIG, from
+# baseline_ref/configs_protocol.py:56-57): the lower bound is averaged over
+# the first and the last SVGP_TAIL steps, and the test metrics use the
+# example's 100 predictive particles.
+SVGP_TAIL = 50
+SVGP_PARTICLES_TEST = 100
+# The kernel and the plain path run the same recipe from the same seed and
+# differ only in how Kzz is factored: their final bound and test RMSE agree
+# to ~1e-5 relative on the H100, far inside the seed-to-seed spread.
+SVGP_PATH_RTOL = 1e-3
+SVGP_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "scripts", "svgp_jax_reference.json")
 
 
 def fail(msg):
@@ -191,7 +230,8 @@ def phase_device(torch):
 def phase_build():
     from zhusuan_tpu_torch.ops._build import build_libraries
 
-    libs = build_libraries(["hmc_step", "nuts_step", "sgmcmc_step"])
+    libs = build_libraries(["hmc_step", "nuts_step", "sgmcmc_step",
+                            "linalg"])
     for name, (_, record) in libs.items():
         ptxas = [ln.strip() for ln in record["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1571,6 +1611,358 @@ def phase_sgmcmc_main_path(torch, dev):
                              for n, r in runs.items()}
 
 
+# --------------------------------------------------------------------- #
+# Phase 14: the Cholesky-plus-inverse kernel (K10) against its plain version
+# --------------------------------------------------------------------- #
+CHOL_SIZES = (3, 17, 100, 256, 512)
+# tests/test_ops_linalg.py:37-43: a right-looking loop and cuSOLVER's
+# blocked potrf round differently, so L within 2e-5 (rtol and atol),
+# L^{-1} within 3e-4, and L L^{-1} = I within 5e-5.
+CHOL_TOL = {"l": 2e-5, "linv": 3e-4, "eye": 5e-5}
+# tests/test_ops_linalg.py:100-102: the VJP against autograd through
+# torch.linalg, rtol and atol.
+CHOL_GRAD_TOL = 2e-4
+CHOL_GRAD_SIZES = (9, 100)
+CHOL_TIMED = (100, 512)
+CHOL_TIMING_REPS = {100: 200, 512: 10}
+
+
+def _chol_inv_bound(n):
+    """K10 on one [n, n] float32 matrix: reads A, writes L and L^{-1}
+    (3 n^2 floats); about n^3/6 multiply-subtracts for the Schur updates of
+    the lower triangle and n^3/6 for the inverse, n^3/3 in all: 2 n^3 / 3
+    floating-point operations (a multiply-subtract is two, as in the
+    67 TFLOP/s peak)."""
+    return _bound(3 * n * n * 4, 2 * n ** 3 / 3)
+
+
+def _chol_matrices(n):
+    """``{label: (float32 matrix as numpy, check)}`` for size ``n``. check
+    is "entrywise" (kernel vs plain within CHOL_TOL) or "residual" (each
+    side's L L^T within CHOL_TOL["l"] of A and L L^{-1} within
+    CHOL_TOL["eye"] of I): on an ill-conditioned matrix two float32
+    factorizations differ entrywise by up to cond(A) x eps, while both
+    keep their backward error, which is what this case can hold."""
+    import numpy as np
+
+    rng = np.random.RandomState(n)
+    b = rng.randn(n, 4 * n)
+    out = {"spd": ((b @ b.T / (4 * n) + np.eye(n)).astype(np.float32),
+                   "entrywise")}
+
+    def gram(dim, sigma):
+        # SVGP's inducing Gram: the RBF kernel at unit raw scale
+        # (softplus(0) = log 2) of n points drawn close together, + 1e-6 I.
+        z = sigma * rng.randn(n, dim)
+        d2 = ((z[:, None, :] - z[None, :, :]) ** 2).sum(-1)
+        return (np.exp(-0.5 * d2 / np.log(2.0)) + 1e-6 * np.eye(n)).astype(
+            np.float32)
+
+    # 13 inputs as in the SVGP config: cond ~4e3 at n = 100, 6e4 at 256.
+    out["crowded"] = (gram(13, 0.2), "entrywise" if n <= 100 else "residual")
+    if 3 < n <= 100:
+        # 3 inputs, tighter: the jitter sets the smallest eigenvalue (cond
+        # ~1e8 at n = 100, beyond float32's entrywise reach).
+        out["crowded_jitter"] = (gram(3, 0.1), "residual")
+    return out
+
+
+def _residuals(torch, a, l, linv):
+    a64, l64, x64 = a.double(), l.double(), linv.double()
+    eye = torch.eye(a.shape[0], dtype=torch.float64, device=a.device)
+    return (float((l64 @ l64.T - a64).abs().max()),
+            float((l64 @ x64 - eye).abs().max()))
+
+
+def phase_chol_vs_plain(torch, dev):
+    import numpy as np
+
+    from zhusuan_tpu_torch.ops import linalg
+
+    cases, failures = [], []
+    max_err = {"l": 0.0, "linv": 0.0}
+    for n in CHOL_SIZES:
+        for label, (a_np, mode) in _chol_matrices(n).items():
+            a = torch.as_tensor(a_np, device=dev)
+            lk, xk = linalg.cholesky_inverse(a)
+            lp, xp = linalg.cholesky_inverse_reference(a)
+            torch.cuda.synchronize()
+            rec = {"n": n, "matrix": label, "check": mode,
+                   "kernel_finite": bool(torch.isfinite(lk).all()
+                                         and torch.isfinite(xk).all()),
+                   "plain_finite": bool(torch.isfinite(lp).all()
+                                        and torch.isfinite(xp).all()),
+                   "upper_zero": bool((torch.triu(lk, 1) == 0).all()
+                                      and (torch.triu(xk, 1) == 0).all())}
+            rec["kernel_residual"] = _residuals(torch, a, lk, xk)
+            rec["plain_residual"] = _residuals(torch, a, lp, xp)
+            ok = rec["kernel_finite"] and rec["upper_zero"]
+            if mode == "entrywise":
+                ok = ok and rec["plain_finite"]
+                for name, got, want in (("l", lk, lp), ("linv", xk, xp)):
+                    err = (got - want).abs()
+                    tol = CHOL_TOL[name] * (1.0 + want.abs())
+                    rec["max_abs_err_" + name] = float(err.max())
+                    rec["max_err_over_tol_" + name] = float((err / tol).max())
+                    ok = ok and bool((err <= tol).all())
+                    max_err[name] = max(max_err[name], float(err.max()))
+                ok = ok and rec["kernel_residual"][1] <= CHOL_TOL["eye"]
+            else:
+                ok = ok and rec["kernel_residual"][0] <= CHOL_TOL["l"] \
+                    and rec["kernel_residual"][1] <= CHOL_TOL["eye"]
+            rec["ok"] = ok
+            cases.append(rec)
+            if not ok:
+                failures.append("{} n={}".format(label, n))
+        # Not positive definite: the NaN pattern of the plain version.
+        if n >= 4:
+            bad = _chol_matrices(n)["spd"][0] - 2.0 * np.eye(n,
+                                                             dtype=np.float32)
+        else:
+            bad = np.eye(n, dtype=np.float32)
+            bad[1, 1] = -1.0
+        a = torch.as_tensor(bad, device=dev)
+        lk, xk = linalg.cholesky_inverse(a)
+        lp, xp = linalg.cholesky_inverse_reference(a)
+        same = all(bool(torch.equal(torch.isnan(g), torch.isnan(w)))
+                   and bool(torch.equal(g.nan_to_num(), w.nan_to_num()))
+                   for g, w in ((lk, lp), (xk, xp)))
+        lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+        pattern = bool(torch.isnan(lk[lower]).all()
+                       and (lk[~lower] == 0).all()
+                       and torch.isnan(xk).all())
+        cases.append({"n": n, "matrix": "not_spd", "same_as_plain": same,
+                      "nan_pattern": pattern})
+        if not (same and pattern):
+            failures.append("not_spd n={}: NaN pattern differs".format(n))
+
+    # The VJP through the kernel against autograd through torch.linalg
+    # (tests/test_ops_linalg.py:68-102's three weightings).
+    grads = []
+    for n in CHOL_GRAD_SIZES:
+        rng = np.random.RandomState(11)
+        b0 = torch.as_tensor(rng.randn(n, n).astype(np.float32) * 0.3,
+                             device=dev)
+        wl = torch.as_tensor(rng.randn(n, n).astype(np.float32), device=dev)
+        wi = torch.as_tensor(rng.randn(n, n).astype(np.float32), device=dev)
+        eye = torch.eye(n, device=dev)
+        for w_l, w_i in ((1.0, 0.0), (0.0, 1.0), (1.0, 1.0)):
+            def loss(b, fused, w_l=w_l, w_i=w_i):
+                a = b @ b.T + eye
+                if fused:
+                    l, linv = linalg.cholesky_inverse(a)
+                else:
+                    l = torch.linalg.cholesky(a)
+                    linv = torch.linalg.solve_triangular(l, eye, upper=False)
+                return w_l * torch.sum(wl * l) + w_i * torch.sum(wi * linv)
+
+            b1 = b0.clone().requires_grad_(True)
+            g1, = torch.autograd.grad(loss(b1, True), b1)
+            b2 = b0.clone().requires_grad_(True)
+            g2, = torch.autograd.grad(loss(b2, False), b2)
+            err = (g1 - g2).abs()
+            ratio = float((err / (CHOL_GRAD_TOL * (1 + g2.abs()))).max())
+            grads.append({"n": n, "w_l": w_l, "w_linv": w_i,
+                          "max_abs_err": float(err.max()),
+                          "max_err_over_tol": ratio})
+            if not ratio <= 1.0:
+                failures.append("VJP n={} w=({}, {})".format(n, w_l, w_i))
+
+    timing = {}
+    for n in CHOL_TIMED:
+        a = torch.as_tensor(_chol_matrices(n)["spd"][0], device=dev)
+        eye = torch.eye(n, device=dev)
+
+        def library(a=a, eye=eye):
+            l, _ = torch.linalg.cholesky_ex(a)
+            return torch.linalg.solve_triangular(l, eye, upper=False)
+
+        reps = CHOL_TIMING_REPS[n]
+        with torch.no_grad():
+            timing[n] = {
+                "kernel_ms": _time_ms(torch, lambda: linalg.cholesky_inverse(
+                    a), reps),
+                "plain_ms": _time_ms(
+                    torch, lambda: linalg.cholesky_inverse_reference(a),
+                    reps),
+                "library_ms": _time_ms(torch, library, reps),
+                "kernel_ms_2": _time_ms(torch, lambda: linalg.cholesky_inverse(
+                    a), reps),
+                **_chol_inv_bound(n)}
+    print("phase14 chol_vs_plain " + json.dumps({
+        "cases": cases, "vjp": grads, "timing": timing,
+        "max_abs_err": max_err}))
+    check(not failures, "K10 vs plain: " + "; ".join(failures))
+    return max_err, timing
+
+
+# --------------------------------------------------------------------- #
+# Phase 15: the SVGP training path
+# --------------------------------------------------------------------- #
+SVGP_TRIALS = 3
+SVGP_PROTEIN_STEPS = 20  # timed, after 5 warm-up steps
+SVGP_PROTEIN_BATCH = 5000  # svgp.py:31's -batch_size
+
+
+def _svgp_run(torch, dev, chol_inverse, seed):
+    """One run of the recipe from fresh parameters: ``warmup_steps``, then
+    ``timed_steps`` timed steps, then the predict step on the test set."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.gaussian_process import svgp
+
+    cfg = svgp.SVGP_CONFIG
+    x_train, y_train, x_test, y_test, std_y = svgp.regression_splits(cfg)
+    n_train = len(x_train)
+    params = svgp.init_params(cfg["n_z"], cfg["x_dim"], x_train, device=dev)
+    optimizer = svgp.make_optimizer(params, cfg["lr"])
+    x, y = (torch.as_tensor(v, device=dev) for v in (x_train, y_train))
+    n_steps = cfg["warmup_steps"] + cfg["timed_steps"]
+    keys = svgp.step_keys(seed, n_steps + 2)
+    lbs = []
+    for t in range(n_steps):
+        if t == cfg["warmup_steps"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lbs.append(svgp.train_step(params, optimizer, x, y, cfg["n_z"],
+                                   cfg["n_particles"], n_train, keys[t],
+                                   chol_inverse=chol_inverse))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lbs = torch.stack(lbs).double().cpu().numpy()
+    rmse, ll = svgp.predict(
+        params, torch.as_tensor(x_test, device=dev),
+        torch.as_tensor(y_test, device=dev), cfg["n_z"],
+        SVGP_PARTICLES_TEST, std_y, (keys[-2], keys[-1]))
+    return {"path": "kernel" if chol_inverse else "plain", "seed": seed,
+            "timed_seconds": seconds,
+            "steps_per_sec": cfg["timed_steps"] / seconds,
+            "first_lb": float(lbs[:SVGP_TAIL].mean()),
+            "final_lb": float(lbs[-SVGP_TAIL:].mean()),
+            "finite": bool(np.isfinite(lbs).all()),
+            "test_rmse": float(rmse), "test_ll": float(ll)}
+
+
+def _svgp_protein_step_ms(torch, dev, chol_inverse):
+    """Milliseconds per training step at Protein size: the synthetic
+    fallback (45730 x 9, seed 7) standardized as the example's main() does,
+    minibatches of SVGP_PROTEIN_BATCH rows, 100 inducing points."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.gaussian_process import svgp
+
+    x_tr, y_tr, x_va, y_va, x_te, y_te, _ = svgp.load_uci_protein_data()
+    x_train = np.vstack([x_tr, x_va])
+    y_train = np.hstack([y_tr, y_va])
+    x_train, _, _, _ = svgp.standardize(x_train, x_te)
+    y_train, _, _, _ = svgp.standardize(y_train, y_te)
+    n_train = len(x_train)
+    cfg = svgp.SVGP_CONFIG
+    params = svgp.init_params(cfg["n_z"], x_train.shape[1],
+                              x_train.astype(np.float32), device=dev)
+    optimizer = svgp.make_optimizer(params, cfg["lr"])
+    perm = np.random.RandomState(1).permutation(n_train)
+    keys = svgp.step_keys(3, SVGP_PROTEIN_STEPS + 5)
+    batches = []
+    for t in range(SVGP_PROTEIN_STEPS + 5):
+        idx = perm[(t * SVGP_PROTEIN_BATCH) % (n_train - SVGP_PROTEIN_BATCH):
+                   ][:SVGP_PROTEIN_BATCH]
+        batches.append(tuple(torch.as_tensor(v[idx].astype(np.float32),
+                                             device=dev)
+                             for v in (x_train, y_train)))
+    for t, (x, y) in enumerate(batches):
+        if t == 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lb = svgp.train_step(params, optimizer, x, y, cfg["n_z"],
+                             cfg["n_particles"], n_train, keys[t],
+                             chol_inverse=chol_inverse)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lb)), "SVGP at Protein size: non-finite bound")
+    return (time.perf_counter() - t0) / SVGP_PROTEIN_STEPS * 1e3
+
+
+def phase_svgp_main_path(torch, dev):
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.gaussian_process import svgp
+    from zhusuan_tpu_torch.ops import linalg
+
+    with open(SVGP_REFERENCE) as f:
+        reference = json.load(f)
+    cfg = svgp.SVGP_CONFIG
+    want_recipe = {"n_train": 456, "x_dim": cfg["x_dim"], "n_z": cfg["n_z"],
+                   "n_particles": cfg["n_particles"], "lr": cfg["lr"],
+                   "warmup_steps": cfg["warmup_steps"],
+                   "timed_steps": cfg["timed_steps"],
+                   "data_seed": cfg["data_seed"],
+                   "n_particles_test": SVGP_PARTICLES_TEST,
+                   "tail": SVGP_TAIL}
+    check(reference["recipe"] == want_recipe, "{} was made for another "
+          "recipe; rerun scripts/svgp_jax_reference.py".format(
+              SVGP_REFERENCE))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the recipe is float32")
+    n_steps = cfg["warmup_steps"] + cfg["timed_steps"]
+
+    linalg.cholesky_inverse.launches = 0
+    kernel_runs = [_svgp_run(torch, dev, True, 100)]  # untimed
+    kernel_runs += [_svgp_run(torch, dev, True, 101 + i)
+                    for i in range(SVGP_TRIALS)]
+    kernel_launches = linalg.cholesky_inverse.launches
+    linalg.cholesky_inverse.launches = 0
+    plain = _svgp_run(torch, dev, False, 101)
+    plain_launches = linalg.cholesky_inverse.launches
+    protein = {"kernel_ms_per_step": _svgp_protein_step_ms(torch, dev, True),
+               "plain_ms_per_step": _svgp_protein_step_ms(torch, dev, False)}
+
+    tol = {f: 3.0 * reference[f]["spread"] for f in ("final_lb",
+                                                     "test_rmse")}
+    failures = []
+    for run in kernel_runs + [plain]:
+        tag = "{} seed {}".format(run["path"], run["seed"])
+        if not run["finite"]:
+            failures.append(tag + ": non-finite lower bound")
+        if not run["final_lb"] > run["first_lb"]:
+            failures.append(tag + ": the bound did not rise")
+        for f in tol:
+            run[f + "_minus_jax"] = run[f] - reference[f]["mean"]
+            if not abs(run[f + "_minus_jax"]) <= tol[f]:
+                failures.append("{}: {} {:.4f} vs the JAX package's {:.4f} "
+                                "(tolerance {:.4f})".format(
+                                    tag, f, run[f], reference[f]["mean"],
+                                    tol[f]))
+    same_seed = kernel_runs[1]
+    kernel_vs_plain = {f: same_seed[f] - plain[f] for f in tol}
+    for f, d in kernel_vs_plain.items():
+        if not abs(d) <= SVGP_PATH_RTOL * abs(plain[f]):
+            failures.append("kernel vs plain path: {} differs by {:.3g} "
+                            "(tolerance {} relative)".format(
+                                f, d, SVGP_PATH_RTOL))
+    rates = [r["steps_per_sec"] for r in kernel_runs[1:]]
+    print("phase15 svgp_main_path " + json.dumps({
+        "recipe": want_recipe, "tolerance": tol,
+        "path_rtol": SVGP_PATH_RTOL,
+        "jax_reference": {k: reference[k] for k in (
+            "script", "jax", "device", "final_lb", "test_rmse", "test_ll")},
+        "kernel_runs": kernel_runs, "plain_run": plain,
+        "kernel_steps_per_sec": statistics.median(rates),
+        "plain_steps_per_sec": plain["steps_per_sec"],
+        "kernel_over_plain": statistics.median(rates)
+        / plain["steps_per_sec"],
+        "kernel_path_launches": kernel_launches,
+        "kernel_path_steps": n_steps * len(kernel_runs),
+        "plain_path_launches": plain_launches,
+        "kernel_vs_plain": kernel_vs_plain, "protein_size": protein}))
+    check(kernel_launches == n_steps * len(kernel_runs),
+          "the kernel path launched cholesky_inverse {} times, not once per "
+          "step ({})".format(kernel_launches, n_steps * len(kernel_runs)))
+    check(plain_launches == 0, "the plain path launched cholesky_inverse "
+          "{} times".format(plain_launches))
+    check(not failures, "; ".join(failures))
+    return kernel_launches
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1607,6 +1999,9 @@ def main():
     sg_err, sg_timing = run_phase("phase12", phase_sgmcmc_vs_plain, torch,
                                   dev)
     sg_launches, _ = run_phase("phase13", phase_sgmcmc_main_path, torch, dev)
+    chol_err, chol_timing = run_phase("phase14", phase_chol_vs_plain, torch,
+                                      dev)
+    svgp_launches = run_phase("phase15", phase_svgp_main_path, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -1627,6 +2022,25 @@ def main():
         **bound(sg_timing[kind]),
     } for kind, line in (("sgld", 86), ("psgld", 102), ("sghmc", 117),
                          ("sgnht", 124))]
+    chol = chol_timing[100]
+    linalg_rec = {
+        "name": "cholesky_inverse",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/linalg.cu",
+        "replaces": "zhusuan_tpu/ops/linalg.py:110",
+        "launches": svgp_launches,
+        "max_abs_err": max(chol_err.values()),
+        "ms": chol["kernel_ms"],
+        "plain_ms": chol["plain_ms"],
+        "bound_ms": chol["bound_ms"],
+        "bound_by": chol["bound_by"],
+        "library_ms": chol["library_ms"],
+        "n": 100,
+        "ms_n512": chol_timing[512]["kernel_ms"],
+        "plain_ms_n512": chol_timing[512]["plain_ms"],
+        "library_ms_n512": chol_timing[512]["library_ms"],
+        "bound_ms_n512": chol_timing[512]["bound_ms"],
+    }
     print(json.dumps({"kernels": [{
         "name": "fused_hmc_step",
         "route": "cuda",
@@ -1682,7 +2096,7 @@ def main():
         "plain_ms": chees_t["plain_ms"],
         **bound(_chees_step_bound(MIX_CHAINS, DIM, 190, "equicorrelated")),
         "n_leapfrogs": 190,
-    }] + sgmcmc}))
+    }] + sgmcmc + [linalg_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,28 @@ Ported so far: adaptive HMC, NUTS, ChEES-HMC and the stochastic-gradient
 samplers SGLD, PSGLD, SGHMC and SGNHT, each with its hand-written CUDA
 transition kernel, and dense preconditioning (:mod:`.mcmc`, :mod:`.ops`),
 the ESS diagnostics (:mod:`.diagnostics`) and the utilities they use
-(:mod:`.utils`).
+(:mod:`.utils`); the model path of the SVGP example (:mod:`.framework`:
+``BayesianNet``, ``MetaBayesianNet``; :mod:`.distributions`: ``Normal``,
+``MultivariateNormalCholesky``), the ELBO (:mod:`.variational`) and the
+hand-written CUDA Cholesky-plus-inverse kernel (:func:`.ops.cholesky_inverse`),
+driven by :mod:`.examples.gaussian_process.svgp`.
 """
 
-from zhusuan_tpu_torch import diagnostics, mcmc, ops, utils
+from zhusuan_tpu_torch import (
+    diagnostics,
+    distributions,
+    framework,
+    mcmc,
+    ops,
+    utils,
+    variational,
+)
+from zhusuan_tpu_torch.framework import (
+    BayesianNet,
+    MetaBayesianNet,
+    StochasticTensor,
+    meta_bayesian_net,
+)
 from zhusuan_tpu_torch.mcmc import (
     HMC,
     NUTS,
@@ -36,6 +54,10 @@ from zhusuan_tpu_torch.ops import (
 )
 
 __all__ = [
+    "BayesianNet",
+    "MetaBayesianNet",
+    "StochasticTensor",
+    "meta_bayesian_net",
     "ChEESHMC",
     "ChEESInfo",
     "ChEESState",
@@ -57,7 +79,10 @@ __all__ = [
     "fused_leapfrog",
     "whiten_log_joint",
     "diagnostics",
+    "distributions",
+    "framework",
     "mcmc",
     "ops",
     "utils",
+    "variational",
 ]

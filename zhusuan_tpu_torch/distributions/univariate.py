@@ -1,0 +1,113 @@
+"""Univariate distributions.
+
+Port of ``zhusuan_tpu/distributions/univariate.py``; so far only
+:class:`Normal` (parity: reference ``univariate.py:43-184``). The other
+thirteen classes come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zhusuan_tpu_torch.distributions.base import Distribution
+from zhusuan_tpu_torch.distributions.utils import (
+    as_param,
+    assert_same_float_dtype,
+    broadcast_shapes,
+    param_device,
+)
+from zhusuan_tpu_torch.ops.checks import check_numerics
+
+__all__ = ["Normal"]
+
+_HALF_LOG_2PI = float(0.5 * (np.log(2.0) + np.log(np.pi)))
+
+
+def _maybe_detach(params, is_reparameterized):
+    if is_reparameterized:
+        return params
+    return tuple(p.detach() for p in params)
+
+
+class Normal(Distribution):
+    """Univariate Normal.
+
+    Exactly one of ``std`` / ``logstd`` must be given (reference
+    univariate.py:92-95); the ``_sentinel`` positional guard (univariate.py:89)
+    makes legacy positional ``Normal(mean, logstd)`` calls fail loudly.
+
+    Sampler: reparameterized ``eps * std + mean`` (univariate.py:161-172).
+    Density: ``-0.5*log(2*pi) - logstd - 0.5*exp(-2*logstd)*(x-mean)**2``
+    (univariate.py:174-181), with ``path_param`` on the parameters.
+    """
+
+    def __init__(
+        self,
+        mean=0.0,
+        _sentinel=None,
+        std=None,
+        logstd=None,
+        group_ndims: int = 0,
+        is_reparameterized: bool = True,
+        use_path_derivative: bool = False,
+        check_numerics: bool = False,
+        **kwargs,
+    ):
+        if _sentinel is not None:
+            raise ValueError(
+                "The order of `std` and `logstd` has changed from the legacy "
+                "API; please use keyword arguments: Normal(mean, std=...) or "
+                "Normal(mean, logstd=...).")
+        if (std is None) == (logstd is None):
+            raise ValueError(
+                "Exactly one of `std` and `logstd` should be given.")
+        device = param_device(mean, std, logstd)
+        if std is not None:
+            dtype = assert_same_float_dtype([(mean, "mean"), (std, "std")])
+            self._std = as_param(std, dtype, device)
+            self._logstd = torch.log(self._std)
+        else:
+            dtype = assert_same_float_dtype(
+                [(mean, "mean"), (logstd, "logstd")])
+            self._logstd = as_param(logstd, dtype, device)
+            self._std = torch.exp(self._logstd)
+        self._mean = as_param(mean, dtype, device)
+        self._check_numerics = check_numerics
+        broadcast_shapes(self._mean.shape, self._std.shape)
+        super().__init__(
+            dtype=dtype,
+            param_dtype=dtype,
+            is_continuous=True,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            group_ndims=group_ndims,
+            device=device,
+            **kwargs,
+        )
+
+    mean = property(lambda self: self._mean, doc="The mean.")
+    std = property(lambda self: self._std, doc="The standard deviation.")
+    logstd = property(lambda self: self._logstd,
+                      doc="The log standard deviation.")
+
+    def _batch_shape(self):
+        return broadcast_shapes(self._mean.shape, self._std.shape)
+
+    def _value_shape(self):
+        return ()
+
+    def _sample(self, generator, n_samples, eps):
+        mean, std = _maybe_detach((self._mean, self._std),
+                                  self.is_reparameterized)
+        eps = self._normals(generator, (n_samples,) + self.batch_shape, eps)
+        return eps * std + mean
+
+    def _log_prob(self, given):
+        mean = self.path_param(self._mean)
+        logstd = self.path_param(self._logstd)
+        precision = torch.exp(-2.0 * logstd)
+        precision = check_numerics(precision, "precision",
+                                   self._check_numerics)
+        return -_HALF_LOG_2PI - logstd - 0.5 * precision * torch.square(
+            given - mean)

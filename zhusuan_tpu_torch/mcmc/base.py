@@ -18,6 +18,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from zhusuan_tpu_torch.framework.meta_bn import MetaBayesianNet
 from zhusuan_tpu_torch.utils import merge_dicts
 
 __all__ = [
@@ -41,16 +42,20 @@ __all__ = [
 Latent = Dict[str, torch.Tensor]
 
 
-def make_log_joint_fn(log_joint, observed):
+def make_log_joint_fn(meta_bn_or_log_joint, observed):
     """Build ``log_posterior(latent_dict) -> chain-shaped tensor`` from a
-    ``log_joint(obs_dict)`` callable (parity: reference hmc.py:412-416).
-    """
-    if not callable(log_joint):
+    :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet` or a raw
+    ``log_joint(obs_dict)`` callable (parity: reference hmc.py:412-416,
+    sgmcmc.py:121-133)."""
+    if isinstance(meta_bn_or_log_joint, MetaBayesianNet):
+        def log_joint(obs):
+            return meta_bn_or_log_joint.observe(**obs).log_joint()
+    elif callable(meta_bn_or_log_joint):
+        log_joint = meta_bn_or_log_joint
+    else:
         raise TypeError(
-            "Expected a callable log_joint(obs_dict), got {!r}. "
-            "MetaBayesianNet models arrive with the port's model path; "
-            "until then pass a log-joint function.".format(type(log_joint))
-        )
+            "Expected a MetaBayesianNet or a callable log-joint function, "
+            "got {!r}.".format(type(meta_bn_or_log_joint)))
 
     def log_posterior(latent: Latent):
         return log_joint(merge_dicts(latent, observed))

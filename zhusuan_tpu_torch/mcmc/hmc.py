@@ -289,7 +289,8 @@ class HMC:
         """Run ONE HMC iteration: ``(state, key) -> (state, info)``.
 
         :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
-            built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`.
+            built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`,
+            or a :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations.
         :param state: current :class:`HMCState`.
         :param key: key ``(k0, k1)`` or a ``torch.Generator`` to draw one

@@ -452,7 +452,8 @@ class NUTS:
         (state, NUTSInfo)``.
 
         :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
-            built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`.
+            built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`,
+            or a :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations; a leaf may carry the chain
             shape (per-chain conditioning).
         :param state: current :class:`HMCState`.

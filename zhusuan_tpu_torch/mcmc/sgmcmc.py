@@ -298,7 +298,8 @@ class SGMCMC:
         reference sgmcmc.py:119-161, with the latents in ``state.q``.
 
         :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a built-in
-            density of :mod:`~zhusuan_tpu_torch.ops.densities`.
+            density of :mod:`~zhusuan_tpu_torch.ops.densities`, or a
+            :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations.
         :param key: key ``(k0, k1)`` or a ``torch.Generator`` to draw one
             from. The draws of iteration ``t`` depend only on the key and

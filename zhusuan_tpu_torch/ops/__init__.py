@@ -11,11 +11,15 @@ kernel replacing both ``zhusuan_tpu/ops/nuts_step.py::
 fused_nuts_transition`` and ``fused_nuts_transition_looped``); and the
 fused SGMCMC updates (:mod:`.sgld_step`, :mod:`.psgld_step`,
 :mod:`.sghmc_step`, :mod:`.sgnht_step`, replacing the Pallas kernels of the
-same names), four entry points of one CUDA kernel body. The kernels
-evaluate the built-in densities of :mod:`.densities`. Kernels are built
-from ``zhusuan_tpu_torch/csrc`` at first use, never at import.
+same names), four entry points of one CUDA kernel body; and the Cholesky
+factor with its inverse (:mod:`.linalg`, replacing ``ops/linalg.py::
+_chol_inv_kernel``). The sampler kernels evaluate the built-in densities
+of :mod:`.densities`; :mod:`.checks` holds the numerics guard (no
+kernel). Kernels are built from ``zhusuan_tpu_torch/csrc`` at first use,
+never at import.
 """
 
+from zhusuan_tpu_torch.ops.checks import check_numerics
 from zhusuan_tpu_torch.ops.chees_step import (
     chees_step_supported,
     fused_chees_step,
@@ -35,6 +39,11 @@ from zhusuan_tpu_torch.ops.leapfrog import (
     fused_leapfrog,
     fused_leapfrog_reference,
     leapfrog_supported,
+)
+from zhusuan_tpu_torch.ops.linalg import (
+    chol_inv_supported,
+    cholesky_inverse,
+    cholesky_inverse_reference,
 )
 from zhusuan_tpu_torch.ops.nuts_step import (
     fused_nuts_transition,
@@ -66,7 +75,11 @@ __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "check_numerics",
     "chees_step_supported",
+    "chol_inv_supported",
+    "cholesky_inverse",
+    "cholesky_inverse_reference",
     "fused_chees_step",
     "fused_chees_step_reference",
     "fused_hmc_step",
