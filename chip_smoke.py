@@ -9,9 +9,11 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
 1. device: the card, as ``nvidia-smi`` reports its name and power limit;
 2. build: compiles ``csrc/hmc_step.cu`` (the HMC step, ChEES step and
    trajectory kernels), ``csrc/nuts_step.cu``, ``csrc/sgmcmc_step.cu``
-   (the SGLD, PSGLD, SGHMC and SGNHT kernels) and ``csrc/linalg.cu`` (the
-   Cholesky-plus-inverse kernel), one ``nvcc`` each, started together,
-   timing the build and printing ptxas' register and spill report;
+   (the SGLD, PSGLD, SGHMC and SGNHT kernels), ``csrc/linalg.cu`` (the
+   Cholesky-plus-inverse kernel), ``csrc/advi_step.cu`` (the whole-fit ADVI
+   trainer) and ``csrc/random.cu`` (the standalone samplers), one ``nvcc``
+   each, started together, timing the build and printing ptxas' register
+   and spill report;
 3. kernel vs plain: the HMC step kernel (diagonal density) against its
    plain torch version on the same
    injected noise (the main path's 32768 x 100, 4096 x 100 and a ragged
@@ -43,8 +45,9 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
 8. NUTS main path: ``bench.py``'s ``measure_nuts`` recipe through
    ``zhusuan_tpu_torch.NUTS`` -- 4096 chains x 100 dims, depth 6, 200
    adaptive then 200 sampling iterations collecting samples and leapfrog
-   counts, 3 timed trials -- on the kernel path and the plain path, with
-   the kernel's launch count read around each;
+   counts -- on the kernel path (3 timed trials) and the plain path (one:
+   a plain iteration takes about 0.1 s), with the kernel's launch count
+   read around each;
 9. NUTS deep trees: ``bench.py``'s sweep on the ``linspace(0.1, 30)``
    target, kernel path at depths 6, 8 and 10 (150 adaptive, 50 sampling
    iterations, 2 trials), and a few timed plain-path iterations at 10;
@@ -125,6 +128,41 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    the plain path on one seed within ``SVGP_PATH_RTOL`` of each other. Then
    one step timed at Protein size (the
    45730 x 9 synthetic fallback, minibatches of 5000), no gate.
+16. standalone samplers vs plain: ``ops.gpu_normal`` and ``ops.gpu_uniform``
+   (the kernels) against the plain torch Philox at 1024 x 1024, a ragged
+   1000 x 37 and 3 x 5: 0 differing elements, one key repeats, two keys
+   differ, and at 1024 x 1024 the moment gates of ``bench.py:225-231``.
+   Then each timed (back to back and replayed from a CUDA graph) beside
+   its plain version and ``torch.randn`` / ``torch.rand``;
+17. ADVI trainer vs plain: ``ops.fused_meanfield_advi`` (the kernel) against
+   ``fused_meanfield_advi_reference`` for the three built-in densities at
+   the widths of ``ADVI_CASES`` (phase 18's 64 x 100 among them, and at
+   every layout more rows than a warp or lane takes in one pass): fits of
+   1, 2 and 10 steps held at 0
+   differing elements of ``loc``, ``log_scale`` and ``losses``; longer fits
+   on injected noise and on the kernel's own Philox within ``ADVI_TOL``
+   relative to ``1 + |ref|``; a fit that overflows (the NaN and inf
+   pattern must be the plain version's). Then a 200-step fit timed on both
+   sides and whole fits (16000 and 2000 steps) on the kernel, at the
+   shapes of phase 18's two fits;
+18. ADVI main path: ``zhusuan_tpu_torch.variational.advi`` (i) on the toy2d
+   recipe of ``baseline_ref/configs_protocol.py:29`` -- the built-in toy2d
+   posterior, 500 particles, Adam at a constant 0.1 from loc -2, log-scale
+   -5, 50 + 16000 steps in one fit -- on the kernel path (one launch per
+   fit; an untimed fit, then ``TOY2D_TRIALS`` timed) and on the plain path
+   (``guide.latent`` -> ``elbo().sgvb()`` -> backward -> Adam; one fit),
+   gated on finite falling losses and on the fitted parameters and the
+   final loss within three times the spread of the JAX package's CPU runs
+   of the recipe (``ADVI_REFERENCE``, from
+   ``scripts/advi_jax_reference.py``), the two paths within the same of
+   each other; (ii) with its defaults (2000 steps, cosine-decayed 1e-2)
+   and 64 particles on ``bench.py``'s 100-dim diagonal Gaussian, where the
+   optimum is exact (``GAUSS_TOL``), on both paths; (iii) on a
+   ``MetaBayesianNet`` with a Gamma latent (Softplus bijector), which takes
+   the plain loop on the card; and ``bench.py:215-231``'s use of the
+   standalone samplers (``RANDOM_DRAWS`` arrays of 1024 x 1024 each, held
+   to its moment gates). The launch counts of the three kernels are set to
+   0 before the kernel-path part and read after it.
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -136,6 +174,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -200,6 +239,18 @@ SVGP_PARTICLES_TEST = 100
 SVGP_PATH_RTOL = 1e-3
 SVGP_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "scripts", "svgp_jax_reference.json")
+# Phases 17-18, the toy2d ADVI recipe (baseline_ref/configs_protocol.py:29:
+# 500 particles, Adam 0.1, 50 warm-up then 16000 timed steps).
+TOY2D_PARTICLES = 500
+TOY2D_WARMUP = 50
+TOY2D_STEPS = 16000
+TOY2D_LR = 0.1
+TOY2D_SCALE = 1.35  # std of z2
+# examples/toy_examples/toy2d_intractable.py:40-43: loc, log-scale at start.
+TOY2D_INIT = (-2.0, -5.0)
+TOY2D_TAIL = 500  # the final loss is the mean of the last TOY2D_TAIL steps
+ADVI_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "scripts", "advi_jax_reference.json")
 
 
 def fail(msg):
@@ -231,7 +282,7 @@ def phase_build():
     from zhusuan_tpu_torch.ops._build import build_libraries
 
     libs = build_libraries(["hmc_step", "nuts_step", "sgmcmc_step",
-                            "linalg"])
+                            "linalg", "advi_step", "random"])
     for name, (_, record) in libs.items():
         ptxas = [ln.strip() for ln in record["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -746,7 +797,7 @@ def phase_nuts_main_path(torch, dev):
     for fused in (True, False):
         fused_nuts_transition.launches = 0
         rec = _nuts_run(torch, dev, fused, 6, 1.0, NUTS_ITERS, NUTS_ITERS,
-                        N_TRIALS)
+                        N_TRIALS if fused else 1)
         rec["launches"] = fused_nuts_transition.launches
         runs[rec["path"]] = rec
     kernel, plain = runs["kernel"], runs["plain"]
@@ -1963,6 +2014,484 @@ def phase_svgp_main_path(torch, dev):
     return kernel_launches
 
 
+# --------------------------------------------------------------------- #
+# Phase 16: the standalone samplers (K12) against their plain versions
+# --------------------------------------------------------------------- #
+RANDOM_SHAPES = ((1024, 1024), (1000, 37), (3, 5))
+RANDOM_TIMED = (1024, 1024)  # bench.py:217-222's self-check shape
+OPS_UNIFORM = 20  # Philox's rounds per 4 words, the mantissa fill
+
+
+def _random_bound(kind, rows, cols):
+    """K12: nothing read, every element written once."""
+    ops = OPS_NORMAL if kind == "normal" else OPS_UNIFORM
+    return _bound(4 * rows * cols, rows * cols * ops)
+
+
+def phase_random_vs_plain(torch, dev):
+    from zhusuan_tpu_torch.ops import random as zrandom
+
+    key, other_key = (0x01234567, 0x89ABCDEF), (7, 8)
+    kinds = {
+        "normal": (zrandom.gpu_normal, zrandom.gpu_normal_reference,
+                   lambda shape: torch.randn(shape, device=dev)),
+        "uniform": (zrandom.gpu_uniform, zrandom.gpu_uniform_reference,
+                    lambda shape: torch.rand(shape, device=dev)),
+    }
+    cases, failures = [], []
+    max_err = {kind: 0.0 for kind in kinds}
+    for shape in RANDOM_SHAPES:
+        for kind, (fn, ref, _) in kinds.items():
+            got, want = fn(key, shape, dev), ref(key, shape, dev)
+            again, other = fn(key, shape, dev), fn(other_key, shape, dev)
+            torch.cuda.synchronize()
+            rec = {"kind": kind, "shape": list(shape),
+                   "differing": int((got != want).sum()),
+                   "max_abs_err": float((got - want).abs().max()),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "one_key_repeats": bool(torch.equal(got, again)),
+                   "two_keys_differ": not bool(torch.equal(got, other))}
+            max_err[kind] = max(max_err[kind], rec["max_abs_err"])
+            ok = (rec["differing"] == 0 and rec["finite"]
+                  and rec["one_key_repeats"] and rec["two_keys_differ"]
+                  and got.dtype == torch.float32
+                  and tuple(got.shape) == tuple(shape))
+            if tuple(shape) == RANDOM_TIMED:
+                g64 = got.double()
+                if kind == "normal":
+                    rec["mean"], rec["std"] = float(g64.mean()), float(
+                        g64.std())
+                    ok = ok and abs(rec["mean"]) < 0.005 \
+                        and abs(rec["std"] - 1.0) < 0.005
+                else:
+                    rec["mean"] = float(g64.mean())
+                    rec["min"], rec["max"] = float(got.min()), float(
+                        got.max())
+                    ok = ok and abs(rec["mean"] - 0.5) < 0.002 \
+                        and rec["min"] >= 0.0 and rec["max"] < 1.0
+            rec["ok"] = ok
+            cases.append(rec)
+            if not ok:
+                failures.append("{} {}".format(kind, shape))
+    timing = {}
+    for kind, (fn, ref, library) in kinds.items():
+        timing[kind] = {
+            "kernel_ms": _time_ms(torch, lambda: fn(key, RANDOM_TIMED, dev),
+                                  200),
+            "plain_ms": _time_ms(torch, lambda: ref(key, RANDOM_TIMED, dev),
+                                 5),
+            "library_ms": _time_ms(torch, lambda: library(RANDOM_TIMED), 200),
+            "library_graph_ms": _graph_ms(
+                torch, lambda: library(RANDOM_TIMED), 50),
+            "kernel_graph_ms": _graph_ms(
+                torch, lambda: fn(key, RANDOM_TIMED, dev), 50),
+            **_random_bound(kind, *RANDOM_TIMED)}
+    print("phase16 random_vs_plain " + json.dumps({
+        "cases": cases, "timing": timing, "max_abs_err": max_err}))
+    check(not failures, "K12 vs plain: " + "; ".join(failures))
+    return max_err, timing
+
+
+# --------------------------------------------------------------------- #
+# Phase 17: the whole-fit ADVI trainer (K11) against its plain version
+# --------------------------------------------------------------------- #
+# (built-in, dim, particles, steps of the long comparison): the toy2d
+# recipe's width, advi()'s default particles on bench.py's 100 dims, an odd
+# particle count on a padded width, one width for each of the kernel's
+# wider instantiations (K = 2: 129-256 columns, K = 4: 257-512), the
+# Gaussians at dim <= 4, where a lane owns a row as in the toy2d recipe
+# (3000 rows: three rows per lane), and, at each instantiation of the
+# warp-per-row layout, more rows than the block has warps (32; 16 at K = 4),
+# so that a warp sums several rows: phase 18's 64 particles on 100 dims
+# among them.
+ADVI_CASES = (("toy2d", 2, 500, 200), ("diagonal", 100, 32, 200),
+              ("equicorrelated", 100, 32, 200), ("diagonal", 37, 7, 200),
+              ("equicorrelated", 37, 7, 200), ("diagonal", 200, 5, 50),
+              ("equicorrelated", 400, 3, 50), ("diagonal", 3, 3000, 50),
+              ("equicorrelated", 4, 33, 200), ("diagonal", 100, 64, 200),
+              ("equicorrelated", 37, 75, 200), ("diagonal", 200, 70, 50),
+              ("equicorrelated", 400, 40, 50), ("diagonal", 400, 21, 50))
+ADVI_SHORT_STEPS = (1, 2, 10)  # held at 0 differing elements
+# The long fits: relative to 1 + |ref|. Every particle mean is a float64 sum
+# rounded once on both sides; where such a sum is inexact its order can flip
+# one float32 rounding, and the Adam steps that follow carry it on.
+ADVI_TOL = {"loc": 1e-4, "log_scale": 1e-4, "losses": 1e-3}
+ADVI_TIMED_STEPS = 200  # the record's ms and plain_ms: one fit of this length
+# Operations per particle-element and step beside the normal: sigma eps, z,
+# the two accumulated products, eps^2 (about 8), the built-in's value and
+# gradient; per column the float64 column sums and two Adam updates (~100).
+OPS_VALUE_AND_GRAD = {"toy2d": 16, "diagonal": 8, "equicorrelated": 12}
+
+
+def _advi_bound(kind, d, n, n_steps):
+    """K11: reads loc0, log_scale0 and the [n_steps, 3] table, writes loc,
+    log_scale and n_steps losses; the formula's floor, which n_steps
+    DEPENDENT steps on one SM never reach."""
+    ops = n_steps * (n * d * (OPS_NORMAL + 8 + OPS_VALUE_AND_GRAD[kind])
+                     + 100 * d)
+    return _bound(4 * (4 * d + 4 * n_steps), ops)
+
+
+def _advi_density(torch, dev, kind, d):
+    """``(density, loc0, log_scale0, lr_schedule)`` of one phase-17 case."""
+    import numpy as np
+
+    from zhusuan_tpu_torch import ops
+
+    if kind == "toy2d":
+        # examples/toy_examples/toy2d_intractable.py:40-43: Adam 0.1 from
+        # loc -2, log-scale -5.
+        return (ops.Toy2DLogJoint("z"),
+                torch.full((2,), -2.0, device=dev),
+                torch.full((2,), -5.0, device=dev), lambda t: 0.1)
+    if kind == "diagonal":
+        rng = np.random.RandomState(d)
+        dens = ops.DiagonalGaussianLogJoint(
+            "z", torch.as_tensor(rng.randn(d).astype(np.float32), device=dev),
+            torch.linspace(0.1, 1.0, d, device=dev))
+    else:
+        dens = ops.EquicorrelatedGaussianLogJoint("z", d, 0.9)
+    # advi()'s defaults: loc 0, scale 0.1, cosine decay to 10% (over the
+    # long comparison's 200 steps, at 5e-2).
+    return (dens, torch.zeros(d, device=dev),
+            torch.full((d,), math.log(0.1), device=dev),
+            lambda t: 5e-2 * (0.45 * (1.0 + math.cos(
+                math.pi * min(t, 200.0) / 200.0)) + 0.1))
+
+
+def _advi_compare(torch, got, want):
+    rec = {}
+    for name, g, w in zip(("loc", "log_scale", "losses"), got, want):
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        fin = torch.isfinite(w)
+        err = ((g - w).abs() / (1.0 + w.abs()))[fin]
+        rec[name] = {
+            "differing": int((~same).sum()),
+            "finite_mismatch": int((torch.isfinite(g) != fin).sum()),
+            "max_rel_err": float(err.max()) if err.numel() else 0.0,
+            "max_abs_err": float((g - w).abs()[fin].max())
+            if err.numel() else 0.0}
+    return rec
+
+
+def phase_advi_vs_plain(torch, dev):
+    from zhusuan_tpu_torch.ops import advi_step
+
+    key = (0x0BADCAFE, 0x00C0FFEE)
+    kernel, plain = (advi_step.fused_meanfield_advi,
+                     advi_step.fused_meanfield_advi_reference)
+    cases, failures = [], []
+    max_err = 0.0
+    for kind, d, n, long_steps in ADVI_CASES:
+        dens, loc0, ls0, lr = _advi_density(torch, dev, kind, d)
+        g = torch.Generator(device=dev).manual_seed(1000 * d + n)
+        noise = torch.randn(long_steps, n, d, generator=g, device=dev)
+        runs = [(steps, None, True) for steps in ADVI_SHORT_STEPS]
+        runs += [(long_steps, noise, False), (long_steps, None, False)]
+        for steps, nz, exact in runs:
+            got = kernel(dens, loc0, ls0, steps, n, key, lr, noise=nz)
+            want = plain(dens, loc0, ls0, steps, n, key, lr, noise=nz)
+            torch.cuda.synchronize()
+            rec = {"density": kind, "dim": d, "n_particles": n,
+                   "n_steps": steps,
+                   "noise": "injected" if nz is not None else "philox",
+                   "held_at": "0 differing" if exact else "tolerance",
+                   **_advi_compare(torch, got, want)}
+            if exact:
+                ok = all(rec[f]["differing"] == 0 for f in ADVI_TOL)
+            else:
+                ok = all(rec[f]["max_rel_err"] <= ADVI_TOL[f]
+                         and rec[f]["finite_mismatch"] == 0 for f in ADVI_TOL)
+            ok = ok and bool(torch.isfinite(got[2]).all())
+            max_err = max([max_err] + [rec[f]["max_abs_err"]
+                                       for f in ADVI_TOL])
+            rec["ok"] = ok
+            cases.append(rec)
+            if not ok:
+                failures.append("{} d={} n={} steps={} {}".format(
+                    kind, d, n, steps, rec["noise"]))
+    # Non-finite: z2 near -60 makes exp(-2 z2) overflow in float32; the
+    # pattern of NaN and inf must be the plain version's.
+    dens, _, _, lr = _advi_density(torch, dev, "toy2d", 2)
+    loc0 = torch.tensor([1.0, -60.0], device=dev)
+    ls0 = torch.full((2,), -5.0, device=dev)
+    got = kernel(dens, loc0, ls0, 5, 500, key, lr)
+    want = plain(dens, loc0, ls0, 5, 500, key, lr)
+    same = all(bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+               and bool(torch.equal(a.nan_to_num(), b.nan_to_num()))
+               for a, b in zip(got, want))
+    some = not bool(torch.isfinite(got[2]).all())
+    cases.append({"density": "toy2d", "case": "non_finite",
+                  "same_as_plain": same, "non_finite_seen": some})
+    if not (same and some):
+        failures.append("toy2d non-finite pattern")
+
+    timing = {}
+    for kind, d, n, fit_steps in (("toy2d", 2, 500, TOY2D_STEPS),
+                                  ("diagonal", DIM, GAUSS_PARTICLES, 2000),
+                                  ("diagonal", DIM, 32, 2000)):
+        dens, loc0, ls0, lr = _advi_density(torch, dev, kind, d)
+        label = "{}_d{}_n{}".format(kind, d, n)
+        short = ADVI_TIMED_STEPS
+        rec = {
+            "n_steps": short,
+            "kernel_ms": _time_ms(torch, lambda: kernel(
+                dens, loc0, ls0, short, n, key, lr), 5),
+            "plain_ms": _time_ms(torch, lambda: plain(
+                dens, loc0, ls0, short, n, key, lr), 1),
+            **_advi_bound(kind, d, n, short),
+            "fit_steps": fit_steps,
+            "kernel_fit_ms": _time_ms(torch, lambda: kernel(
+                dens, loc0, ls0, fit_steps, n, key, lr), 3),
+            "fit_bound_ms": _advi_bound(kind, d, n, fit_steps)["bound_ms"]}
+        rec["kernel_us_per_step"] = rec["kernel_fit_ms"] / fit_steps * 1e3
+        rec["plain_us_per_step"] = rec["plain_ms"] / short * 1e3
+        timing[label] = rec
+    print("phase17 advi_vs_plain " + json.dumps({
+        "tolerance": ADVI_TOL, "cases": cases, "timing": timing,
+        "max_abs_err": max_err}))
+    check(not failures, "K11 vs plain: " + "; ".join(failures))
+    return max_err, timing
+
+
+# --------------------------------------------------------------------- #
+# Phase 18: one-call ADVI and the standalone samplers, as a user calls them
+# --------------------------------------------------------------------- #
+TOY2D_TRIALS = 3
+GAUSS_PARTICLES = 64
+# advi()'s defaults on bench.py's 100-dim diagonal Gaussian: the optimum is
+# exact (q == p). Over three seeds of a CPU rehearsal, both paths, the worst
+# |loc - loc*| / scale* was 0.044, the worst |sigma / scale* - 1| 0.020 and
+# the mean of the last 200 losses within 0.002 of the exact value.
+GAUSS_TOL = {"loc_over_scale": 0.1, "scale_rel": 0.06, "tail_loss": 0.1}
+GAUSS_TAIL = 200
+GAMMA_STEPS = 300
+RANDOM_DRAWS = 8  # arrays of RANDOM_TIMED per sampler, a key each
+
+
+def _toy2d_fit(torch, dev, fused, seed):
+    """One fit of the toy2d recipe through ``advi()`` from the example's
+    init: the fitted parameters, the loss means and the seconds."""
+    from zhusuan_tpu_torch import ops, variational
+
+    dens = ops.Toy2DLogJoint("z", TOY2D_SCALE)
+    guide = variational.MeanFieldGuide(dens, device=dev)
+    init = guide.init_params()
+    init["loc"]["z"].fill_(TOY2D_INIT[0])
+    init["log_scale"]["z"].fill_(TOY2D_INIT[1])
+    n_steps = TOY2D_WARMUP + TOY2D_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = variational.advi(
+        dens, {}, (seed, 0x18), guide=guide, n_iters=n_steps,
+        n_samples=TOY2D_PARTICLES, lr_schedule=lambda t: TOY2D_LR,
+        init_params=init, experimental_fused=fused)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = res.losses.double().cpu()
+    loc, ls = (res.params[k]["z"].double().cpu().tolist()
+               for k in ("loc", "log_scale"))
+    return {"path": "kernel" if fused else "plain", "seed": seed,
+            "seconds": seconds, "steps_per_sec": n_steps / seconds,
+            "finite": bool(torch.isfinite(losses).all()),
+            "first_loss": float(losses[:TOY2D_WARMUP].mean()),
+            "tail_loss": float(losses[-TOY2D_TAIL:].mean()),
+            "loc_z1": loc[0], "loc_z2": loc[1],
+            "log_scale_z1": ls[0], "log_scale_z2": ls[1]}
+
+
+def _gauss_fit(torch, dev, fused, seed):
+    """``advi()`` with its defaults (2000 steps, cosine-decayed 1e-2) and
+    GAUSS_PARTICLES particles on the 100-dim diagonal Gaussian."""
+    from zhusuan_tpu_torch import variational
+
+    dens, _, _, _ = _advi_density(torch, dev, "diagonal", DIM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = variational.advi(dens, {}, (seed, 0x19), n_samples=GAUSS_PARTICLES,
+                           device=dev, experimental_fused=fused)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    loc, ls = res.params["loc"]["z"], res.params["log_scale"]["z"]
+    scale = dens.scale.double()
+    exact = float(-0.5 * DIM * math.log(2.0 * math.pi)
+                  - torch.log(scale).sum())  # -ELBO of the raw density at q=p
+    tail = float(res.losses[-GAUSS_TAIL:].double().mean())
+    return {"path": "kernel" if fused else "plain", "seed": seed,
+            "seconds": seconds, "n_steps": int(res.losses.numel()),
+            "finite": bool(torch.isfinite(res.losses).all()),
+            "loc_over_scale": float(((loc.double() - dens.loc.double())
+                                     / scale).abs().max()),
+            "scale_rel": float((torch.exp(ls.double()) / scale
+                                - 1.0).abs().max()),
+            "first_loss": float(res.losses[:50].double().mean()),
+            "tail_loss": tail, "exact_loss": exact,
+            "tail_loss_error": abs(tail - exact)}
+
+
+def _gamma_fit(torch, dev, seed):
+    """The plain loop on a ``MetaBayesianNet`` with a positive latent (the
+    Softplus route): ``tau ~ Gamma(3, 2)``, ``y | tau ~ N(0, 1/sqrt(tau))``
+    observed at 0.8, as tests/variational/test_autoguide.py:29-34."""
+    import zhusuan_tpu_torch as zt
+
+    @zt.meta_bayesian_net()
+    def model():
+        bn = zt.BayesianNet()
+        tau = bn.gamma("tau", torch.tensor(3.0, device=dev),
+                       torch.tensor(2.0, device=dev))
+        bn.normal("y", torch.tensor(0.0, device=dev),
+                  std=1.0 / torch.sqrt(tau.tensor))
+        return bn
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = zt.variational.advi(
+        model(), {"y": torch.tensor(0.8, device=dev)}, (seed, 0x1A),
+        n_iters=GAMMA_STEPS, n_samples=32, learning_rate=5e-2)
+    torch.cuda.synchronize()
+    losses = res.losses.double().cpu()
+    return {"seconds": time.perf_counter() - t0,
+            "bijector": type(res.guide.bijectors["tau"]).__name__,
+            "device": str(res.params["loc"]["tau"].device),
+            "finite": bool(torch.isfinite(losses).all()),
+            "first_loss": float(losses[:30].mean()),
+            "tail_loss": float(losses[-30:].mean()),
+            "median_tau": float(res.guide.median(res.params)["tau"])}
+
+
+def _random_draws(torch, dev):
+    """bench.py:215-231's use of the standalone samplers: 1024 x 1024
+    normals and uniforms, a key per array, held to its moment gates."""
+    from zhusuan_tpu_torch import ops
+
+    worst = {"normal_mean": 0.0, "normal_std": 0.0, "uniform_mean": 0.0}
+    in_range = True
+    for i in range(RANDOM_DRAWS):
+        n = ops.gpu_normal((7, i), RANDOM_TIMED).double()
+        u = ops.gpu_uniform((8, i), RANDOM_TIMED)
+        worst["normal_mean"] = max(worst["normal_mean"], abs(float(n.mean())))
+        worst["normal_std"] = max(worst["normal_std"],
+                                  abs(float(n.std()) - 1.0))
+        worst["uniform_mean"] = max(worst["uniform_mean"],
+                                    abs(float(u.double().mean()) - 0.5))
+        in_range = in_range and float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    ok = (worst["normal_mean"] < 0.005 and worst["normal_std"] < 0.005
+          and worst["uniform_mean"] < 0.002 and in_range)
+    return {"draws": RANDOM_DRAWS, "shape": list(RANDOM_TIMED),
+            "worst": worst, "uniform_in_range": in_range, "ok": ok}
+
+
+def phase_advi_main_path(torch, dev):
+    from zhusuan_tpu_torch import ops
+
+    with open(ADVI_REFERENCE) as f:
+        reference = json.load(f)
+    want_recipe = {"n_particles": TOY2D_PARTICLES,
+                   "n_steps": TOY2D_WARMUP + TOY2D_STEPS, "lr": TOY2D_LR,
+                   "init_loc": TOY2D_INIT[0], "init_log_scale": TOY2D_INIT[1],
+                   "scale": TOY2D_SCALE, "first": TOY2D_WARMUP,
+                   "tail": TOY2D_TAIL}
+    check(reference["recipe"] == want_recipe, "{} was made for another "
+          "recipe; rerun scripts/advi_jax_reference.py".format(
+              ADVI_REFERENCE))
+    advi_k, normal_k, uniform_k = (ops.fused_meanfield_advi, ops.gpu_normal,
+                                   ops.gpu_uniform)
+    failures = []
+
+    # The kernel path: every count set to 0 just before, read just after.
+    for f in (advi_k, normal_k, uniform_k):
+        f.launches = 0
+    toy_kernel = [_toy2d_fit(torch, dev, True, 200)]  # untimed
+    toy_kernel += [_toy2d_fit(torch, dev, True, 201 + i)
+                   for i in range(TOY2D_TRIALS)]
+    gauss_kernel = _gauss_fit(torch, dev, True, 301)
+    draws = _random_draws(torch, dev)
+    launches = {f.__name__: f.launches for f in (advi_k, normal_k,
+                                                 uniform_k)}
+    kernel_fits = len(toy_kernel) + 1
+
+    # The plain path: no launch of the trainer.
+    advi_k.launches = 0
+    toy_plain = _toy2d_fit(torch, dev, False, 201)
+    gauss_plain = _gauss_fit(torch, dev, False, 301)
+    gamma = _gamma_fit(torch, dev, 401)
+    plain_launches = advi_k.launches
+
+    fields = ("loc_z1", "loc_z2", "log_scale_z1", "log_scale_z2",
+              "tail_loss")
+    tol = {f: 3.0 * reference[f]["spread"] for f in fields}
+    for run in toy_kernel + [toy_plain]:
+        tag = "toy2d {} seed {}".format(run["path"], run["seed"])
+        if not run["finite"]:
+            failures.append(tag + ": non-finite loss")
+        if not run["tail_loss"] < run["first_loss"]:
+            failures.append(tag + ": the loss did not fall")
+        for f in fields:
+            run[f + "_minus_jax"] = run[f] - reference[f]["mean"]
+            if not abs(run[f + "_minus_jax"]) <= tol[f]:
+                failures.append("{}: {} {:.4f} vs the JAX package's {:.4f} "
+                                "(tolerance {:.4f})".format(
+                                    tag, f, run[f], reference[f]["mean"],
+                                    tol[f]))
+    # Kernel and plain path draw different numbers (Philox against torch's
+    # generator): held to each other within the same tolerance.
+    kernel_vs_plain = {f: toy_kernel[1][f] - toy_plain[f] for f in fields}
+    for f, d in kernel_vs_plain.items():
+        if not abs(d) <= tol[f]:
+            failures.append("toy2d kernel vs plain path: {} differs by "
+                            "{:.4f} (tolerance {:.4f})".format(f, d, tol[f]))
+    for run in (gauss_kernel, gauss_plain):
+        tag = "gaussian {}".format(run["path"])
+        if not run["finite"]:
+            failures.append(tag + ": non-finite loss")
+        if not run["tail_loss"] < run["first_loss"]:
+            failures.append(tag + ": the loss did not fall")
+        for f, key in (("loc_over_scale", "loc_over_scale"),
+                       ("scale_rel", "scale_rel"),
+                       ("tail_loss", "tail_loss_error")):
+            if not run[key] <= GAUSS_TOL[f]:
+                failures.append("{}: {} {:.4f} over {}".format(
+                    tag, key, run[key], GAUSS_TOL[f]))
+    if not (gamma["finite"] and gamma["tail_loss"] < gamma["first_loss"]
+            and gamma["bijector"] == "Softplus" and gamma["median_tau"] > 0.0
+            and gamma["device"].startswith("cuda")):
+        failures.append("gamma latent, plain path: {}".format(gamma))
+    if not draws["ok"]:
+        failures.append("standalone samplers: {}".format(draws))
+
+    rates = [r["steps_per_sec"] for r in toy_kernel[1:]]
+    n_steps = TOY2D_WARMUP + TOY2D_STEPS
+    print("phase18 advi_main_path " + json.dumps({
+        "recipe": want_recipe, "tolerance": tol, "gauss_tolerance": GAUSS_TOL,
+        "jax_reference": {k: reference[k] for k in (
+            "script", "jax", "device", "commit") + fields},
+        "toy2d_kernel_runs": toy_kernel, "toy2d_plain_run": toy_plain,
+        "toy2d_kernel_steps_per_sec": statistics.median(rates),
+        "toy2d_kernel_fits_per_sec": statistics.median(rates) / n_steps,
+        "toy2d_plain_steps_per_sec": toy_plain["steps_per_sec"],
+        "toy2d_plain_fits_per_sec": toy_plain["steps_per_sec"] / n_steps,
+        "toy2d_kernel_over_plain": statistics.median(rates)
+        / toy_plain["steps_per_sec"],
+        "toy2d_kernel_vs_plain": kernel_vs_plain,
+        "gaussian_kernel_run": gauss_kernel, "gaussian_plain_run": gauss_plain,
+        "gamma_plain_run": gamma, "random_draws": draws,
+        "kernel_path_launches": launches, "kernel_path_fits": kernel_fits,
+        "plain_path_launches": plain_launches}))
+    check(launches["fused_meanfield_advi"] == kernel_fits,
+          "the kernel path launched fused_meanfield_advi {} times, not once "
+          "per fit ({})".format(launches["fused_meanfield_advi"],
+                                kernel_fits))
+    check(launches["gpu_normal"] == RANDOM_DRAWS
+          and launches["gpu_uniform"] == RANDOM_DRAWS,
+          "the samplers were launched {} / {} times, not {}".format(
+              launches["gpu_normal"], launches["gpu_uniform"], RANDOM_DRAWS))
+    check(plain_launches == 0, "the plain path launched "
+          "fused_meanfield_advi {} times".format(plain_launches))
+    check(not failures, "; ".join(failures))
+    return launches
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2002,6 +2531,11 @@ def main():
     chol_err, chol_timing = run_phase("phase14", phase_chol_vs_plain, torch,
                                       dev)
     svgp_launches = run_phase("phase15", phase_svgp_main_path, torch, dev)
+    rand_err, rand_timing = run_phase("phase16", phase_random_vs_plain, torch,
+                                      dev)
+    advi_err, advi_timing = run_phase("phase17", phase_advi_vs_plain, torch,
+                                      dev)
+    advi_launches = run_phase("phase18", phase_advi_main_path, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -2041,6 +2575,51 @@ def main():
         "library_ms_n512": chol_timing[512]["library_ms"],
         "bound_ms_n512": chol_timing[512]["bound_ms"],
     }
+    toy = advi_timing["toy2d_d2_n500"]
+    gauss = advi_timing["diagonal_d100_n{}".format(GAUSS_PARTICLES)]
+    gauss32 = advi_timing["diagonal_d100_n32"]
+    advi_rec = {
+        "name": "fused_meanfield_advi",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/advi_step.cu",
+        "replaces": "zhusuan_tpu/ops/advi_step.py:270",
+        "launches": advi_launches["fused_meanfield_advi"],
+        "max_abs_err": advi_err,
+        "ms": toy["kernel_ms"],
+        "plain_ms": toy["plain_ms"],
+        **bound(toy),
+        "shape": "toy2d, 500 particles x 2 dims, {} steps".format(
+            toy["n_steps"]),
+        "us_per_step": toy["kernel_us_per_step"],
+        "ms_fit_16000_steps": toy["kernel_fit_ms"],
+        "bound_ms_fit_16000_steps": toy["fit_bound_ms"],
+        "ms_d100_n64": gauss["kernel_ms"],
+        "plain_ms_d100_n64": gauss["plain_ms"],
+        "bound_ms_d100_n64": gauss["bound_ms"],
+        "us_per_step_d100_n64": gauss["kernel_us_per_step"],
+        "ms_fit_2000_steps_d100_n64": gauss["kernel_fit_ms"],
+        "bound_ms_fit_2000_steps_d100_n64": gauss["fit_bound_ms"],
+        "ms_d100_n32": gauss32["kernel_ms"],
+        "plain_ms_d100_n32": gauss32["plain_ms"],
+        "bound_ms_d100_n32": gauss32["bound_ms"],
+        "us_per_step_d100_n32": gauss32["kernel_us_per_step"],
+    }
+    random_recs = [{
+        "name": "gpu_" + kind,
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/random.cu",
+        "replaces": "zhusuan_tpu/ops/random.py:{}".format(line),
+        "launches": advi_launches["gpu_" + kind],
+        "max_abs_err": rand_err[kind],
+        "ms": rand_timing[kind]["kernel_graph_ms"],
+        "ms_back_to_back": rand_timing[kind]["kernel_ms"],
+        "plain_ms": rand_timing[kind]["plain_ms"],
+        "bound_ms": rand_timing[kind]["bound_ms"],
+        "bound_by": rand_timing[kind]["bound_by"],
+        "library_ms": rand_timing[kind]["library_graph_ms"],
+        "library_ms_back_to_back": rand_timing[kind]["library_ms"],
+        "shape": list(RANDOM_TIMED),
+    } for kind, line in (("normal", 83), ("uniform", 117))]
     print(json.dumps({"kernels": [{
         "name": "fused_hmc_step",
         "route": "cuda",
@@ -2096,7 +2675,7 @@ def main():
         "plain_ms": chees_t["plain_ms"],
         **bound(_chees_step_bound(MIX_CHAINS, DIM, 190, "equicorrelated")),
         "n_leapfrogs": 190,
-    }] + sgmcmc + [linalg_rec]}))
+    }] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -465,10 +465,10 @@ def test_port_never_imports_jax():
                 elif isinstance(node, ast.ImportFrom) and node.module:
                     names = [node.module]
                 for n in names:
-                    if n.split(".")[0] in ("jax", "zhusuan_tpu", "examples",
-                                           "baseline_ref"):
+                    if n.split(".")[0] in ("jax", "optax", "zhusuan_tpu",
+                                           "examples", "baseline_ref"):
                         offenders.append((path, n))
     assert n_files >= 8
     assert {"framework", "distributions", "variational",
-            "examples/gaussian_process"} <= dirs, dirs
+            "examples/gaussian_process", "examples/utils"} <= dirs, dirs
     assert not offenders, offenders

@@ -10,10 +10,15 @@ the ESS diagnostics (:mod:`.diagnostics`) and the utilities they use
 ``BayesianNet``, ``MetaBayesianNet``; :mod:`.distributions`: ``Normal``,
 ``MultivariateNormalCholesky``), the ELBO (:mod:`.variational`) and the
 hand-written CUDA Cholesky-plus-inverse kernel (:func:`.ops.cholesky_inverse`),
-driven by :mod:`.examples.gaussian_process.svgp`.
+driven by :mod:`.examples.gaussian_process.svgp`; the bijectors
+(:mod:`.bijectors`), the automatic guides and one-call ADVI
+(:func:`.variational.advi`) with the hand-written CUDA whole-fit trainer
+(:func:`.ops.fused_meanfield_advi`), and the standalone CUDA samplers
+(:func:`.ops.gpu_normal`, :func:`.ops.gpu_uniform`).
 """
 
 from zhusuan_tpu_torch import (
+    bijectors,
     diagnostics,
     distributions,
     framework,
@@ -49,8 +54,18 @@ from zhusuan_tpu_torch.mcmc import (
 from zhusuan_tpu_torch.ops import (
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    Toy2DLogJoint,
     fused_chees_step,
     fused_leapfrog,
+    fused_meanfield_advi,
+    gpu_normal,
+    gpu_uniform,
+)
+from zhusuan_tpu_torch.variational import (
+    ADVIResult,
+    FullRankGuide,
+    MeanFieldGuide,
+    advi,
 )
 
 __all__ = [
@@ -58,6 +73,7 @@ __all__ = [
     "MetaBayesianNet",
     "StochasticTensor",
     "meta_bayesian_net",
+    "ADVIResult",
     "ChEESHMC",
     "ChEESInfo",
     "ChEESState",
@@ -74,10 +90,18 @@ __all__ = [
     "SGNHT",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "FullRankGuide",
+    "MeanFieldGuide",
+    "Toy2DLogJoint",
+    "advi",
     "fit_dense_preconditioner",
     "fused_chees_step",
     "fused_leapfrog",
+    "fused_meanfield_advi",
+    "gpu_normal",
+    "gpu_uniform",
     "whiten_log_joint",
+    "bijectors",
     "diagnostics",
     "distributions",
     "framework",

@@ -1,5 +1,5 @@
-// The built-in densities that the port's HMC-family kernels evaluate
-// (device side of zhusuan_tpu_torch/ops/densities.py).
+// The built-in densities that the port's kernels evaluate (device side of
+// zhusuan_tpu_torch/ops/densities.py).
 //
 // A Pallas kernel traces the user's density into its body; a CUDA kernel
 // cannot, so each built-in is a struct that loads its parameters from the
@@ -7,7 +7,15 @@
 // elements that lane `lane` of a warp owns (element e = 4 k + i is column
 // 4 (32 k + lane) + i):
 //   grad(x, g)   the gradient of log p at the row x (every lane's g);
-//   log_prob(x)  log p of the whole row (the same value on every lane).
+//   log_prob(x)  log p of the whole row (the same value on every lane);
+//   value_and_grad(x, g)  both at once, for the ADVI trainer (advi_step.cu):
+//                the arithmetic of the plain version's value_and_grad, with
+//                log p's row sum accumulated in double and rounded once.
+//                value_and_grad<true> is the same for a row that ONE lane
+//                holds whole (dim <= 4, the struct loaded as lane 0 with
+//                K = 1): no sum leaves the lane, so every lane of a warp can
+//                evaluate a row of its own.
+// Toy2D (dim 2) has value_and_grad<true> only: the ADVI trainer alone takes it.
 // Columns at or past `dim` are padding: their gradient is 0, so a padded
 // position and momentum that start at 0 stay 0.
 //
@@ -26,7 +34,18 @@
 
 namespace zs {
 
-enum DensityId { kDiagonalGaussian = 0, kEquicorrelatedGaussian = 1 };
+enum DensityId {
+  kDiagonalGaussian = 0,
+  kEquicorrelatedGaussian = 1,
+  kToy2D = 2
+};
+
+// A lane's partial sum of a row: summed over the warp that shares the row,
+// or the row's sum already when this lane holds the whole row.
+template <bool kWholeRow>
+__device__ __forceinline__ double row_total(double v) {
+  return kWholeRow ? v : warp_sum(v);
+}
 
 // log p(x) = sum_j -0.5 (x_j - loc_j)^2 inv_var_j; grad = -(x - loc) inv_var.
 // p0 = loc [dim], p1 = inv_var [dim].
@@ -60,6 +79,19 @@ struct DiagonalGaussian {
     }
     return warp_sum(lp);
   }
+
+  template <bool kWholeRow = false>
+  __device__ __forceinline__ float value_and_grad(const float (&x)[E],
+                                                  float (&g)[E]) const {
+    double lp = 0.0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float z = x[e] - mu[e];
+      g[e] = -z * w[e];
+      lp += static_cast<double>(-0.5f * (z * z) * w[e]);
+    }
+    return static_cast<float>(row_total<kWholeRow>(lp));
+  }
 };
 
 // log p(z) = -0.5 (a sum(z^2) - b s^2), s = sum(z), evaluated centred as
@@ -82,11 +114,12 @@ struct EquicorrelatedGaussian {
     for (int e = 0; e < E; ++e) on[e] = 4 * (32 * (e / 4) + lane) + e % 4 < dim;
   }
 
+  template <bool kWholeRow = false>
   __device__ __forceinline__ float row_sum(const float (&x)[E]) const {
     double s = 0.0;
 #pragma unroll
     for (int e = 0; e < E; ++e) s += static_cast<double>(x[e]);
-    return static_cast<float>(warp_sum(s));
+    return static_cast<float>(row_total<kWholeRow>(s));
   }
 
   __device__ __forceinline__ void grad(const float (&x)[E],
@@ -108,6 +141,57 @@ struct EquicorrelatedGaussian {
       rr += static_cast<double>(r * r);
     }
     return -0.5f * (a * static_cast<float>(warp_sum(rr)) + c * s * s);
+  }
+
+  template <bool kWholeRow = false>
+  __device__ __forceinline__ float value_and_grad(const float (&x)[E],
+                                                  float (&g)[E]) const {
+    const float s = row_sum<kWholeRow>(x);
+    const float m = s * inv_d;
+    const float cs = c * s;
+    double rr = 0.0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float r = on[e] ? x[e] - m : 0.0f;
+      g[e] = on[e] ? -(a * r + cs) : 0.0f;
+      rr += static_cast<double>(r * r);
+    }
+    return -0.5f *
+           (a * static_cast<float>(row_total<kWholeRow>(rr)) + cs * s);
+  }
+};
+
+// The funnel-like posterior of examples/toy_examples/toy2d_intractable.py
+// over one latent z = [z1, z2] (dim 2: a lane holds the whole row in its
+// elements 0 and 1): log p = log N(z2; 0, scale) + log N(z1; 0, exp(z2)),
+//   d/dz1 = -z1 exp(-2 z2),  d/dz2 = -z2 / scale^2 + z1^2 exp(-2 z2) - 1.
+// p0 = (-log(2 pi) - log(scale), 0.5 / scale^2, 1 / scale^2); p1 unused.
+// No overflow guard: exp(-2 z2) is inf for z2 far below 0, as in the plain
+// version, and the non-finite pattern is the same on both sides.
+template <int K>
+struct Toy2D {
+  static constexpr int E = 4 * K;
+  float c0, half_inv_var, inv_var;
+
+  __device__ __forceinline__ void load(const float* p0, const float*, int,
+                                       int) {
+    c0 = p0[0];
+    half_inv_var = p0[1];
+    inv_var = p0[2];
+  }
+
+  template <bool kWholeRow>
+  __device__ __forceinline__ float value_and_grad(const float (&x)[E],
+                                                  float (&g)[E]) const {
+    static_assert(kWholeRow && K == 1, "Toy2D: a lane holds the whole row");
+    const float z1 = x[0], z2 = x[1];
+    const float z1p = z1 * expf(-2.0f * z2);
+    const float quad = z1 * z1p;
+    g[0] = -z1p;
+    g[1] = (-(z2 * inv_var) + quad) - 1.0f;
+    g[2] = 0.0f;
+    g[3] = 0.0f;
+    return ((c0 - half_inv_var * (z2 * z2)) - z2) - 0.5f * quad;
   }
 };
 

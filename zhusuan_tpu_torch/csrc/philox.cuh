@@ -20,6 +20,12 @@ constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 constexpr float kTwoPi = 6.283185307179586f;
 
+// Stream ids (counter word 3) of the kernels that draw whole [rows, cols]
+// arrays of their own; ops/_random.py lists every stream.
+constexpr uint32_t kStreamAdviNoise = 0x300u;      // ADVI particles per step
+constexpr uint32_t kStreamRandomNormal = 0x400u;   // random.cu, normals
+constexpr uint32_t kStreamRandomUniform = 0x401u;  // random.cu, uniforms
+
 struct U4 {
   uint32_t x, y, z, w;
 };

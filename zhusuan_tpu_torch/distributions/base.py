@@ -236,6 +236,19 @@ class Distribution:
             return x
         return reducer(x, dim=tuple(range(-self._group_ndims, 0)))
 
+    def log_survival(self, given):
+        """``log P(X > given)`` elementwise, trailing ``group_ndims`` axes
+        sum-reduced (independent components: the joint survival is the
+        product of marginals). Implemented by the heads used in survival
+        models; so far :class:`Normal`."""
+        given = self._check_input_shape(given)
+        return self._reduce_group(self._log_survival(given), torch.sum)
+
+    def _log_survival(self, given):
+        raise NotImplementedError(
+            "{} does not implement log_survival.".format(
+                type(self).__name__))
+
     def _log_prob(self, given):
         raise NotImplementedError()
 

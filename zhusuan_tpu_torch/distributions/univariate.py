@@ -1,8 +1,9 @@
 """Univariate distributions.
 
-Port of ``zhusuan_tpu/distributions/univariate.py``; so far only
-:class:`Normal` (parity: reference ``univariate.py:43-184``). The other
-thirteen classes come with later slices of the port.
+Port of ``zhusuan_tpu/distributions/univariate.py``; so far
+:class:`Normal` (parity: reference ``univariate.py:43-184``) and
+:class:`Gamma` (``univariate.py:662-750``). The other twelve names come with
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from zhusuan_tpu_torch.distributions.utils import (
 )
 from zhusuan_tpu_torch.ops.checks import check_numerics
 
-__all__ = ["Normal"]
+__all__ = ["Normal", "Gamma"]
 
 _HALF_LOG_2PI = float(0.5 * (np.log(2.0) + np.log(np.pi)))
 
@@ -111,3 +112,83 @@ class Normal(Distribution):
                                    self._check_numerics)
         return -_HALF_LOG_2PI - logstd - 0.5 * precision * torch.square(
             given - mean)
+
+    def _log_survival(self, given):
+        # log P(X > x) = log ndtr(-z), stable deep into the tail.
+        z = (given - self.path_param(self._mean)) * torch.exp(
+            -self.path_param(self._logstd))
+        return torch.special.log_ndtr(-z)
+
+
+class Gamma(Distribution):
+    """Gamma with shape ``alpha`` and rate ``beta``.
+
+    Parity: reference ``univariate.py:662-750``; density
+    ``alpha*log(beta) - lgamma(alpha) + (alpha-1)*log(x) - beta*x``
+    (univariate.py:737-747).
+
+    Sampler: torch's own gamma sampler (``torch._standard_gamma``, a
+    rejection sampler), divided by the rate. It has no ``eps=`` hook: the
+    draws are not a transform of standard normals, so the two packages'
+    samples are compared by their moments. With
+    ``is_reparameterized=True`` the sample carries torch's implicit
+    reparameterization gradient with respect to ``alpha`` (as
+    ``jax.random.gamma`` does in the JAX package), and the rate enters
+    through the division; the default stays ``False`` as in the reference.
+    """
+
+    def __init__(self, alpha, beta, group_ndims: int = 0,
+                 is_reparameterized: bool = False,
+                 use_path_derivative: bool = False,
+                 check_numerics: bool = False, **kwargs):
+        device = param_device(alpha, beta)
+        dtype = assert_same_float_dtype([(alpha, "alpha"), (beta, "beta")])
+        self._alpha = as_param(alpha, dtype, device)
+        self._beta = as_param(beta, dtype, device)
+        self._check_numerics = check_numerics
+        broadcast_shapes(self._alpha.shape, self._beta.shape)
+        super().__init__(
+            dtype=dtype,
+            param_dtype=dtype,
+            is_continuous=True,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            group_ndims=group_ndims,
+            device=device,
+            **kwargs,
+        )
+
+    alpha = property(lambda self: self._alpha, doc="The shape.")
+    beta = property(lambda self: self._beta, doc="The rate.")
+
+    def _batch_shape(self):
+        return broadcast_shapes(self._alpha.shape, self._beta.shape)
+
+    def _value_shape(self):
+        return ()
+
+    def _sample(self, generator, n_samples, eps):
+        if eps is not None:
+            raise ValueError(
+                "Gamma draws from torch's gamma sampler, which is not a "
+                "transform of standard normals: it takes no eps.")
+        if generator is None:
+            raise ValueError("Sampling needs a torch.Generator.")
+        alpha, beta = _maybe_detach((self._alpha, self._beta),
+                                    self.is_reparameterized)
+        shape = (n_samples,) + self.batch_shape
+        g = torch._standard_gamma(alpha.expand(shape), generator=generator)
+        return g / beta
+
+    def _log_prob(self, given):
+        alpha = self.path_param(self._alpha)
+        beta = self.path_param(self._beta)
+        log_given = torch.log(given)
+        log_beta = torch.log(beta)
+        lgamma_alpha = torch.lgamma(alpha)
+        if self._check_numerics:
+            log_given = check_numerics(log_given, "log(given)")
+            log_beta = check_numerics(log_beta, "log(beta)")
+            lgamma_alpha = check_numerics(lgamma_alpha, "lgamma(alpha)")
+        return (alpha * log_beta - lgamma_alpha + (alpha - 1) * log_given
+                - beta * given)

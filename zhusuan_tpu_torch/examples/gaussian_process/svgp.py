@@ -17,17 +17,16 @@ data of the same shapes and the published numbers do not apply.
 Run (on the card; ``--device cpu`` for the CPU)::
 
     python -m zhusuan_tpu_torch.examples.gaussian_process.svgp \\
-        [-dataset boston_housing|protein_data] [-n_epoch 2000]
+        [-dataset boston_housing|diabetes|protein_data] [-n_epoch 2000]
 
-The module also keeps its own copies of the data helpers it needs: the SVGP
-recipe of ``baseline_ref/configs_protocol.py:56-93`` and the file-or-
-synthetic UCI loaders of ``examples/utils/dataset.py``.
+The data helpers (the synthetic splits of the measured recipe, the file-or-
+synthetic UCI loaders, the scikit-learn diabetes set) live in
+:mod:`zhusuan_tpu_torch.examples.utils.dataset` and are re-exported here.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import numpy as np
@@ -39,13 +38,22 @@ from zhusuan_tpu_torch.examples.gaussian_process.utils import (
     RBFKernel,
     gp_conditional,
 )
+from zhusuan_tpu_torch.examples.utils.dataset import (
+    load_uci_boston_housing,
+    load_uci_diabetes,
+    load_uci_protein_data,
+    regression_splits,
+    standardize,
+    synthetic_regression,
+)
 from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
 from zhusuan_tpu_torch.ops.linalg import cholesky_inverse
 from zhusuan_tpu_torch.utils import log_mean_exp
 
 __all__ = [
     "SVGP_CONFIG", "PARAM_NAMES", "synthetic_regression", "standardize",
-    "regression_splits", "load_uci_boston_housing", "load_uci_protein_data",
+    "regression_splits", "load_uci_boston_housing", "load_uci_diabetes",
+    "load_uci_protein_data",
     "kzz_cholesky", "kzz_factors", "build_model", "build_variational_samples",
     "init_params", "params_from_numpy", "params_to_numpy", "elbo_loss",
     "make_optimizer", "train_step", "predict", "step_keys", "main",
@@ -59,97 +67,6 @@ SVGP_CONFIG = dict(n_train_raw=506, x_dim=13, n_z=100, n_particles=20,
 
 PARAM_NAMES = ("k_raw_scale", "z_pos", "z_mean", "z_cov_raw", "noise_raw")
 _JITTER = 1e-6
-
-
-# --------------------------------------------------------------------- #
-# Data (copies of baseline_ref/configs_protocol.py and
-# examples/utils/dataset.py)
-# --------------------------------------------------------------------- #
-def synthetic_regression(n, d, seed):
-    """Deterministic synthetic regression data (``configs_protocol.py:60``,
-    the same generator as ``examples/utils/dataset.py``'s fallback)."""
-    rng = np.random.RandomState(seed)
-    w1 = rng.randn(d, 32)
-    w2 = rng.randn(32)
-    x = rng.randn(n, d)
-    y = np.tanh(x @ w1) @ w2 + 0.3 * rng.randn(n)
-    return x.astype(np.float32), y.astype(np.float32)
-
-
-def standardize(data_train, data_test):
-    """Standardize train/test by train statistics (reference
-    ``examples/utils/dataset.py:20-36``); returns ``(train, test, mean,
-    std)``."""
-    std = np.std(data_train, 0, keepdims=True)
-    std[std == 0] = 1
-    mean = np.mean(data_train, 0, keepdims=True)
-    return ((data_train - mean) / std, (data_test - mean) / std,
-            np.squeeze(mean, 0), np.squeeze(std, 0))
-
-
-def regression_splits(cfg):
-    """``configs_protocol.py:81-93``: synthetic data, the last 10% as the
-    test set, standardized; returns ``(x_train, y_train, x_test, y_test,
-    std_y)`` in float32."""
-    x, y = synthetic_regression(cfg["n_train_raw"], cfg["x_dim"],
-                                cfg["data_seed"])
-    n_test = max(1, int(0.1 * len(x)))
-    x_train, x_test = x[:-n_test], x[-n_test:]
-    y_train, y_test = y[:-n_test], y[-n_test:]
-    x_train, x_test, _, _ = standardize(x_train, x_test)
-    y_train, y_test, _, std_y = standardize(y_train, y_test)
-    return (x_train.astype(np.float32), y_train.astype(np.float32),
-            x_test.astype(np.float32), y_test.astype(np.float32),
-            float(std_y))
-
-
-def _data_dir():
-    return os.environ.get("ZS_DATA_DIR",
-                          os.path.expanduser("~/.zhusuan_tpu/data"))
-
-
-def _split(x, y, seed):
-    rng = np.random.RandomState(seed)
-    perm = rng.permutation(x.shape[0])
-    x, y = x[perm], y[perm]
-    n = x.shape[0]
-    n_train, n_valid = int(0.8 * n), int(0.1 * n)
-    return (x[:n_train], y[:n_train], x[n_train:n_train + n_valid],
-            y[n_train:n_train + n_valid], x[n_train + n_valid:],
-            y[n_train + n_valid:])
-
-
-def load_uci_boston_housing(path=None, seed=0):
-    """Boston housing (506 x 13; reference ``dataset.py:321-344``) from
-    ``housing.data`` under ``ZS_DATA_DIR`` when present, else synthetic.
-
-    :return: ``(x_train, y_train, x_valid, y_valid, x_test, y_test,
-        synthetic)``.
-    """
-    base = path or os.path.join(_data_dir(), "housing.data")
-    if os.path.exists(base):
-        data = np.loadtxt(base)
-        synthetic = False
-    else:
-        x, y = synthetic_regression(506, 13, seed=42)
-        data = np.concatenate([x, y[:, None]], axis=1)
-        synthetic = True
-    return (*_split(data[:, :-1], data[:, -1], seed), synthetic)
-
-
-def load_uci_protein_data(path=None, seed=0):
-    """Protein structure (45730 x 9; reference ``dataset.py:347-370``) from
-    ``protein.data`` under ``ZS_DATA_DIR`` when present (first column the
-    target), else synthetic."""
-    base = path or os.path.join(_data_dir(), "protein.data")
-    if os.path.exists(base):
-        data = np.loadtxt(base, delimiter=",", skiprows=1)
-        y, x = data[:, 0], data[:, 1:]
-        synthetic = False
-    else:
-        x, y = synthetic_regression(45730, 9, seed=7)
-        synthetic = True
-    return (*_split(x, y, seed), synthetic)
 
 
 # --------------------------------------------------------------------- #
@@ -372,7 +289,8 @@ def main(argv=None):
     parser.add_argument("-batch_size", default=5000, type=int)
     parser.add_argument("-n_epoch", default=2000, type=int)
     parser.add_argument("-dataset", default="boston_housing", type=str,
-                        choices=["boston_housing", "protein_data"])
+                        choices=["boston_housing", "diabetes",
+                                 "protein_data"])
     parser.add_argument("-lr", default=1e-2, type=float)
     parser.add_argument("--device", default="cuda:0",
                         help="torch device (default the card; 'cpu' to run "
@@ -383,6 +301,7 @@ def main(argv=None):
         raise SystemExit("No CUDA device: pass --device cpu to run on the "
                          "CPU.")
     loader = {"boston_housing": load_uci_boston_housing,
+              "diabetes": load_uci_diabetes,
               "protein_data": load_uci_protein_data}[hps.dataset]
     x_train, y_train, x_valid, y_valid, x_test, y_test, synthetic = loader()
     if synthetic:

@@ -4,9 +4,9 @@ Port of ``zhusuan_tpu/framework/bn.py`` (parity: reference
 ``zhusuan/framework/bn.py``): ``StochasticTensor`` (bn.py:26-316) and
 ``BayesianNet`` with ``stochastic``/``deterministic``/``get``/
 ``cond_log_prob``/``log_joint`` (bn.py:319-497), the compatibility queries
-``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and so far two
-sugar methods, ``normal`` and ``multivariate_normal_cholesky``; the other
-34 come with their distributions.
+``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and so far three
+sugar methods, ``normal``, ``gamma`` and ``multivariate_normal_cholesky``;
+the other 33 come with their distributions.
 
 Randomness: a net's ``key`` is an int seed. Each unobserved node draws from
 its own ``torch.Generator`` on its distribution's device, seeded from
@@ -356,6 +356,16 @@ class BayesianNet(Context):
             mean, _sentinel=_sentinel, std=std, logstd=logstd,
             group_ndims=group_ndims, is_reparameterized=is_reparameterized,
             use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def gamma(
+        self, name, alpha, beta, group_ndims=0, n_samples=None,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Gamma node (reference bn.py:718)."""
+        dist = distributions.Gamma(
+            alpha, beta, group_ndims=group_ndims,
             check_numerics=check_numerics, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
 

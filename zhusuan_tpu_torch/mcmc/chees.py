@@ -181,16 +181,16 @@ class ChEESHMC:
 
     # ------------------------------------------------------------------ #
     @staticmethod
-    def _fused_ineligible(log_joint, observed, q, mass, n_chain_dims):
+    def _fused_ineligible(meta_bn, observed, q, mass, n_chain_dims):
         """Why the kernel cannot take this transition (None if it can)."""
         return builtin_density_ineligible(
-            log_joint, observed, q, mass, n_chain_dims, chees_step_supported,
+            meta_bn, observed, q, mass, n_chain_dims, chees_step_supported,
             chees_step.DENSITIES, "float32 with dim <= {}".format(MAX_DIM))
 
-    def _use_fused_step(self, log_joint, observed, q, mass):
+    def _use_fused_step(self, meta_bn, observed, q, mass):
         return use_kernel(self.experimental_fused_step, q,
                           lambda: self._fused_ineligible(
-                              log_joint, observed, q, mass, 1))
+                              meta_bn, observed, q, mass, 1))
 
     @staticmethod
     def _unit_mass(q, dtype) -> Latent:
@@ -233,11 +233,11 @@ class ChEESHMC:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def sample(self, log_joint, observed, state: ChEESState, key=None,
+    def sample(self, meta_bn, observed, state: ChEESState, key=None,
                adapt=True, cache=None, *, noise=None):
         """One ChEES-HMC iteration: ``(state, key) -> (state, info)``.
 
-        :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
+        :param meta_bn: ``meta_bn(obs_dict)`` callable, e.g. a
             built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`,
             or a :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations.
@@ -259,14 +259,14 @@ class ChEESHMC:
         :return: ``(new_state, ChEESInfo)``, plus the new cache when
             ``cache`` was given.
         """
-        log_post = make_log_joint_fn(log_joint, observed)
+        log_post = make_log_joint_fn(meta_bn, observed)
         q = state.q
         old_lp_pre = None
         if cache is not None:
             n_chain_dims = cache[0].ndim
-        elif (len(q) == 1 and isinstance(log_joint, BuiltinDensity)
-              and log_joint.name in q):
-            n_chain_dims = q[log_joint.name].ndim - 1
+        elif (len(q) == 1 and isinstance(meta_bn, BuiltinDensity)
+              and meta_bn.name in q):
+            n_chain_dims = q[meta_bn.name].ndim - 1
         else:
             old_lp_pre = log_post(q)
             n_chain_dims = old_lp_pre.ndim
@@ -293,11 +293,11 @@ class ChEESHMC:
         key = (0, 0) if noise is not None and key is None else _as_key(key)
         new_t = state.t + 1
 
-        if self._use_fused_step(log_joint, observed, q, mass):
+        if self._use_fused_step(meta_bn, observed, q, mass):
             ((name, x),) = q.items()
             (out_q, prop_q, prop_p, accept_prob, _,
              sel_log_prob) = fused_chees_step(
-                log_joint, x, mass[name], eps, n_steps, key, new_t,
+                meta_bn, x, mass[name], eps, n_steps, key, new_t,
                 noise=None if noise is None else (eps_in[name], u_in))
             accepted_q = {name: out_q}
             new_q, new_p = {name: prop_q}, {name: prop_p}
@@ -383,7 +383,7 @@ class ChEESHMC:
         return new_state, info
 
     # ------------------------------------------------------------------ #
-    def run(self, log_joint, observed, state: ChEESState, key, n_iters: int,
+    def run(self, meta_bn, observed, state: ChEESState, key, n_iters: int,
             n_adapt: int = 0, collect: bool = True):
         """Run ``n_iters`` iterations in a Python loop over :meth:`sample`.
         Adaptation (step size and trajectory length) is gated on for the
@@ -400,9 +400,9 @@ class ChEESHMC:
             preallocated buffers, when ``collect`` else None.
         """
         key = _as_key(key)
-        log_post = make_log_joint_fn(log_joint, observed)
+        log_post = make_log_joint_fn(meta_bn, observed)
         kernel = self._use_fused_step(
-            log_joint, observed, state.q,
+            meta_bn, observed, state.q,
             self._unit_mass(state.q, state.step_size.dtype))
         cache = None if kernel else (log_post(state.q), None)
         n_iters = int(n_iters)
@@ -424,7 +424,7 @@ class ChEESHMC:
 
         for i in range(n_iters):
             gate = n_adapt > 0 and state.t < n_adapt
-            state, info, *rest = self.sample(log_joint, observed, state, key,
+            state, info, *rest = self.sample(meta_bn, observed, state, key,
                                              adapt=gate, cache=cache)
             cache = rest[0] if rest else None
             if collect:

@@ -180,19 +180,19 @@ class HMC:
 
     # ------------------------------------------------------------------ #
     @staticmethod
-    def _fused_ineligible(log_joint, observed, q, mass, n_chain_dims):
+    def _fused_ineligible(meta_bn, observed, q, mass, n_chain_dims):
         """Why the kernel cannot take this transition (None if it can)."""
         return builtin_density_ineligible(
-            log_joint, observed, q, mass, n_chain_dims, hmc_step_supported,
+            meta_bn, observed, q, mass, n_chain_dims, hmc_step_supported,
             hmc_step.DENSITIES,
             "float32/bfloat16 with dim <= {}".format(MAX_DIM))
 
-    def _use_fused_step(self, log_joint, observed, q, mass, n_chain_dims):
+    def _use_fused_step(self, meta_bn, observed, q, mass, n_chain_dims):
         return use_kernel(self.experimental_fused_step, q,
                           lambda: self._fused_ineligible(
-                              log_joint, observed, q, mass, n_chain_dims))
+                              meta_bn, observed, q, mass, n_chain_dims))
 
-    def _fused_trajectory(self, log_joint, observed, q, mass, n_chain_dims):
+    def _fused_trajectory(self, meta_bn, observed, q, mass, n_chain_dims):
         """The trajectory kernel as a ``trajectory`` of
         :func:`..base.hmc_transition`, or None when the flag is off, the
         tensors are not on a CUDA device or the kernel is ineligible."""
@@ -200,14 +200,14 @@ class HMC:
                 and any(v.is_cuda for v in q.values())):
             return None
         if builtin_density_ineligible(
-                log_joint, observed, q, mass, n_chain_dims,
+                meta_bn, observed, q, mass, n_chain_dims,
                 leapfrog_supported, leapfrog.DENSITIES,
                 "float32 with dim <= {}".format(MAX_DIM)) is not None:
             return None
         ((name, _),) = q.items()
 
         def trajectory(q, p, step_size, n_leapfrogs):
-            nq, np_ = fused_leapfrog(log_joint, q[name], p[name], step_size,
+            nq, np_ = fused_leapfrog(meta_bn, q[name], p[name], step_size,
                                      n_leapfrogs, mass[name])
             return {name: nq}, {name: np_}
 
@@ -283,12 +283,12 @@ class HMC:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def sample(self, log_joint, observed, state: HMCState, key=None,
+    def sample(self, meta_bn, observed, state: HMCState, key=None,
                adapt_step_size=None, adapt_mass=None, cache=None, *,
                noise=None):
         """Run ONE HMC iteration: ``(state, key) -> (state, info)``.
 
-        :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
+        :param meta_bn: ``meta_bn(obs_dict)`` callable, e.g. a
             built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`,
             or a :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations.
@@ -311,7 +311,7 @@ class HMC:
         :return: ``(new_state, HMCInfo)``, plus ``new_cache`` when
             ``cache`` was given.
         """
-        log_post = make_log_joint_fn(log_joint, observed)
+        log_post = make_log_joint_fn(meta_bn, observed)
         grad_fn = make_grad_fn(log_post)
         state_dtypes = {k: v.dtype for k, v in state.q.items()}
         # bf16 state: compute in f32, round back at the state write.
@@ -330,9 +330,9 @@ class HMC:
         old_lp_pre = None
         if cache is not None:
             n_chain_dims = cache[0].ndim
-        elif (len(q) == 1 and isinstance(log_joint, BuiltinDensity)
-              and log_joint.name in q):
-            n_chain_dims = q[log_joint.name].ndim - 1
+        elif (len(q) == 1 and isinstance(meta_bn, BuiltinDensity)
+              and meta_bn.name in q):
+            n_chain_dims = q[meta_bn.name].ndim - 1
         else:
             old_lp_pre = log_post(q)
             n_chain_dims = old_lp_pre.ndim
@@ -351,7 +351,7 @@ class HMC:
                 state.ewmv_t, state.ewmv_mean, state.ewmv_var)
             mass = state.mass
 
-        use_fused = self._use_fused_step(log_joint, observed, state.q, mass,
+        use_fused = self._use_fused_step(meta_bn, observed, state.q, mass,
                                          n_chain_dims)
         if not (use_fused or noise is not None):
             gen = iteration_generator(key, new_t, x0.device)
@@ -383,7 +383,7 @@ class HMC:
             # upcasts in registers.
             (out_q, p0, acceptance_rate, old_log_prob, new_log_prob, old_h,
              new_h) = fused_hmc_step(
-                log_joint, x, mass[name], step_size, self.n_leapfrogs, key,
+                meta_bn, x, mass[name], step_size, self.n_leapfrogs, key,
                 new_t,
                 noise=None if noise is None else (eps[name], u_in))
             accepted_q = {name: out_q}
@@ -400,7 +400,7 @@ class HMC:
              new_h, accepted_g, _, _) = hmc_transition(
                 q, p, u_in, step_size, self.n_leapfrogs, grad_fn, log_post,
                 mass, n_chain_dims, old_lp_in, g0,
-                self._fused_trajectory(log_joint, observed, q, mass,
+                self._fused_trajectory(meta_bn, observed, q, mass,
                                        n_chain_dims))
             if cache is not None:
                 new_cache = (new_log_prob, accepted_g)
@@ -445,13 +445,13 @@ class HMC:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def make_cache(self, log_joint, observed, state: HMCState,
+    def make_cache(self, meta_bn, observed, state: HMCState,
                    with_grad: bool = True):
         """Evaluate ``(log_prob, grad_dict)`` at ``state.q``: the carried
         cache that lets :meth:`sample` skip re-evaluating the density at
         the current position. With ``with_grad=False`` the grad slot is
         None."""
-        log_post = make_log_joint_fn(log_joint, observed)
+        log_post = make_log_joint_fn(meta_bn, observed)
         logp = log_post(state.q)
         if not with_grad:
             return logp, None
@@ -464,7 +464,7 @@ class HMC:
     # ------------------------------------------------------------------ #
     def run(
         self,
-        log_joint,
+        meta_bn,
         observed,
         state: HMCState,
         key,
@@ -518,9 +518,9 @@ class HMC:
         # throughout, so the gate's answer for the initial state holds for
         # the whole run.
         cache = (None if self.experimental_fused_leapfrog
-                 or self._use_fused_step(log_joint, observed, state.q,
+                 or self._use_fused_step(meta_bn, observed, state.q,
                                          state.mass, 1)
-                 else self.make_cache(log_joint, observed, state))
+                 else self.make_cache(meta_bn, observed, state))
         n_out = n_iters // thinning if collect else 0
         outputs = {} if collect else None
 
@@ -554,7 +554,7 @@ class HMC:
             else:
                 gate = n_adapt > 0 and state.t < n_adapt
             state, info, *rest = self.sample(
-                log_joint, observed, state, key,
+                meta_bn, observed, state, key,
                 adapt_step_size=gate,
                 adapt_mass=gate if self.adapt_mass is not None else None,
                 cache=cache,
@@ -587,7 +587,7 @@ def mass_update(state: HMCState, gate, n_chain_dims: int, decay: float,
     return ewmv_t, ewmv_mean, ewmv_var, mass
 
 
-def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
+def builtin_density_ineligible(meta_bn, observed, q, mass, n_chain_dims,
                                supported, densities, wants):
     """Why a kernel over built-in densities cannot take a transition on
     the latent dict ``q`` (None if it can). ``supported(shape, dtype)`` is
@@ -596,11 +596,11 @@ def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
     one (SGMCMC)."""
     if len(q) != 1:
         return "the latent must be a single tensor"
-    if not isinstance(log_joint, densities):
+    if not isinstance(meta_bn, densities):
         return "the log-joint must be one of the built-in densities {}".format(
             ", ".join(c.__name__ for c in densities))
     ((name, x),) = q.items()
-    if log_joint.name != name or name in (observed or {}):
+    if meta_bn.name != name or name in (observed or {}):
         return "the built-in density must be over the latent {!r}".format(
             name)
     if n_chain_dims != 1 or not supported(x.shape, x.dtype):
@@ -610,7 +610,7 @@ def builtin_density_ineligible(log_joint, observed, q, mass, n_chain_dims,
     if mass is not None and (tuple(mass[name].shape) != (1, d)
                              or mass[name].dtype != torch.float32):
         return "the mass must be [1, dim] float32"
-    if log_joint.dim != d:
+    if meta_bn.dim != d:
         return "the density's dim differs from the latent's"
     return None
 

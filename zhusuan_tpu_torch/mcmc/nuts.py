@@ -403,30 +403,30 @@ class NUTS:
                           log_joint, observed)
 
     # ------------------------------------------------------------------ #
-    def _fused_ineligible(self, log_joint, observed, q, mass, n_chain_dims):
+    def _fused_ineligible(self, meta_bn, observed, q, mass, n_chain_dims):
         """Why the kernel cannot take this transition (None if it can)."""
         depth = self.max_tree_depth
         return builtin_density_ineligible(
-            log_joint, observed, q, mass, n_chain_dims,
+            meta_bn, observed, q, mass, n_chain_dims,
             lambda shape, dtype: nuts_step_supported(shape, depth, dtype),
             DENSITIES,
             "float32 with dim <= {} at 1 <= max_tree_depth <= {} (depth "
             "{})".format(MAX_DIM, MAX_TREE_DEPTH, depth))
 
-    def _use_fused_step(self, log_joint, observed, q, mass, n_chain_dims):
+    def _use_fused_step(self, meta_bn, observed, q, mass, n_chain_dims):
         return use_kernel(self.experimental_fused_step, q,
                           lambda: self._fused_ineligible(
-                              log_joint, observed, q, mass, n_chain_dims))
+                              meta_bn, observed, q, mass, n_chain_dims))
 
     @staticmethod
-    def _chain_shape(log_post, log_joint, observed, q):
+    def _chain_shape(log_post, meta_bn, observed, q):
         """The chain shape (the log joint's output shape), checking that a
         model whose density is not scalar per chain carries the chain
         shape on some observed leaf (the JAX package's per-chain observed
         leaves)."""
-        if (len(q) == 1 and isinstance(log_joint, BuiltinDensity)
-                and log_joint.name in q):
-            return tuple(q[log_joint.name].shape[:-1])
+        if (len(q) == 1 and isinstance(meta_bn, BuiltinDensity)
+                and meta_bn.name in q):
+            return tuple(q[meta_bn.name].shape[:-1])
         chain_shape = tuple(log_post(q).shape)
         n = len(chain_shape)
         if n:
@@ -446,12 +446,12 @@ class NUTS:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def sample(self, log_joint, observed, state: HMCState, key=None,
+    def sample(self, meta_bn, observed, state: HMCState, key=None,
                adapt_step_size=None, adapt_mass=None, *, noise=None):
         """Run ONE NUTS iteration over all chains: ``(state, key) ->
         (state, NUTSInfo)``.
 
-        :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a
+        :param meta_bn: ``meta_bn(obs_dict)`` callable, e.g. a
             built-in density of :mod:`~zhusuan_tpu_torch.ops.densities`,
             or a :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations; a leaf may carry the chain
@@ -470,12 +470,12 @@ class NUTS:
             the draws.
         :return: ``(new_state, NUTSInfo)``.
         """
-        log_post = make_log_joint_fn(log_joint, observed)
+        log_post = make_log_joint_fn(meta_bn, observed)
         state_dtypes = {k: v.dtype for k, v in state.q.items()}
         # bf16 state: compute in f32, round back at the state write.
         q = {k: (v.float() if v.dtype == torch.bfloat16 else v)
              for k, v in state.q.items()}
-        chain_shape = self._chain_shape(log_post, log_joint, observed, q)
+        chain_shape = self._chain_shape(log_post, meta_bn, observed, q)
         n_chain_dims = len(chain_shape)
         n_chains = math.prod(chain_shape)
         flat = _Flattener(q, n_chain_dims)
@@ -501,11 +501,11 @@ class NUTS:
         eps = state.step_size.to(flat.dtype)
         D = self.max_tree_depth
 
-        if self._use_fused_step(log_joint, observed, state.q, mass,
+        if self._use_fused_step(meta_bn, observed, state.q, mass,
                                 n_chain_dims):
             ((name, x),) = state.q.items()
             outs = fused_nuts_transition(
-                log_joint, x, inv_mass[None, :], eps, D,
+                meta_bn, x, inv_mass[None, :], eps, D,
                 self.max_delta_energy, _as_key(key), new_t, noise=noise)
         else:
             q_flat = flat.ravel(q, (n_chains,))
@@ -572,7 +572,7 @@ class NUTS:
         return new_state, info
 
     # ------------------------------------------------------------------ #
-    def run(self, log_joint, observed, state: HMCState, key, n_iters: int,
+    def run(self, meta_bn, observed, state: HMCState, key, n_iters: int,
             n_adapt: int = 0, collect: bool = True,
             collect_fields=("samples", "acceptance_rate", "step_size",
                             "log_prob", "depth", "divergent"),
@@ -635,7 +635,7 @@ class NUTS:
 
         for i in range(int(n_iters)):
             gate = state.t < n_adapt if adapt_on else False
-            state, info = self.sample(log_joint, observed, state, key,
+            state, info = self.sample(meta_bn, observed, state, key,
                                       adapt_step_size=gate, adapt_mass=gate)
             row, hit = divmod(i + 1, thinning)
             if collect and hit == 0 and row <= n_out:

@@ -275,29 +275,29 @@ class SGMCMC:
         return resample_momentum(lr0, tree_normal_like(gen, q, noise), q)
 
     # ------------------------------------------------------------------ #
-    def _fused_ineligible(self, log_joint, observed, q, lr):
+    def _fused_ineligible(self, meta_bn, observed, q, lr):
         """Why the kernel cannot take this update (None if it can)."""
         if isinstance(lr, torch.Tensor) and lr.numel() != 1:
             return "the learning rate must be a number or a one-element tensor"
         return builtin_density_ineligible(
-            log_joint, observed, q, None, 1, sgld_step_supported, DENSITIES,
+            meta_bn, observed, q, None, 1, sgld_step_supported, DENSITIES,
             "float32 with dim <= {}".format(MAX_DIM))
 
-    def _use_kernel(self, log_joint, observed, q, lr) -> bool:
+    def _use_kernel(self, meta_bn, observed, q, lr) -> bool:
         return use_kernel(self.experimental_fused_step, q,
-                          lambda: self._fused_ineligible(log_joint, observed,
+                          lambda: self._fused_ineligible(meta_bn, observed,
                                                          q, lr))
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def sample(self, log_joint, observed, state: SGMCMCState, key=None, *,
+    def sample(self, meta_bn, observed, state: SGMCMCState, key=None, *,
                noise=None):
         """One SGMCMC iteration: ``(state, key) -> (state, info)``.
 
         Parity: the ``sample(meta_bn, observed, latent)`` contract of
         reference sgmcmc.py:119-161, with the latents in ``state.q``.
 
-        :param log_joint: ``log_joint(obs_dict)`` callable, e.g. a built-in
+        :param meta_bn: ``meta_bn(obs_dict)`` callable, e.g. a built-in
             density of :mod:`~zhusuan_tpu_torch.ops.densities`, or a
             :class:`~zhusuan_tpu_torch.framework.MetaBayesianNet`.
         :param observed: dict of observations.
@@ -310,11 +310,11 @@ class SGMCMC:
         """
         # With injected noise and no key, the kernel's Philox is unused.
         key = None if noise is not None and key is None else _as_key(key)
-        step = _Step(self, log_joint, observed, state, key, noise)
+        step = _Step(self, meta_bn, observed, state, key, noise)
         return self._update(step)
 
     # ------------------------------------------------------------------ #
-    def run(self, log_joint, observed, state: SGMCMCState, key,
+    def run(self, meta_bn, observed, state: SGMCMCState, key,
             n_iters: int, collect: bool = True, thinning: int = 1,
             collect_info: bool = False):
         """Run ``n_iters`` iterations in a Python loop over :meth:`sample`.
@@ -355,7 +355,7 @@ class SGMCMC:
                     buf[n][row].copy_(x)
 
         for i in range(n_iters):
-            state, info = self.sample(log_joint, observed, state, key)
+            state, info = self.sample(meta_bn, observed, state, key)
             row, hit = divmod(i + 1, thin)
             if keep and hit == 0 and row <= n_out:
                 store(row - 1, info)
@@ -370,19 +370,19 @@ class SGMCMC:
 class _Step:
     """What one :meth:`SGMCMC.sample` call works on."""
 
-    def __init__(self, sampler, log_joint, observed, state, key, noise):
-        self.log_joint = log_joint
+    def __init__(self, sampler, meta_bn, observed, state, key, noise):
+        self.meta_bn = meta_bn
         self.observed = observed
         self.state = state
         self.key = key
         self.noise = noise
         self.new_t = state.t + 1
         self.lr = sampler._lr(state.t)
-        self.grad_fn = make_grad_fn(make_log_joint_fn(log_joint, observed))
+        self.grad_fn = make_grad_fn(make_log_joint_fn(meta_bn, observed))
         q = state.q
         self.x0 = q[next(iter(q))]
         self.dtype = _state_dtype(q)
-        self.kernel = sampler._use_kernel(log_joint, observed, q, self.lr)
+        self.kernel = sampler._use_kernel(meta_bn, observed, q, self.lr)
         # The plain path's learning rate, pinned to the state's dtype.
         self.lr_tensor = (None if self.kernel else learning_rate_tensor(
             self.lr, self.dtype, self.x0.device))
@@ -430,7 +430,7 @@ class SGLD(SGMCMC):
         if step.kernel and type(self) is SGLD:
             name, x = step.single()
             new_q = {name: fused_sgld_step(
-                step.log_joint, x, step.lr, step.key, step.new_t,
+                step.meta_bn, x, step.lr, step.key, step.new_t,
                 noise=_pick(step.noise, name))}
         else:
             new_q = sgld_transition(state.q, step.lr_tensor, step.grad_fn,
@@ -467,7 +467,7 @@ class PSGLD(SGLD):
         if step.kernel:
             name, x = step.single()
             q1, r1 = fused_psgld_step(
-                step.log_joint, x, state.rms[name], step.lr, self.decay,
+                step.meta_bn, x, state.rms[name], step.lr, self.decay,
                 self.epsilon, step.key, step.new_t,
                 noise=_pick(step.noise, name))
             new_q, new_rms = {name: q1}, {name: r1}
@@ -569,7 +569,7 @@ class SGHMC(_Momentum):
         if step.kernel:
             name, x = step.single()
             q1, v1, vsq = fused_sghmc_step(
-                step.log_joint, x, state.v[name], step.lr, self.alpha,
+                step.meta_bn, x, state.v[name], step.lr, self.alpha,
                 self.beta, self.second_order, step.key, step.new_t,
                 resample=resample,
                 noise=self._kernel_noise(step, name, resample))
@@ -622,12 +622,12 @@ class SGNHT(_Momentum):
         return {k: torch.full((), self.a, dtype=x.dtype, device=x.device)
                 for k, x in q.items()}
 
-    def _fused_ineligible(self, log_joint, observed, q, lr):
+    def _fused_ineligible(self, meta_bn, observed, q, lr):
         if not self.use_vector_alpha:
             return ("the scalar thermostat (use_vector_alpha=False) reduces "
                     "mean(v^2) over every chain and dimension, which couples "
                     "the chains; the kernel runs the vector thermostat only")
-        return super()._fused_ineligible(log_joint, observed, q, lr)
+        return super()._fused_ineligible(meta_bn, observed, q, lr)
 
     def _update(self, step: _Step):
         state = step.state
@@ -635,7 +635,7 @@ class SGNHT(_Momentum):
         if step.kernel:
             name, x = step.single()
             q1, v1, a1 = fused_sgnht_step(
-                step.log_joint, x, state.v[name], state.alpha[name], step.lr,
+                step.meta_bn, x, state.v[name], state.alpha[name], step.lr,
                 self.a, self.tune_rate, self.second_order, step.key,
                 step.new_t, resample=resample,
                 noise=self._kernel_noise(step, name, resample))

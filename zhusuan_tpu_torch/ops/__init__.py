@@ -13,12 +13,22 @@ fused SGMCMC updates (:mod:`.sgld_step`, :mod:`.psgld_step`,
 :mod:`.sghmc_step`, :mod:`.sgnht_step`, replacing the Pallas kernels of the
 same names), four entry points of one CUDA kernel body; and the Cholesky
 factor with its inverse (:mod:`.linalg`, replacing ``ops/linalg.py::
-_chol_inv_kernel``). The sampler kernels evaluate the built-in densities
-of :mod:`.densities`; :mod:`.checks` holds the numerics guard (no
-kernel). Kernels are built from ``zhusuan_tpu_torch/csrc`` at first use,
-never at import.
+_chol_inv_kernel``); and the whole-fit mean-field ADVI trainer
+(:mod:`.advi_step`, replacing ``ops/advi_step.py::fused_meanfield_advi``);
+and the standalone samplers (:mod:`.random`: ``gpu_normal`` and
+``gpu_uniform``, replacing ``ops/random.py::tpu_normal`` and
+``tpu_uniform``). Every function of the JAX package that reaches
+``pl.pallas_call`` has its counterpart here. The sampler and trainer kernels
+evaluate the built-in densities of :mod:`.densities`; :mod:`.checks` holds
+the numerics guard (no kernel). Kernels are built from
+``zhusuan_tpu_torch/csrc`` at first use, never at import.
 """
 
+from zhusuan_tpu_torch.ops.advi_step import (
+    advi_step_supported,
+    fused_meanfield_advi,
+    fused_meanfield_advi_reference,
+)
 from zhusuan_tpu_torch.ops.checks import check_numerics
 from zhusuan_tpu_torch.ops.chees_step import (
     chees_step_supported,
@@ -29,6 +39,7 @@ from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    Toy2DLogJoint,
 )
 from zhusuan_tpu_torch.ops.hmc_step import (
     fused_hmc_step,
@@ -55,6 +66,13 @@ from zhusuan_tpu_torch.ops.psgld_step import (
     fused_psgld_step_reference,
     psgld_step_supported,
 )
+from zhusuan_tpu_torch.ops.random import (
+    gpu_normal,
+    gpu_normal_reference,
+    gpu_uniform,
+    gpu_uniform_reference,
+    random_supported,
+)
 from zhusuan_tpu_torch.ops.sghmc_step import (
     fused_sghmc_step,
     fused_sghmc_step_reference,
@@ -75,6 +93,8 @@ __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "Toy2DLogJoint",
+    "advi_step_supported",
     "check_numerics",
     "chees_step_supported",
     "chol_inv_supported",
@@ -86,6 +106,8 @@ __all__ = [
     "fused_hmc_step_reference",
     "fused_leapfrog",
     "fused_leapfrog_reference",
+    "fused_meanfield_advi",
+    "fused_meanfield_advi_reference",
     "fused_nuts_transition",
     "fused_nuts_transition_reference",
     "fused_psgld_step",
@@ -96,10 +118,15 @@ __all__ = [
     "fused_sgld_step_reference",
     "fused_sgnht_step",
     "fused_sgnht_step_reference",
+    "gpu_normal",
+    "gpu_normal_reference",
+    "gpu_uniform",
+    "gpu_uniform_reference",
     "hmc_step_supported",
     "leapfrog_supported",
     "nuts_step_supported",
     "psgld_step_supported",
+    "random_supported",
     "sghmc_step_supported",
     "sgld_step_supported",
     "sgnht_step_supported",

@@ -23,8 +23,12 @@ uniform, ``1 + i`` for the momentum of the i-th latent in sorted-name
 order, ``0x100 + k`` for the NUTS kernel's uniforms: tree directions,
 leaf selections and merge selections, ``0x200`` for the SGMCMC kernels'
 integrator noise and ``0x201`` for the momentum that SGHMC and SGNHT
-resample). Either way a loop over iterations needs no host sync to draw.
-Streams differ from ``jax.random`` by design.
+resample, ``0x300`` for the particle noise of the ADVI trainer, whose
+iteration word is the optimisation step and whose row is the particle,
+``0x400`` and ``0x401`` for the standalone normal and uniform samplers of
+:mod:`.random`, whose iteration word is 0). Either way a loop over
+iterations needs no host sync to draw. Streams differ from ``jax.random``
+by design.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ __all__ = [
     "STREAM_NUTS_MERGE",
     "STREAM_SGMCMC_NOISE",
     "STREAM_SGMCMC_RESAMPLE",
+    "STREAM_ADVI_NOISE",
+    "STREAM_RANDOM_NORMAL",
+    "STREAM_RANDOM_UNIFORM",
     "philox_key",
     "iteration_generator",
     "philox4x32_10",
@@ -59,6 +66,9 @@ STREAM_NUTS_LEAF = 0x101  # [chains, 2**max_tree_depth - 1]
 STREAM_NUTS_MERGE = 0x102  # [chains, max_tree_depth]
 STREAM_SGMCMC_NOISE = 0x200  # [chains, dim]: the integrator's N(0, 1)
 STREAM_SGMCMC_RESAMPLE = 0x201  # [chains, dim]: a resampled momentum
+STREAM_ADVI_NOISE = 0x300  # [n_particles, dim] per step: the ELBO particles
+STREAM_RANDOM_NORMAL = 0x400  # [rows, cols]: ops/random.py::gpu_normal
+STREAM_RANDOM_UNIFORM = 0x401  # [rows, cols]: ops/random.py::gpu_uniform
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF

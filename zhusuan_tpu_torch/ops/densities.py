@@ -11,10 +11,19 @@ kernel takes (``DENSITIES``); any other log-joint takes the plain path.
 - :class:`DiagonalGaussianLogJoint`: the ``bench.py`` HMC and NUTS target.
 - :class:`EquicorrelatedGaussianLogJoint`: the target of ``bench.py``'s
   ``measure_mixing`` (unit variances, every correlation ``rho``).
+- :class:`Toy2DLogJoint`: the funnel-like posterior of
+  ``examples/toy_examples/toy2d_intractable.py`` over one latent
+  ``[z1, z2]``; the ADVI trainer (:mod:`.advi_step`) alone takes it.
+
+Beside ``log_prob`` (plain torch ops, differentiable by autograd) each has
+``value_and_grad``: the log-density and its gradient written out in the
+arithmetic of ``csrc/densities.cuh``'s ``value_and_grad``, which the ADVI
+trainer's kernel and its plain version both evaluate.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +32,7 @@ __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "Toy2DLogJoint",
 ]
 
 
@@ -47,6 +57,11 @@ class BuiltinDensity:
 
     def __call__(self, obs):
         return self.log_prob(obs[self.name])
+
+    def value_and_grad(self, x):
+        """``(log p [...], d log p / dx [..., dim])`` at ``x [..., dim]`` in
+        the kernels' arithmetic (no autograd graph is built or needed)."""
+        raise NotImplementedError
 
     def _params(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The kernel's two parameter arrays (the second may be None)."""
@@ -92,6 +107,15 @@ class DiagonalGaussianLogJoint(BuiltinDensity):
     def log_prob(self, x):
         return torch.sum(-0.5 * torch.square(x - self.loc) * self.inv_var,
                          dim=-1)
+
+    def value_and_grad(self, x):
+        # The row sum of log p is accumulated in float64 and rounded once
+        # (exact at these widths), so the order of the kernel's warp
+        # butterflies does not matter; log_prob above keeps its float32 sum,
+        # which the HMC-family kernels reproduce within a tolerance.
+        z = x - self.loc
+        return (_row_sum(-0.5 * torch.square(z) * self.inv_var),
+                -z * self.inv_var)
 
     def _params(self):
         return self.loc, self.inv_var
@@ -146,8 +170,69 @@ class EquicorrelatedGaussianLogJoint(BuiltinDensity):
         return _EquicorrelatedLogProb.apply(x, self.a, self.c,
                                             1.0 / self.dim)
 
+    def value_and_grad(self, x):
+        s = _row_sum(x)
+        r = x - (s * (1.0 / self.dim))[..., None]
+        return (-0.5 * (self.a * _row_sum(r * r) + self.c * s * s),
+                -(self.a * r + (self.c * s)[..., None]))
+
     def _params(self):
         return torch.tensor([self.a, self.c, 1.0 / self.dim],
+                            dtype=torch.float64), None
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as a Python float: the value a kernel gets
+    when the host passes ``v`` in a float32 array."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+class Toy2DLogJoint(BuiltinDensity):
+    """The funnel-like 2-D posterior of
+    ``examples/toy_examples/toy2d_intractable.py`` (acceptance config #2)
+    over ONE latent ``z = [z1, z2]``:
+    ``log p(z) = log N(z2; 0, scale) + log N(z1; 0, exp(z2))``, normalising
+    constants included, so it equals the log-joint of the two-node model
+    ``z2 ~ N(0, scale)``, ``z1 ~ N(0, e^{z2})``. Gradient:
+    ``d/dz1 = -z1 exp(-2 z2)``,
+    ``d/dz2 = -z2 / scale^2 + z1^2 exp(-2 z2) - 1``.
+
+    Only the ADVI trainer's kernel evaluates it (:data:`.advi_step.
+    DENSITIES`); the samplers' kernels do not take it.
+
+    :param name: the latent's name in the latent dict.
+    :param scale: the standard deviation of ``z2`` (1.35 in the example).
+    """
+
+    kernel_id = 2
+
+    def __init__(self, name: str, scale: float = 1.35):
+        scale = float(scale)
+        if not scale > 0.0:
+            raise ValueError("scale must be positive; got {}.".format(scale))
+        super().__init__(name, 2)
+        self.scale = scale
+        # float32 values on both sides: the kernel reads them from a float32
+        # array, the plain version multiplies float32 tensors by them.
+        self.const = _f32(-math.log(2.0 * math.pi) - math.log(scale))
+        self.inv_var = _f32(1.0 / (scale * scale))
+        self.half_inv_var = 0.5 * self.inv_var
+
+    def log_prob(self, x):
+        z1, z2 = x[..., 0], x[..., 1]
+        return (self.const - self.half_inv_var * (z2 * z2) - z2
+                - 0.5 * (z1 * z1) * torch.exp(-2.0 * z2))
+
+    def value_and_grad(self, x):
+        z1, z2 = x[..., 0], x[..., 1]
+        z1p = z1 * torch.exp(-2.0 * z2)
+        quad = z1 * z1p
+        value = (self.const - self.half_inv_var * (z2 * z2) - z2) - 0.5 * quad
+        g2 = (-(z2 * self.inv_var) + quad) - 1.0
+        return value, torch.stack([-z1p, g2], dim=-1)
+
+    def _params(self):
+        return torch.tensor([self.const, self.half_inv_var, self.inv_var],
                             dtype=torch.float64), None
 
 
