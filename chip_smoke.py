@@ -102,16 +102,28 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    (``SG_REFERENCE``, from ``scripts/sgmcmc_jax_reference.py``) and
    PSGLD's kernel path against its plain path, within ``SG_REF_TOL``.
 14. Cholesky-plus-inverse vs plain: ``ops.cholesky_inverse`` (the kernel)
-   against ``cholesky_inverse_reference`` at n = 3, 17, 100, 256 and 512,
+   against ``cholesky_inverse_reference`` at the sizes of ``CHOL_SIZES``
+   (1 to 512, both sides of every seam: the 16-column panel, 112, the
+   largest size the kernel itself gives one block, 304, the largest one
+   block can hold, 338/339 where the first version changed its memory),
    float32, on a well-conditioned SPD matrix and on SVGP-style RBF Gram
    matrices of crowded points plus 1e-6 I: entrywise within ``CHOL_TOL``
    where the matrix allows it, else each side's backward error (see
-   ``_chol_matrices``); on a matrix that is not positive definite the NaN
-   pattern must equal the plain version's. The VJP through the kernel
-   against autograd through ``torch.linalg`` at n = 9 and 100 (three
-   weightings) within ``CHOL_GRAD_TOL``. Then the kernel, the plain
-   version and the library pair ``cholesky_ex`` + ``solve_triangular``
-   timed at n = 100 and 512 with CUDA events;
+   ``_chol_matrices``); where entrywise, also against
+   ``cholesky_inverse_panel_reference`` (the same blocked recurrence in
+   plain torch, on the card) within the same ``CHOL_TOL``: the two run the
+   same operations in the same order and differ only in FMA contraction
+   and in ``rsqrtf`` for the pivots, so they must agree at least as closely
+   as two library factorizations do. Every
+   layout the size allows (one block, clusters of 2, 4 and 8) is held the
+   same way on the SPD matrix. On matrices that are not positive definite
+   (the bad pivot in the first, a middle and the last panel) the NaN
+   pattern must equal the plain version's, on every layout. The VJP through
+   the kernel against autograd through ``torch.linalg`` at n = 9 and 100
+   (three weightings) within ``CHOL_GRAD_TOL``. Then the kernel (back to
+   back, replayed from a CUDA graph, and per layout), the plain version and
+   the library pair ``cholesky_ex`` + ``solve_triangular`` timed at the
+   sizes of ``CHOL_TIMED``;
 15. SVGP main path: the port's SVGP example
    (``zhusuan_tpu_torch.examples.gaussian_process.svgp``) on the recipe of
    ``baseline_ref/configs_protocol.py:56-57`` -- 456 x 13 synthetic rows
@@ -129,11 +141,15 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    one step timed at Protein size (the
    45730 x 9 synthetic fallback, minibatches of 5000), no gate.
 16. standalone samplers vs plain: ``ops.gpu_normal`` and ``ops.gpu_uniform``
-   (the kernels) against the plain torch Philox at 1024 x 1024, a ragged
-   1000 x 37 and 3 x 5: 0 differing elements, one key repeats, two keys
-   differ, and at 1024 x 1024 the moment gates of ``bench.py:225-231``.
-   Then each timed (back to back and replayed from a CUDA graph) beside
-   its plain version and ``torch.randn`` / ``torch.rand``;
+   (the kernels) against the plain torch Philox at the shapes of
+   ``RANDOM_SHAPES`` (1024 x 1024, a ragged 1000 x 37 and small shapes on
+   both store paths: widths that are and are not multiples of 4): 0
+   differing elements, one key repeats, two keys differ (arrays of 16
+   elements or more), and at 1024 x 1024 the moment gates of
+   ``bench.py:225-231``. Then each timed beside its plain version and
+   ``torch.randn`` / ``torch.rand``: at 1024 x 1024 (4 MB, resident in L2)
+   back to back and replayed from a CUDA graph, and at 8192 x 8192 (256 MB,
+   beyond L2, where the bytes bound is the real one);
 17. ADVI trainer vs plain: ``ops.fused_meanfield_advi`` (the kernel) against
    ``fused_meanfield_advi_reference`` for the three built-in densities at
    the widths of ``ADVI_CASES`` (phase 18's 64 x 100 among them, and at
@@ -1665,7 +1681,9 @@ def phase_sgmcmc_main_path(torch, dev):
 # --------------------------------------------------------------------- #
 # Phase 14: the Cholesky-plus-inverse kernel (K10) against its plain version
 # --------------------------------------------------------------------- #
-CHOL_SIZES = (3, 17, 100, 256, 512)
+CHOL_SIZES = (1, 3, 16, 17, 32, 33, 100, 112, 113, 256, 304, 305, 338, 339,
+              512)
+CHOL_LAYOUTS = (1, 2, 4, 8)  # thread blocks of one launch
 # tests/test_ops_linalg.py:37-43: a right-looking loop and cuSOLVER's
 # blocked potrf round differently, so L within 2e-5 (rtol and atol),
 # L^{-1} within 3e-4, and L L^{-1} = I within 5e-5.
@@ -1674,8 +1692,8 @@ CHOL_TOL = {"l": 2e-5, "linv": 3e-4, "eye": 5e-5}
 # torch.linalg, rtol and atol.
 CHOL_GRAD_TOL = 2e-4
 CHOL_GRAD_SIZES = (9, 100)
-CHOL_TIMED = (100, 512)
-CHOL_TIMING_REPS = {100: 200, 512: 10}
+CHOL_TIMED = (100, 112, 113, 304, 305, 338, 339, 512)
+CHOL_TIMING_REPS = 100
 
 
 def _chol_inv_bound(n):
@@ -1725,20 +1743,63 @@ def _residuals(torch, a, l, linv):
             float((l64 @ x64 - eye).abs().max()))
 
 
+def _not_spd_matrices(n):
+    """``{label: float32 matrix}``: symmetric, not positive definite, the
+    first bad pivot in the first, a middle and the last 16-column panel."""
+    import numpy as np
+
+    out = {}
+    for label, j in (("first", 0), ("middle", n // 2), ("last", n - 1)):
+        bad = _chol_matrices(n)["spd"][0].copy()
+        bad[j, j] = -1.0
+        out["not_spd_" + label] = bad
+    if n >= 4:  # every pivot from the first on is bad
+        out["not_spd_shifted"] = _chol_matrices(n)["spd"][0] - 2.0 * np.eye(
+            n, dtype=np.float32)
+    return out
+
+
+def _chol_layouts(n):
+    """The layouts (thread blocks per launch) whose shared memory holds
+    size ``n``: one block up to 304, a cluster of 2 up to 416."""
+    from zhusuan_tpu_torch.ops.linalg import layout_fits
+
+    return [b for b in CHOL_LAYOUTS if layout_fits(n, b)]
+
+
+def _chol_entrywise(torch, got, want):
+    """``{"l": (max abs err, max err over tolerance), "linv": ...}`` of a
+    pair ``(L, L^{-1})`` against another under ``CHOL_TOL``."""
+    out = {}
+    for name, g, w in (("l", got[0], want[0]), ("linv", got[1], want[1])):
+        err = (g - w).abs()
+        tol = CHOL_TOL[name] * (1.0 + w.abs())
+        out[name] = (float(err.max()), float((err / tol).max()))
+    return out
+
+
 def phase_chol_vs_plain(torch, dev):
     import numpy as np
 
     from zhusuan_tpu_torch.ops import linalg
+
+    def same_nan_pattern(got, want):
+        return all(bool(torch.equal(torch.isnan(g), torch.isnan(w)))
+                   and bool(torch.equal(g.nan_to_num(), w.nan_to_num()))
+                   for g, w in zip(got, want))
 
     cases, failures = [], []
     max_err = {"l": 0.0, "linv": 0.0}
     for n in CHOL_SIZES:
         for label, (a_np, mode) in _chol_matrices(n).items():
             a = torch.as_tensor(a_np, device=dev)
+            before = linalg.cholesky_inverse.launches
             lk, xk = linalg.cholesky_inverse(a)
+            one_launch = linalg.cholesky_inverse.launches == before + 1
             lp, xp = linalg.cholesky_inverse_reference(a)
             torch.cuda.synchronize()
             rec = {"n": n, "matrix": label, "check": mode,
+                   "one_launch": one_launch,
                    "kernel_finite": bool(torch.isfinite(lk).all()
                                          and torch.isfinite(xk).all()),
                    "plain_finite": bool(torch.isfinite(lp).all()
@@ -1747,45 +1808,55 @@ def phase_chol_vs_plain(torch, dev):
                                       and (torch.triu(xk, 1) == 0).all())}
             rec["kernel_residual"] = _residuals(torch, a, lk, xk)
             rec["plain_residual"] = _residuals(torch, a, lp, xp)
-            ok = rec["kernel_finite"] and rec["upper_zero"]
+            ok = rec["kernel_finite"] and rec["upper_zero"] and one_launch
             if mode == "entrywise":
                 ok = ok and rec["plain_finite"]
-                for name, got, want in (("l", lk, lp), ("linv", xk, xp)):
-                    err = (got - want).abs()
-                    tol = CHOL_TOL[name] * (1.0 + want.abs())
-                    rec["max_abs_err_" + name] = float(err.max())
-                    rec["max_err_over_tol_" + name] = float((err / tol).max())
-                    ok = ok and bool((err <= tol).all())
-                    max_err[name] = max(max_err[name], float(err.max()))
+                panel = linalg.cholesky_inverse_panel_reference(a, 16)
+                for against, want in (("", (lp, xp)), ("_panel", panel)):
+                    for name, (err, ratio) in _chol_entrywise(
+                            torch, (lk, xk), want).items():
+                        rec["max_abs_err_{}{}".format(name, against)] = err
+                        rec["max_err_over_tol_{}{}".format(name,
+                                                           against)] = ratio
+                        ok = ok and ratio <= 1.0
+                        if not against:
+                            max_err[name] = max(max_err[name], err)
                 ok = ok and rec["kernel_residual"][1] <= CHOL_TOL["eye"]
             else:
                 ok = ok and rec["kernel_residual"][0] <= CHOL_TOL["l"] \
                     and rec["kernel_residual"][1] <= CHOL_TOL["eye"]
+            if label == "spd":
+                # Every layout the size allows, against the plain version.
+                rec["layouts"] = {}
+                for blocks in _chol_layouts(n):
+                    got = linalg._launch(a, blocks)
+                    worst = max(r for _, r in _chol_entrywise(
+                        torch, got, (lp, xp)).values())
+                    upper = bool((torch.triu(got[0], 1) == 0).all()
+                                 and (torch.triu(got[1], 1) == 0).all())
+                    rec["layouts"][blocks] = worst
+                    ok = ok and worst <= 1.0 and upper
             rec["ok"] = ok
             cases.append(rec)
             if not ok:
                 failures.append("{} n={}".format(label, n))
         # Not positive definite: the NaN pattern of the plain version.
-        if n >= 4:
-            bad = _chol_matrices(n)["spd"][0] - 2.0 * np.eye(n,
-                                                             dtype=np.float32)
-        else:
-            bad = np.eye(n, dtype=np.float32)
-            bad[1, 1] = -1.0
-        a = torch.as_tensor(bad, device=dev)
-        lk, xk = linalg.cholesky_inverse(a)
-        lp, xp = linalg.cholesky_inverse_reference(a)
-        same = all(bool(torch.equal(torch.isnan(g), torch.isnan(w)))
-                   and bool(torch.equal(g.nan_to_num(), w.nan_to_num()))
-                   for g, w in ((lk, lp), (xk, xp)))
-        lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
-        pattern = bool(torch.isnan(lk[lower]).all()
-                       and (lk[~lower] == 0).all()
-                       and torch.isnan(xk).all())
-        cases.append({"n": n, "matrix": "not_spd", "same_as_plain": same,
-                      "nan_pattern": pattern})
-        if not (same and pattern):
-            failures.append("not_spd n={}: NaN pattern differs".format(n))
+        for label, bad in _not_spd_matrices(n).items():
+            a = torch.as_tensor(bad, device=dev)
+            lk, xk = linalg.cholesky_inverse(a)
+            want = linalg.cholesky_inverse_reference(a)
+            same = same_nan_pattern((lk, xk), want) and all(
+                same_nan_pattern(linalg._launch(a, blocks), want)
+                for blocks in _chol_layouts(n))
+            lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+            pattern = bool(torch.isnan(lk[lower]).all()
+                           and (lk[~lower] == 0).all()
+                           and torch.isnan(xk).all())
+            cases.append({"n": n, "matrix": label, "same_as_plain": same,
+                          "nan_pattern": pattern})
+            if not (same and pattern):
+                failures.append("{} n={}: NaN pattern differs".format(
+                    label, n))
 
     # The VJP through the kernel against autograd through torch.linalg
     # (tests/test_ops_linalg.py:68-102's three weightings).
@@ -1819,6 +1890,9 @@ def phase_chol_vs_plain(torch, dev):
             if not ratio <= 1.0:
                 failures.append("VJP n={} w=({}, {})".format(n, w_l, w_i))
 
+    # kernel_ms: back to back (the host's launch path counts where it is
+    # the longer); kernel_graph_ms: the device alone; layout_graph_ms: the
+    # same per layout (the kernel's own choice is the launch of kernel_ms).
     timing = {}
     for n in CHOL_TIMED:
         a = torch.as_tensor(_chol_matrices(n)["spd"][0], device=dev)
@@ -1828,17 +1902,21 @@ def phase_chol_vs_plain(torch, dev):
             l, _ = torch.linalg.cholesky_ex(a)
             return torch.linalg.solve_triangular(l, eye, upper=False)
 
-        reps = CHOL_TIMING_REPS[n]
+        reps = CHOL_TIMING_REPS
         with torch.no_grad():
             timing[n] = {
                 "kernel_ms": _time_ms(torch, lambda: linalg.cholesky_inverse(
                     a), reps),
+                "kernel_graph_ms": _graph_ms(
+                    torch, lambda: linalg.cholesky_inverse(a), 20),
+                "layout_graph_ms": {
+                    blocks: _graph_ms(
+                        torch, lambda: linalg._launch(a, blocks), 20)
+                    for blocks in _chol_layouts(n)},
                 "plain_ms": _time_ms(
                     torch, lambda: linalg.cholesky_inverse_reference(a),
                     reps),
                 "library_ms": _time_ms(torch, library, reps),
-                "kernel_ms_2": _time_ms(torch, lambda: linalg.cholesky_inverse(
-                    a), reps),
                 **_chol_inv_bound(n)}
     print("phase14 chol_vs_plain " + json.dumps({
         "cases": cases, "vjp": grads, "timing": timing,
@@ -2017,8 +2095,13 @@ def phase_svgp_main_path(torch, dev):
 # --------------------------------------------------------------------- #
 # Phase 16: the standalone samplers (K12) against their plain versions
 # --------------------------------------------------------------------- #
-RANDOM_SHAPES = ((1024, 1024), (1000, 37), (3, 5))
+# Widths that are multiples of 4 take the 16-byte store path, the others the
+# 4-byte one; (1, 1) and (5, 4) are one group a row, (2, 1028) has a row that
+# ends off a 128-byte line.
+RANDOM_SHAPES = ((1024, 1024), (1000, 37), (3, 5), (5, 4), (7, 8), (2, 1028),
+                 (1, 1))
 RANDOM_TIMED = (1024, 1024)  # bench.py:217-222's self-check shape
+RANDOM_TIMED_LARGE = (8192, 8192)  # 256 MB: beyond the 50 MB L2
 OPS_UNIFORM = 20  # Philox's rounds per 4 words, the mantissa fill
 
 
@@ -2052,8 +2135,11 @@ def phase_random_vs_plain(torch, dev):
                    "one_key_repeats": bool(torch.equal(got, again)),
                    "two_keys_differ": not bool(torch.equal(got, other))}
             max_err[kind] = max(max_err[kind], rec["max_abs_err"])
+            # Two keys may agree on a handful of 23-bit uniforms by chance
+            # only below 16 elements.
             ok = (rec["differing"] == 0 and rec["finite"]
-                  and rec["one_key_repeats"] and rec["two_keys_differ"]
+                  and rec["one_key_repeats"]
+                  and (rec["two_keys_differ"] or got.numel() < 16)
                   and got.dtype == torch.float32
                   and tuple(got.shape) == tuple(shape))
             if tuple(shape) == RANDOM_TIMED:
@@ -2086,6 +2172,23 @@ def phase_random_vs_plain(torch, dev):
             "kernel_graph_ms": _graph_ms(
                 torch, lambda: fn(key, RANDOM_TIMED, dev), 50),
             **_random_bound(kind, *RANDOM_TIMED)}
+        # Beyond L2 the device's time is far the longer of the two, so back
+        # to back launches read it: no graph here.
+        large = fn(key, RANDOM_TIMED_LARGE, dev)
+        want = ref(key, RANDOM_TIMED_LARGE, dev)
+        differing = int((large != want).sum())
+        del large, want
+        timing[kind]["large"] = {
+            "shape": list(RANDOM_TIMED_LARGE), "differing": differing,
+            "kernel_ms": _time_ms(
+                torch, lambda: fn(key, RANDOM_TIMED_LARGE, dev), 20),
+            "plain_ms": _time_ms(
+                torch, lambda: ref(key, RANDOM_TIMED_LARGE, dev), 1),
+            "library_ms": _time_ms(
+                torch, lambda: library(RANDOM_TIMED_LARGE), 20),
+            **_random_bound(kind, *RANDOM_TIMED_LARGE)}
+        if differing:
+            failures.append("{} {}".format(kind, RANDOM_TIMED_LARGE))
     print("phase16 random_vs_plain " + json.dumps({
         "cases": cases, "timing": timing, "max_abs_err": max_err}))
     check(not failures, "K12 vs plain: " + "; ".join(failures))
@@ -2565,16 +2668,18 @@ def main():
         "launches": svgp_launches,
         "max_abs_err": max(chol_err.values()),
         "ms": chol["kernel_ms"],
+        "ms_graph": chol["kernel_graph_ms"],
         "plain_ms": chol["plain_ms"],
         "bound_ms": chol["bound_ms"],
         "bound_by": chol["bound_by"],
         "library_ms": chol["library_ms"],
         "n": 100,
-        "ms_n512": chol_timing[512]["kernel_ms"],
-        "plain_ms_n512": chol_timing[512]["plain_ms"],
-        "library_ms_n512": chol_timing[512]["library_ms"],
-        "bound_ms_n512": chol_timing[512]["bound_ms"],
     }
+    for n in CHOL_TIMED[1:]:
+        for field in ("kernel_ms", "kernel_graph_ms", "plain_ms",
+                      "library_ms", "bound_ms"):
+            linalg_rec["{}_n{}".format(field.replace("kernel_", ""), n)] = \
+                chol_timing[n][field]
     toy = advi_timing["toy2d_d2_n500"]
     gauss = advi_timing["diagonal_d100_n{}".format(GAUSS_PARTICLES)]
     gauss32 = advi_timing["diagonal_d100_n32"]
@@ -2619,6 +2724,10 @@ def main():
         "library_ms": rand_timing[kind]["library_graph_ms"],
         "library_ms_back_to_back": rand_timing[kind]["library_ms"],
         "shape": list(RANDOM_TIMED),
+        "ms_8192x8192": rand_timing[kind]["large"]["kernel_ms"],
+        "plain_ms_8192x8192": rand_timing[kind]["large"]["plain_ms"],
+        "library_ms_8192x8192": rand_timing[kind]["large"]["library_ms"],
+        "bound_ms_8192x8192": rand_timing[kind]["large"]["bound_ms"],
     } for kind, line in (("normal", 83), ("uniform", 117))]
     print(json.dumps({"kernels": [{
         "name": "fused_hmc_step",

@@ -97,6 +97,44 @@ def test_a_value_depends_on_its_position_alone():
                        big[:, :37])
 
 
+# Widths on both of the kernel's store paths (a multiple of 4: one 16-byte
+# store a group; else 4-byte stores) and at their edges.
+STORE_PATH_SHAPES = [(5, 4), (7, 8), (2, 1028), (1, 1), (3, 5), (6, 1027)]
+
+
+@pytest.mark.parametrize("kind", ["normal", "uniform"])
+@pytest.mark.parametrize("shape", STORE_PATH_SHAPES)
+def test_a_draw_is_the_leading_columns_of_a_wider_draw(kind, shape):
+    """Group by group: element (row, col) is word ``col % 4`` of the Philox
+    call counted ``(0, row, col // 4, stream)``, whatever the width, so a
+    ``[rows, cols]`` draw equals the leading columns of a draw padded to
+    the next multiple of 4, of a much wider one, and of a taller one."""
+    fn, _ = SAMPLERS[kind]
+    rows, cols = shape
+    x = fn(KEY, shape, "cpu")
+    padded = fn(KEY, (rows, 4 * ((cols + 3) // 4)), "cpu")
+    assert torch.equal(x, padded[:, :cols])
+    wide = fn(KEY, (rows + 3, cols + 64), "cpu")
+    assert torch.equal(x, wide[:rows, :cols])
+    for g in range((cols + 3) // 4):  # each group on its own
+        lo, hi = 4 * g, min(4 * g + 4, cols)
+        assert torch.equal(x[:, lo:hi], wide[:rows, lo:hi])
+
+
+@pytest.mark.parametrize("kind", ["normal", "uniform"])
+@pytest.mark.parametrize("cols", [4, 8, 1028, 5, 1027])
+def test_moments_on_both_store_path_widths(kind, cols):
+    fn, _ = SAMPLERS[kind]
+    x = fn(KEY, (40000 // cols * 8 + 8, cols), "cpu").double()
+    sd = 1.0 / np.sqrt(x.numel())
+    if kind == "normal":
+        assert abs(float(x.mean())) < 5 * sd
+        assert abs(float(x.std()) - 1.0) < 5 * sd
+    else:
+        assert abs(float(x.mean()) - 0.5) < 5 * sd * 0.29
+        assert float(x.min()) >= 0.0 and float(x.max()) < 1.0
+
+
 def test_streams_are_separate():
     streams = {name: getattr(_random, name) for name in _random.__all__
                if name.startswith("STREAM_")}
@@ -146,7 +184,8 @@ def _cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["normal", "uniform"])
 @pytest.mark.parametrize("shape", [(1024, 1024), (1000, 37), (3, 5), (1, 1),
-                                   (5, 4099)])
+                                   (5, 4099), (5, 4), (7, 8), (2, 1028),
+                                   (6, 1027), (300000, 4), (2049, 2048)])
 def test_kernel_matches_plain_version_bit_for_bit(kind, shape):
     dev = _cuda()
     fn, ref = SAMPLERS[kind]
@@ -160,6 +199,18 @@ def test_kernel_matches_plain_version_bit_for_bit(kind, shape):
     # sin and cos need not round alike, so this side is held at 1e-6.
     np.testing.assert_allclose(got.cpu().numpy(),
                                ref(KEY, shape, "cpu").numpy(), atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "uniform"])
+def test_kernel_store_paths_agree_on_the_card(kind):
+    """A width that is a multiple of 4 (16-byte stores) and one that is not
+    (4-byte stores) hold the same leading columns."""
+    _cuda()
+    fn, _ = SAMPLERS[kind]
+    wide = fn(KEY, (33, 1028))
+    assert torch.equal(fn(KEY, (33, 1027)), wide[:, :1027])
+    assert torch.equal(fn(KEY, (33, 1024)), wide[:, :1024])
 
 
 @pytest.mark.cuda

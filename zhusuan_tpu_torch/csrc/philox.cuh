@@ -70,8 +70,10 @@ __device__ __forceinline__ void boxmuller(uint32_t b1, uint32_t b2, float* n0,
   const float u2 = uniform_from_bits(b2);
   const float r = sqrtf(-2.0f * logf(u1));
   const float theta = kTwoPi * u2;
-  *n0 = r * cosf(theta);
-  *n1 = r * sinf(theta);
+  float s, c;  // one range reduction for both; the bits of sinf and cosf
+  sincosf(theta, &s, &c);
+  *n0 = r * c;
+  *n1 = r * s;
 }
 
 // The 4 standard normals of columns 4g .. 4g+3 of row `row`.

@@ -54,6 +54,7 @@ from zhusuan_tpu_torch.ops.leapfrog import (
 from zhusuan_tpu_torch.ops.linalg import (
     chol_inv_supported,
     cholesky_inverse,
+    cholesky_inverse_panel_reference,
     cholesky_inverse_reference,
 )
 from zhusuan_tpu_torch.ops.nuts_step import (
@@ -99,6 +100,7 @@ __all__ = [
     "chees_step_supported",
     "chol_inv_supported",
     "cholesky_inverse",
+    "cholesky_inverse_panel_reference",
     "cholesky_inverse_reference",
     "fused_chees_step",
     "fused_chees_step_reference",

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``zhusuan_tpu_torch/_build/`` (git-ignored),
 under a file name keyed by a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, and loaded with ``ctypes``. Nothing here
-runs at import time. :func:`build_libraries` starts one ``nvcc`` per
+(``csrc/*.cuh``) and the source's flags, and loaded with ``ctypes``. Nothing
+here runs at import time. :func:`build_libraries` starts one ``nvcc`` per
 source, all at once.
 """
 
@@ -23,14 +23,18 @@ __all__ = ["build_libraries", "load_library", "BUILD_DIR"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
 # -fmad=false: the kernels round every product and sum on their own, as
 # the plain torch versions' separate elementwise ops do, so a trajectory
 # over the diagonal Gaussian agrees bit for bit (an FMA would round once
-# where torch rounds twice).
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+# where torch rounds twice). Every source gets it but the ones listed here.
+# linalg: held to a library factorization, which rounds differently anyway
+# (tolerances, never bit for bit), and its rank-16 update is a matrix
+# product whose rate is the FMA's.
+FMA_SOURCES = ("linalg",)
 
 _LOADED = {}  # name -> (ctypes.CDLL, build record)
 
@@ -54,6 +58,8 @@ def _paths(name: str):
     """``(source, flags, library path, log path)`` of ``csrc/<name>.cu``."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     flags = NVCC_FLAGS
+    if name not in FMA_SOURCES:
+        flags += ("-fmad=false",)
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:

@@ -60,6 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import STREAM_ADVI_NOISE, philox_normal
 from zhusuan_tpu_torch.ops.densities import (
     DiagonalGaussianLogJoint,
@@ -70,7 +71,6 @@ from zhusuan_tpu_torch.ops.hmc_step import (
     MAX_DIM,
     check_density,
     density_pointers,
-    raise_on_error,
 )
 
 __all__ = ["DENSITIES", "advi_step_supported", "fused_meanfield_advi",
@@ -225,17 +225,13 @@ def fused_meanfield_advi(density, loc0, log_scale0, n_steps: int,
     out_ls = torch.empty_like(log_scale0)
     losses = torch.empty((n_steps,), dtype=torch.float32, device=dev)
     k0, k1 = (0, 0) if key is None else (int(k) & 0xFFFFFFFF for k in key)
-    lib, _ = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_meanfield_advi(
-            *density_pointers(density, dev), loc0.data_ptr(),
-            log_scale0.data_ptr(), table.data_ptr(),
-            None if noise_kept is None else noise_kept.data_ptr(), n_steps,
-            n_particles, dim, *_adam_constants(b1, b2, adam_eps, dim), k0, k1,
-            out_loc.data_ptr(), out_ls.data_ptr(), losses.data_ptr(), stream)
-    raise_on_error(rc, lib, "fused_meanfield_advi")
-    fused_meanfield_advi.launches += 1
+    launch_kernel(
+        fused_meanfield_advi, kernel_library, "zs_fused_meanfield_advi", dev,
+        *density_pointers(density, dev), loc0.data_ptr(),
+        log_scale0.data_ptr(), table.data_ptr(),
+        None if noise_kept is None else noise_kept.data_ptr(), n_steps,
+        n_particles, dim, *_adam_constants(b1, b2, adam_eps, dim), k0, k1,
+        out_loc.data_ptr(), out_ls.data_ptr(), losses.data_ptr())
     return out_loc, out_ls, losses
 
 

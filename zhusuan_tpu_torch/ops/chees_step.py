@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import (
     STREAM_MH,
     STREAM_MOMENTUM,
@@ -46,7 +47,6 @@ from zhusuan_tpu_torch.ops.hmc_step import (
     hmc_step_supported,
     kernel_library,
     noise_pointers,
-    raise_on_error,
 )
 
 __all__ = ["DENSITIES", "chees_step_supported", "fused_chees_step",
@@ -117,17 +117,12 @@ def fused_chees_step(density, q, mass, step_size, n_steps, key, t: int, *,
             for _ in range(3)]
     vecs = [torch.empty((c,), dtype=torch.float32, device=dev)
             for _ in range(3)]
-    lib, _ = kernel_library()
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_chees_step(
-            q.data_ptr(), mass.data_ptr(), *density_pointers(density, dev),
-            ss.data_ptr(), n_steps.data_ptr(), eps_ptr, u_ptr, c, d, k0, k1,
-            int(t) & 0xFFFFFFFF, *[v.data_ptr() for v in mats + vecs],
-            stream)
-    raise_on_error(rc, lib, "fused_chees_step")
-    fused_chees_step.launches += 1
+    launch_kernel(
+        fused_chees_step, kernel_library, "zs_fused_chees_step", dev,
+        q.data_ptr(), mass.data_ptr(), *density_pointers(density, dev),
+        ss.data_ptr(), n_steps.data_ptr(), eps_ptr, u_ptr, c, d, k0, k1,
+        int(t) & 0xFFFFFFFF, *[v.data_ptr() for v in mats + vecs])
     return tuple(mats + vecs)
 
 

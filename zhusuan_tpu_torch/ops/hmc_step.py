@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import (
     STREAM_MH,
     STREAM_MOMENTUM,
@@ -180,12 +181,6 @@ def noise_pointers(noise):
     return kept, tuple(v.data_ptr() for v in kept)
 
 
-def raise_on_error(rc, lib, fn_name):
-    if rc != 0:
-        raise RuntimeError("{} launch failed: CUDA error {} ({}).".format(
-            fn_name, rc, lib.zs_cuda_error_string(rc).decode()))
-
-
 def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
                    t: int, *, noise=None):
     """Run one full HMC transition for every chain.
@@ -230,18 +225,14 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
     out_p = torch.empty((c, d), dtype=torch.float32, device=dev)
     vecs = [torch.empty((c,), dtype=torch.float32, device=dev)
             for _ in range(5)]
-    lib, _ = kernel_library()
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_hmc_step(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
-            *density_pointers(density, dev), ss.data_ptr(), eps_ptr, u_ptr,
-            c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
-            out_q.data_ptr(), out_p.data_ptr(),
-            *[v.data_ptr() for v in vecs], stream)
-    raise_on_error(rc, lib, "fused_hmc_step")
-    fused_hmc_step.launches += 1
+    launch_kernel(
+        fused_hmc_step, kernel_library, "zs_fused_hmc_step", dev,
+        q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
+        *density_pointers(density, dev), ss.data_ptr(), eps_ptr, u_ptr,
+        c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
+        out_q.data_ptr(), out_p.data_ptr(),
+        *[v.data_ptr() for v in vecs])
     acc, old_lp, new_lp, old_h, new_h = vecs
     return out_q, out_p, acc, old_lp, new_lp, old_h, new_h
 

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops.hmc_step import (
     DENSITIES,
     MAX_DIM,
@@ -31,7 +32,6 @@ from zhusuan_tpu_torch.ops.hmc_step import (
     device_scalar,
     hmc_step_supported,
     kernel_library,
-    raise_on_error,
 )
 
 __all__ = ["DENSITIES", "fused_leapfrog", "fused_leapfrog_reference",
@@ -93,16 +93,12 @@ def fused_leapfrog(density, q, p, step_size, n_leapfrogs: int, mass):
     ss = device_scalar(step_size, dev)
     out_q = torch.empty_like(q)
     out_p = torch.empty_like(p)
-    lib, _ = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_leapfrog(
-            q.data_ptr(), p.data_ptr(), mass.data_ptr(),
-            int(mass.shape[0] != 1),
-            *density_pointers(density, dev), ss.data_ptr(), c, d,
-            int(n_leapfrogs), out_q.data_ptr(), out_p.data_ptr(), stream)
-    raise_on_error(rc, lib, "fused_leapfrog")
-    fused_leapfrog.launches += 1
+    launch_kernel(
+        fused_leapfrog, kernel_library, "zs_fused_leapfrog", dev,
+        q.data_ptr(), p.data_ptr(), mass.data_ptr(),
+        int(mass.shape[0] != 1),
+        *density_pointers(density, dev), ss.data_ptr(), c, d,
+        int(n_leapfrogs), out_q.data_ptr(), out_p.data_ptr())
     return out_q, out_p
 
 

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import (
     STREAM_MOMENTUM,
     STREAM_NUTS_DIRECTION,
@@ -201,23 +202,16 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
                      for _ in range(2))
     turning, divergent = (torch.empty((c,), dtype=torch.bool, device=dev)
                           for _ in range(2))
-    lib, _ = kernel_library()
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_nuts_transition(
-            q.data_ptr(), inv_mass.data_ptr(), loc.data_ptr(),
-            inv_var.data_ptr(), ss.data_ptr(), *noise_ptrs, c, d,
-            int(max_tree_depth), float(max_delta_energy), k0, k1,
-            int(t) & 0xFFFFFFFF, out_q.data_ptr(), lp.data_ptr(),
-            h.data_ptr(), acc.data_ptr(), depth.data_ptr(),
-            n_leap.data_ptr(), turning.data_ptr(), divergent.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            "fused_nuts_transition launch failed: CUDA error {} ({})."
-            .format(rc, lib.zs_cuda_error_string(rc).decode()))
-    fused_nuts_transition.launches += 1
+    launch_kernel(
+        fused_nuts_transition, kernel_library, "zs_fused_nuts_transition",
+        dev,
+        q.data_ptr(), inv_mass.data_ptr(), loc.data_ptr(),
+        inv_var.data_ptr(), ss.data_ptr(), *noise_ptrs, c, d,
+        int(max_tree_depth), float(max_delta_energy), k0, k1,
+        int(t) & 0xFFFFFFFF, out_q.data_ptr(), lp.data_ptr(),
+        h.data_ptr(), acc.data_ptr(), depth.data_ptr(),
+        n_leap.data_ptr(), turning.data_ptr(), divergent.data_ptr())
     return out_q, lp, h, acc, depth, n_leap, turning, divergent
 
 

@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import STREAM_SGMCMC_NOISE
-from zhusuan_tpu_torch.ops.hmc_step import density_pointers, raise_on_error
+from zhusuan_tpu_torch.ops.hmc_step import density_pointers
 from zhusuan_tpu_torch.ops.sgld_step import (
     DENSITIES,
     check_launch,
@@ -69,16 +70,12 @@ def fused_psgld_step(density, q, rms, lr, decay: float, epsilon: float, key,
     _eps_kept, eps_ptr = noise_pointer(noise)
     out_q = torch.empty_like(q)
     out_rms = torch.empty_like(rms)
-    lib, _ = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_psgld_step(
-            q.data_ptr(), rms.data_ptr(), *density_pointers(density, dev),
-            lr_ptr, lr_host, decay, 1.0 - decay, epsilon, eps_ptr, c, d,
-            *launch_key(key), int(t) & 0xFFFFFFFF, out_q.data_ptr(),
-            out_rms.data_ptr(), stream)
-    raise_on_error(rc, lib, "fused_psgld_step")
-    fused_psgld_step.launches += 1
+    launch_kernel(
+        fused_psgld_step, kernel_library, "zs_fused_psgld_step", dev,
+        q.data_ptr(), rms.data_ptr(), *density_pointers(density, dev),
+        lr_ptr, lr_host, decay, 1.0 - decay, epsilon, eps_ptr, c, d,
+        *launch_key(key), int(t) & 0xFFFFFFFF, out_q.data_ptr(),
+        out_rms.data_ptr())
     return out_q, out_rms
 
 

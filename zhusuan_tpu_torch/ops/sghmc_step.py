@@ -24,11 +24,12 @@ import math
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import (
     STREAM_SGMCMC_NOISE,
     STREAM_SGMCMC_RESAMPLE,
 )
-from zhusuan_tpu_torch.ops.hmc_step import density_pointers, raise_on_error
+from zhusuan_tpu_torch.ops.hmc_step import density_pointers
 from zhusuan_tpu_torch.ops.sgld_step import (
     DENSITIES,
     check_launch,
@@ -103,18 +104,14 @@ def fused_sghmc_step(density, q, v, lr, alpha: float, beta: float,
     out_q = torch.empty_like(q)
     out_v = torch.empty_like(v)
     out_vsq = torch.empty((c,), dtype=torch.float32, device=dev)
-    lib, _ = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_sghmc_step(
-            q.data_ptr(), v.data_ptr(), *density_pointers(density, dev),
-            lr_ptr, lr_host, 2 * (alpha - beta), 1 - alpha,
-            math.exp(-0.5 * alpha), int(bool(second_order)),
-            int(bool(resample)), eps_ptr, eps_v_ptr, c, d, *launch_key(key),
-            int(t) & 0xFFFFFFFF, out_q.data_ptr(), out_v.data_ptr(),
-            out_vsq.data_ptr(), stream)
-    raise_on_error(rc, lib, "fused_sghmc_step")
-    fused_sghmc_step.launches += 1
+    launch_kernel(
+        fused_sghmc_step, kernel_library, "zs_fused_sghmc_step", dev,
+        q.data_ptr(), v.data_ptr(), *density_pointers(density, dev),
+        lr_ptr, lr_host, 2 * (alpha - beta), 1 - alpha,
+        math.exp(-0.5 * alpha), int(bool(second_order)),
+        int(bool(resample)), eps_ptr, eps_v_ptr, c, d, *launch_key(key),
+        int(t) & 0xFFFFFFFF, out_q.data_ptr(), out_v.data_ptr(),
+        out_vsq.data_ptr())
     return out_q, out_v, out_vsq
 
 

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import STREAM_SGMCMC_NOISE, philox_normal
 from zhusuan_tpu_torch.ops.densities import (
     DiagonalGaussianLogJoint,
@@ -41,7 +42,6 @@ from zhusuan_tpu_torch.ops.hmc_step import (
     check_device,
     density_pointers,
     hmc_step_supported,
-    raise_on_error,
 )
 
 __all__ = ["DENSITIES", "fused_sgld_step", "fused_sgld_step_reference",
@@ -203,15 +203,11 @@ def fused_sgld_step(density, q, lr, key, t: int, *, noise=None):
     lr_ptr, lr_host, _lr_kept = lr_argument(lr, dev)
     _eps_kept, eps_ptr = noise_pointer(noise)
     out_q = torch.empty_like(q)
-    lib, _ = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_sgld_step(
-            q.data_ptr(), *density_pointers(density, dev), lr_ptr, lr_host,
-            eps_ptr, c, d, *launch_key(key), int(t) & 0xFFFFFFFF,
-            out_q.data_ptr(), stream)
-    raise_on_error(rc, lib, "fused_sgld_step")
-    fused_sgld_step.launches += 1
+    launch_kernel(
+        fused_sgld_step, kernel_library, "zs_fused_sgld_step", dev,
+        q.data_ptr(), *density_pointers(density, dev), lr_ptr, lr_host,
+        eps_ptr, c, d, *launch_key(key), int(t) & 0xFFFFFFFF,
+        out_q.data_ptr())
     return out_q
 
 

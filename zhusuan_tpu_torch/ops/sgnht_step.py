@@ -17,11 +17,12 @@ from __future__ import annotations
 
 import torch
 
+from zhusuan_tpu_torch.ops._launch import launch_kernel
 from zhusuan_tpu_torch.ops._random import (
     STREAM_SGMCMC_NOISE,
     STREAM_SGMCMC_RESAMPLE,
 )
-from zhusuan_tpu_torch.ops.hmc_step import density_pointers, raise_on_error
+from zhusuan_tpu_torch.ops.hmc_step import density_pointers
 from zhusuan_tpu_torch.ops.sghmc_step import split_noise
 from zhusuan_tpu_torch.ops.sgld_step import (
     DENSITIES,
@@ -87,18 +88,14 @@ def fused_sgnht_step(density, q, v, alpha, lr, a: float, tune_rate: float,
     out_q = torch.empty_like(q)
     out_v = torch.empty_like(v)
     out_alpha = torch.empty_like(alpha)
-    lib, _ = kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zs_fused_sgnht_step(
-            q.data_ptr(), v.data_ptr(), alpha.data_ptr(),
-            *density_pointers(density, dev), lr_ptr, lr_host, 2 * a,
-            tune_rate, 0.5 * tune_rate, int(bool(second_order)),
-            int(bool(resample)), eps_ptr, eps_v_ptr, c, d, *launch_key(key),
-            int(t) & 0xFFFFFFFF, out_q.data_ptr(), out_v.data_ptr(),
-            out_alpha.data_ptr(), stream)
-    raise_on_error(rc, lib, "fused_sgnht_step")
-    fused_sgnht_step.launches += 1
+    launch_kernel(
+        fused_sgnht_step, kernel_library, "zs_fused_sgnht_step", dev,
+        q.data_ptr(), v.data_ptr(), alpha.data_ptr(),
+        *density_pointers(density, dev), lr_ptr, lr_host, 2 * a,
+        tune_rate, 0.5 * tune_rate, int(bool(second_order)),
+        int(bool(resample)), eps_ptr, eps_v_ptr, c, d, *launch_key(key),
+        int(t) & 0xFFFFFFFF, out_q.data_ptr(), out_v.data_ptr(),
+        out_alpha.data_ptr())
     return out_q, out_v, out_alpha
 
 
