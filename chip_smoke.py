@@ -38,7 +38,9 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ``NUTS_Q_TOL``, requires at most ``NUTS_MAX_DIFFERING`` (0.1%) of the
    chains to, and compares q', log_prob, energy and accept_stat on the
    rest within ``NUTS_Q_TOL`` / ``NUTS_TOL``. Then both timed at
-   4096 x 100, depths 6 and 10;
+   4096 x 100, depths 6, 8 and 10 (``NUTS_TIMED``): the kernel back to back
+   and replayed from a CUDA graph at the layout ``nuts_layout`` chooses,
+   and with the checkpoint stacks in shared and in global memory;
 7. NUTS Philox: the direction, leaf and merge uniforms lie in [0, 1), the
    kernel's own draws give what the plain Philox draws give, and one key
    reproduces bitwise;
@@ -63,7 +65,8 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    in the decision (or in whether the proposal is finite); on the rest
    q', p' within ``Q_TOL`` relative to ``1 + |ref|`` and log-probs and
    energies within ``LP_TOL``. Then each timed against its plain version at
-   4096 x 100 (the ChEES step at 100 and 190 leapfrogs);
+   4096 x 100 (the ChEES step at 100 and 190 leapfrogs), back to back and
+   from a CUDA graph;
 11. mixing: ``bench.py``'s ``measure_mixing`` through the port, 4096 chains
    x 100 dims of the equicorrelated Gaussian (rho 0.95), 300 adaptive then
    3 timed runs of 300 sampling iterations per arm: (a) fixed-L HMC with
@@ -208,6 +211,9 @@ NUTS_ITERS = 200
 NUTS_TOL = (1e-4, 1e-5)  # (abs, rel) on log_prob, energy; abs on accept
 NUTS_Q_TOL = 1e-5  # the leapfrog arithmetic is the same on both sides
 NUTS_MAX_DIFFERING = 0.001  # share of chains
+# Phase 6's timed cases (depth, std max): the main path's depth 6, and
+# depths 8 and 10 on the deep-tree target, where trees reach the cap.
+NUTS_TIMED = ((6, 1.0), (8, 30.0), (10, 30.0))
 MIX_CHAINS = 4096
 MIX_RHO = 0.95
 MIX_ITERS = 300  # adaptive, then sampling iterations per run
@@ -626,8 +632,10 @@ def _compare_nuts(torch, got, want):
 
 def phase_nuts_kernel_vs_plain(torch, dev):
     from zhusuan_tpu_torch.mcmc.nuts import NUTS, draw_noise
+    from zhusuan_tpu_torch.ops import nuts_step
     from zhusuan_tpu_torch.ops.nuts_step import (
         fused_nuts_transition, fused_nuts_transition_reference,
+        nuts_layout, nuts_resident_chains,
     )
 
     cases, max_err = [], 0.0
@@ -672,19 +680,34 @@ def phase_nuts_kernel_vs_plain(torch, dev):
     check(raised, "NUTS experimental_fused_step=True did not raise on an "
                   "ineligible CUDA input")
 
-    # Times at the main path's width: the kernel with its own Philox; the
-    # plain version drawing from torch's generator (the sampler's plain
-    # path) and, at depth 6, through the torch Philox.
+    # Times at the main path's width: the kernel with its own Philox, back
+    # to back and replayed from a CUDA graph, at its chosen layout and with
+    # the checkpoint stacks in shared and in global memory; the plain
+    # version drawing from torch's generator (the sampler's plain path)
+    # and, at depth 6, through the torch Philox.
     timing = {}
     gen = torch.Generator(device=dev).manual_seed(5)
-    for depth, std_max in ((6, 1.0), (10, 30.0)):
+    for depth, std_max in NUTS_TIMED:
         dens, q, inv_mass = _nuts_problem(torch, dev, NUTS_CHAINS, DIM,
                                           std_max, 7)
         ms = _time_ms(torch, lambda: fused_nuts_transition(
             dens, q, inv_mass, 0.1, depth, 1000.0, (3, 4), 1), 50)
+        graph_ms = _graph_ms(torch, lambda: fused_nuts_transition(
+            dens, q, inv_mass, 0.1, depth, 1000.0, (3, 4), 1), 20)
         # The leapfrogs the timed call's trees take (its bound's work).
         leapfrogs = int(fused_nuts_transition(
             dens, q, inv_mass, 0.1, depth, 1000.0, (3, 4), 1)[5].sum())
+        layouts = {}
+        for shared in (True, False):
+            if not nuts_resident_chains(DIM, depth, shared):
+                continue
+
+            def run(shared=shared):
+                return nuts_step._launch(dens, q, inv_mass, 0.1, depth,
+                                         1000.0, (3, 4), 1, None, shared)
+            layouts["shared" if shared else "global"] = {
+                "ms": _time_ms(torch, run, 20),
+                "graph_ms": _graph_ms(torch, run, 10)}
 
         def plain():
             noise = draw_noise(gen, NUTS_CHAINS, DIM, depth, torch.float32,
@@ -694,9 +717,12 @@ def phase_nuts_kernel_vs_plain(torch, dev):
 
         plain_ms = _time_ms(torch, plain, 5 if depth == 6 else 2)
         timing["depth%d" % depth] = {
-            "kernel_ms": ms, "plain_ms": plain_ms,
+            "kernel_ms": ms, "kernel_graph_ms": graph_ms,
+            "plain_ms": plain_ms,
             **_nuts_bound(NUTS_CHAINS, DIM, leapfrogs),
-            "leapfrogs_total": leapfrogs}
+            "leapfrogs_total": leapfrogs,
+            "layout": list(nuts_layout(DIM, depth, NUTS_CHAINS)),
+            "layouts": layouts}
         if depth == 6:
             timing["depth6"]["plain_philox_ms"] = _time_ms(
                 torch, lambda: fused_nuts_transition_reference(
@@ -1040,12 +1066,16 @@ def phase_family_vs_plain(torch, dev):
     timing["hmc_step_equicorrelated_n5"] = {
         "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
             dens, q, mass, step, 5, (3, 4), 1), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, 5, (3, 4), 1), 20),
         "plain_ms": _time_ms(torch, lambda: fused_hmc_step_reference(
             dens, q, mass, step, 5, None, 1, noise=draws()), 20)}
     p = draws()[0]
     timing["leapfrog_equicorrelated_n5"] = {
         "kernel_ms": _time_ms(torch, lambda: fused_leapfrog(
             dens, q, p, step, 5, mass), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_leapfrog(
+            dens, q, p, step, 5, mass), 20),
         "plain_ms": _time_ms(torch, lambda: fused_leapfrog_reference(
             dens, q, p, step, 5, mass), 20)}
     ones = torch.ones(1, DIM, device=dev)
@@ -1054,6 +1084,8 @@ def phase_family_vs_plain(torch, dev):
         timing["chees_step_equicorrelated_n%d" % n] = {
             "kernel_ms": _time_ms(torch, lambda: fused_chees_step(
                 dens, q, ones, step, n_dev, (3, 4), 1), 50),
+            "kernel_graph_ms": _graph_ms(torch, lambda: fused_chees_step(
+                dens, q, ones, step, n_dev, (3, 4), 1), 20),
             "plain_ms": _time_ms(torch, lambda: fused_chees_step_reference(
                 dens, q, ones, step, n_dev, None, 1, noise=draws()), 3)}
     print("phase10 family_vs_plain " + json.dumps({
@@ -2750,9 +2782,16 @@ def main():
         "ms": nuts6["kernel_ms"],
         "plain_ms": nuts6["plain_ms"],
         **bound(nuts6),
-        "ms_depth10": nuts_timing["depth10"]["kernel_ms"],
-        "plain_ms_depth10": nuts_timing["depth10"]["plain_ms"],
-        "bound_ms_depth10": nuts_timing["depth10"]["bound_ms"],
+        "ms_graph": nuts6["kernel_graph_ms"],
+        "layout": nuts6["layout"],
+        **{"{}_depth{}".format(field, depth): nuts_timing[
+            "depth%d" % depth][key]
+           for depth in (8, 10)
+           for field, key in (("ms", "kernel_ms"),
+                              ("ms_graph", "kernel_graph_ms"),
+                              ("plain_ms", "plain_ms"),
+                              ("bound_ms", "bound_ms"),
+                              ("layout", "layout"))},
     }, {
         "name": "fused_hmc_step (equicorrelated density)",
         "route": "cuda",
@@ -2761,6 +2800,8 @@ def main():
         "launches": mix_launches["fused_hmc_step"],
         "max_abs_err": fam_err["hmc_step"],
         "ms": fam_timing["hmc_step_equicorrelated_n5"]["kernel_ms"],
+        "ms_graph": fam_timing["hmc_step_equicorrelated_n5"][
+            "kernel_graph_ms"],
         "plain_ms": fam_timing["hmc_step_equicorrelated_n5"]["plain_ms"],
         **bound(_hmc_step_bound(MIX_CHAINS, DIM, 5, "equicorrelated")),
     }, {
@@ -2771,6 +2812,8 @@ def main():
         "launches": mix_launches["fused_leapfrog"],
         "max_abs_err": fam_err["leapfrog"],
         "ms": fam_timing["leapfrog_equicorrelated_n5"]["kernel_ms"],
+        "ms_graph": fam_timing["leapfrog_equicorrelated_n5"][
+            "kernel_graph_ms"],
         "plain_ms": fam_timing["leapfrog_equicorrelated_n5"]["plain_ms"],
         **bound(_leapfrog_bound(MIX_CHAINS, DIM, 5, "equicorrelated")),
     }, {
@@ -2781,6 +2824,7 @@ def main():
         "launches": mix_launches["fused_chees_step"],
         "max_abs_err": fam_err["chees_step"],
         "ms": chees_t["kernel_ms"],
+        "ms_graph": chees_t["kernel_graph_ms"],
         "plain_ms": chees_t["plain_ms"],
         **bound(_chees_step_bound(MIX_CHAINS, DIM, 190, "equicorrelated")),
         "n_leapfrogs": 190,

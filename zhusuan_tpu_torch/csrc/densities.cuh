@@ -99,6 +99,10 @@ struct DiagonalGaussian {
 // so float32 loses nothing to cancellation (ops/densities.py says why).
 // grad = -(a (z - s/d) + c s). p0 = (a, c, 1/d); p1 unused. One warp sum of z
 // (in double) per gradient evaluation, two dependent ones per log-density.
+// A lane adds its elements in two interleaved sums (even and odd e) before
+// the butterfly: the sums of float32 rows of these widths are exact in
+// double, so the order does not change them, and the two chains halve the
+// dependent adds.
 template <int K>
 struct EquicorrelatedGaussian {
   static constexpr int E = 4 * K;
@@ -116,10 +120,13 @@ struct EquicorrelatedGaussian {
 
   template <bool kWholeRow = false>
   __device__ __forceinline__ float row_sum(const float (&x)[E]) const {
-    double s = 0.0;
+    double s0 = 0.0, s1 = 0.0;
 #pragma unroll
-    for (int e = 0; e < E; ++e) s += static_cast<double>(x[e]);
-    return static_cast<float>(row_total<kWholeRow>(s));
+    for (int e = 0; e < E; e += 2) {
+      s0 += static_cast<double>(x[e]);
+      s1 += static_cast<double>(x[e + 1]);
+    }
+    return static_cast<float>(row_total<kWholeRow>(s0 + s1));
   }
 
   __device__ __forceinline__ void grad(const float (&x)[E],

@@ -9,8 +9,8 @@ each chain one warp and keeps the chain's state in registers for the whole
 trajectory. It reads q once and writes q' and p0 once, so at the main
 path's 32768 x 100 it is bound by instruction latency in the per-warp loop
 (Philox, Box-Muller, six gradient evaluations, four warp reductions), not
-by device-memory bandwidth: 0.09 ms per launch on an H100 80GB HBM3 (700 W
-limit), at about 13% of peak bandwidth, the same for bfloat16 q. The same
+by device-memory bandwidth: 0.065 ms per launch replayed from a CUDA graph
+on an H100 80GB HBM3 (700 W limit), 5.5x its device-memory bound. The same
 library holds the ChEES transition (:mod:`.chees_step`) and the trajectory
 alone (:mod:`.leapfrog`), instantiations of one kernel body.
 

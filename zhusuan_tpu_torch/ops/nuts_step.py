@@ -6,9 +6,11 @@ Replaces both Pallas TPU kernels of ``zhusuan_tpu/ops/nuts_step.py``:
 loop). The unrolled/looped split is a TPU artefact: Mosaic compiles the
 unrolled tree fastest but its size grows as ``2**depth``. One CUDA kernel
 (``csrc/nuts_step.cu``, CUDA C++ for ``sm_90a``) serves every depth from
-1 to 12: each chain is one warp that runs its own tree and stops when its
-chain stops, where the Pallas kernels mask every chain of a block in
-lock-step to its slowest chain.
+1 to 12: each chain is a group of ``L`` lanes that runs its own tree, and a
+warp's ``32 / L`` chains step their leaves together until the last of them
+stops. ``L`` follows from the width (:func:`nuts_lanes`), and
+:func:`nuts_layout` chooses where the checkpoint stacks live (shared
+memory, or a global scratch buffer that stays in L2) from the shape alone.
 
 The kernel computes one built-in density (:data:`DENSITIES`),
 :class:`~zhusuan_tpu_torch.ops.densities.DiagonalGaussianLogJoint`, whose
@@ -30,6 +32,7 @@ divergent [c] bool)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,12 +55,25 @@ __all__ = [
     "fused_nuts_transition",
     "fused_nuts_transition_reference",
     "kernel_library",
+    "nuts_lanes",
+    "nuts_layout",
     "nuts_noise",
+    "nuts_resident_chains",
+    "nuts_shared_bytes",
     "nuts_step_supported",
 ]
 
-# One lane holds up to 4 groups of 4 elements (csrc/nuts_step.cu dispatch).
+# One lane holds up to 4 groups of 4 elements (csrc/nuts_step.cu dispatch),
+# so a chain on L lanes takes dim <= 16 L, and 32 lanes take 512.
 MAX_DIM = 512
+# An H100 (sm_90): its SMs, the shared memory of one SM and of one block
+# (the kernel's launch is refused above it), the runtime's share of each
+# resident block, and resident blocks per SM.
+H100_SMS = 132
+SM_SHARED_BYTES = 233472
+BLOCK_SHARED_BYTES = 232448
+BLOCK_RESERVED_BYTES = 1024
+MAX_BLOCKS_PER_SM = 32
 # The checkpoint stacks of a depth-12 tree at dim 512 still fit one warp's
 # shared memory (csrc/nuts_step.cu); the JAX package's looped kernel has the
 # same cap.
@@ -80,6 +96,59 @@ def nuts_step_supported(q_shape, max_tree_depth: int,
     return dtype is None or dtype == torch.float32
 
 
+def nuts_lanes(dim: int) -> int:
+    """Lanes a chain at ``dim``: ``csrc/nuts_step.cu``'s dispatch, the
+    narrowest of 8, 16 and 32 lanes that hold the row in at most 4 groups of
+    4 elements a lane (the chain's scalar work is then shared by the most
+    chains). At 4096 x 100 on an H100, 8 lanes beat 16 and 32 at depths 6, 8
+    and 10 (PERF.md §6)."""
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError("the kernel takes 1 <= dim <= {}; got {}.".format(
+            MAX_DIM, dim))
+    return 8 if dim <= 128 else 16 if dim <= 256 else 32
+
+
+def _slots(max_tree_depth: int) -> int:
+    return max(1, int(max_tree_depth) - 1)
+
+
+def nuts_shared_bytes(dim: int, max_tree_depth: int,
+                      stacks_in_shared: bool) -> int:
+    """Dynamic shared memory of one block (one warp, ``32 /``
+    :func:`nuts_lanes` chains): ``csrc/nuts_step.cu``'s rule. A chain keeps
+    the far edge ``(q, p)``, the tree's proposal and, when
+    ``stacks_in_shared``, its two checkpoint stacks of ``max(D - 1, 1)``
+    rows each; a row is ``ceil(dim / 4)`` float4s."""
+    rows = 3 + (2 * _slots(max_tree_depth) if stacks_in_shared else 0)
+    return (32 // nuts_lanes(dim)) * rows * (-(-dim // 4)) * 16
+
+
+def nuts_resident_chains(dim: int, max_tree_depth: int,
+                         stacks_in_shared: bool) -> int:
+    """Chains that shared memory lets one H100 SM hold at once (registers
+    may allow fewer; ``-Xptxas -v`` reports them). 0 when one block does not
+    fit at all."""
+    need = nuts_shared_bytes(dim, max_tree_depth, stacks_in_shared)
+    if need > BLOCK_SHARED_BYTES:
+        return 0
+    blocks = min(MAX_BLOCKS_PER_SM,
+                 SM_SHARED_BYTES // (need + BLOCK_RESERVED_BYTES))
+    return blocks * (32 // nuts_lanes(dim))
+
+
+@functools.lru_cache(maxsize=None)
+def nuts_layout(dim: int, max_tree_depth: int, n_chains: int):
+    """``(lanes, stacks_in_shared)`` of the kernel for this shape: the
+    chain's width (:func:`nuts_lanes`), and the checkpoint stacks in shared
+    memory when every chain is then resident on the card at once, else in
+    global memory (L2). Set from measurements on an H100 (PERF.md §6): at
+    4096 x 100 shared stacks won at depths 6 and 8 (all chains resident
+    either way) and lost 1.5x at depth 10, where they hold 3168 of the 4096
+    chains and the rest wait."""
+    resident = H100_SMS * nuts_resident_chains(dim, max_tree_depth, True)
+    return nuts_lanes(dim), n_chains <= resident
+
+
 def kernel_library():
     """Build (at first use) and load the kernel's shared library; returns
     ``(cdll, build_record)`` (see :func:`._build.load_library`)."""
@@ -90,7 +159,7 @@ def kernel_library():
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.zs_fused_nuts_transition.argtypes = (
             [ptr] * 9 + [i32, i32, i32, ctypes.c_float, u32, u32, u32]
-            + [ptr] * 9)
+            + [ptr] * 10)
         lib.zs_fused_nuts_transition.restype = i32
         lib.zs_cuda_error_string.argtypes = [i32]
         lib.zs_cuda_error_string.restype = ctypes.c_char_p
@@ -171,6 +240,18 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
         return fused_nuts_transition_reference(
             density, q, inv_mass, step_size, max_tree_depth,
             max_delta_energy, key, t, noise=noise)
+    return _launch(density, q, inv_mass, step_size, max_tree_depth,
+                   max_delta_energy, key, t, noise,
+                   nuts_layout(q.shape[1], max_tree_depth, q.shape[0])[1])
+
+
+def _launch(density, q, inv_mass, step_size, max_tree_depth,
+            max_delta_energy, key, t, noise, stacks_in_shared):
+    """Launch the kernel on tensors that passed :func:`_check_inputs`, with
+    the checkpoint stacks in shared memory or not:
+    :func:`fused_nuts_transition` passes :func:`nuts_layout`'s choice, the
+    tests and measurements either. Counted on
+    :func:`fused_nuts_transition`."""
     if q.dtype != torch.float32 or inv_mass.dtype != torch.float32:
         raise TypeError(
             "the CUDA kernel takes float32 q and inv_mass; got {} and "
@@ -183,6 +264,11 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
     if not (q.is_contiguous() and inv_mass.is_contiguous()):
         raise ValueError("q and inv_mass must be contiguous.")
     c, d = q.shape
+    if stacks_in_shared and (nuts_shared_bytes(d, max_tree_depth, True)
+                             > BLOCK_SHARED_BYTES):
+        raise ValueError(
+            "the checkpoint stacks of depth {} at dim {} do not fit one "
+            "block's shared memory.".format(max_tree_depth, d))
     dev = q.device
     loc, inv_var = density.kernel_args(dev)
     if isinstance(step_size, torch.Tensor):
@@ -195,6 +281,12 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
         noise_ptrs = [v.data_ptr() for v in noise]
     else:
         noise_ptrs = [None] * 4
+    stacks = None
+    if not stacks_in_shared:
+        # A row for every chain slot of the last block (at most 3 spare).
+        stacks = torch.empty(
+            ((c + 3) * 2 * _slots(max_tree_depth) * (-(-d // 4)) * 4,),
+            dtype=torch.float32, device=dev)
     out_q = torch.empty_like(q)
     lp, h, acc = (torch.empty((c,), dtype=torch.float32, device=dev)
                   for _ in range(3))
@@ -209,8 +301,8 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
         q.data_ptr(), inv_mass.data_ptr(), loc.data_ptr(),
         inv_var.data_ptr(), ss.data_ptr(), *noise_ptrs, c, d,
         int(max_tree_depth), float(max_delta_energy), k0, k1,
-        int(t) & 0xFFFFFFFF, out_q.data_ptr(), lp.data_ptr(),
-        h.data_ptr(), acc.data_ptr(), depth.data_ptr(),
+        int(t) & 0xFFFFFFFF, None if stacks is None else stacks.data_ptr(),
+        out_q.data_ptr(), lp.data_ptr(), h.data_ptr(), acc.data_ptr(), depth.data_ptr(),
         n_leap.data_ptr(), turning.data_ptr(), divergent.data_ptr())
     return out_q, lp, h, acc, depth, n_leap, turning, divergent
 
