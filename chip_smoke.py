@@ -90,7 +90,10 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    draws against the plain Philox (within ``Q_TOL``). Then each timed
    against its plain version at ``SG_CHAINS`` x 100, beside its bound:
    back to back with CUDA events, and replayed from a CUDA graph (the
-   device's time alone, the record's ``ms``);
+   device's time alone, the record's ``ms``). SGLD's cases reach both of
+   its bodies (``ops.sgld_layout``: the flat one on the diagonal density at
+   100 dims, the warp one at 37 and on the equicorrelated density), and the
+   warp body is also timed at ``SG_CHAINS`` x 100 (forced) and x 99;
 13. SGMCMC main path: ``zhusuan_tpu_torch.SGLD``, ``PSGLD``, ``SGHMC``
    (second order) and ``SGNHT`` (vector thermostat) through ``init`` and
    ``run`` on ``bench.py``'s target, ``SG_CHAINS`` chains x 100 dims:
@@ -161,7 +164,9 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    differing elements of ``loc``, ``log_scale`` and ``losses``; longer fits
    on injected noise and on the kernel's own Philox within ``ADVI_TOL``
    relative to ``1 + |ref|``; a fit that overflows (the NaN and inf
-   pattern must be the plain version's). Then a 200-step fit timed on both
+   pattern must be the plain version's); the fits of ``ADVI_LAYOUT_CASES``
+   at every cluster size 1-16 (``_layout``), 10 steps at 0 differing
+   elements. Then a 200-step fit timed on both
    sides and whole fits (16000 and 2000 steps) on the kernel, at the
    shapes of phase 18's two fits;
 18. ADVI main path: ``zhusuan_tpu_torch.variational.advi`` (i) on the toy2d
@@ -1431,6 +1436,7 @@ def phase_sgmcmc_vs_plain(torch, dev):
 
     cases, failures = [], []
     max_err = {}
+    bodies = set()  # the SGLD kernel's bodies the cases reached
     key = (7, 8)
     for c, d in ((SG_CHAINS, DIM), (1000, 37)):
         for density in ("diagonal", "equicorrelated"):
@@ -1460,6 +1466,9 @@ def phase_sgmcmc_vs_plain(torch, dev):
                 own_cmp = _sg_compare(torch, own, want)
                 rec = {"case": label, "density": density, "shape": [c, d],
                        "same_draws": same_draws, "own_draws": own_cmp}
+                if kind == "sgld":
+                    rec["body"] = ops.sgld_layout(dens, d)
+                    bodies.add(rec["body"])
                 cases.append(rec)
                 worst = max(r["max_rel_err"] for r in same_draws + own_cmp)
                 max_err[kind] = max(max_err.get(kind, 0.0), max(
@@ -1508,10 +1517,23 @@ def phase_sgmcmc_vs_plain(torch, dev):
             "plain_ms": _time_ms(torch, lambda: call(ref, dens, state,
                                                      plain_noise(), None), 20),
             **_sgmcmc_bound(kind, SG_CHAINS, DIM)}
+    # SGLD's warp body beside its flat one: forced at the same shape, and
+    # at a width outside the flat body (DIM - 1).
+    timing["sgld"]["body"] = ops.sgld_layout(dens, DIM)
+    timing["sgld"]["kernel_graph_ms_warp_body"] = _graph_ms(
+        torch, lambda: ops.fused_sgld_step(dens, q, SG_LR, (3, 4), 3,
+                                           _path="warp"), 50)
+    dens99, q99, _, _ = _family_problem(torch, dev, SG_CHAINS, DIM - 1,
+                                        "diagonal", 5)
+    timing["sgld"]["kernel_graph_ms_d{}".format(DIM - 1)] = _graph_ms(
+        torch, lambda: ops.fused_sgld_step(dens99, q99, SG_LR, (3, 4), 3),
+        50)
     print("phase12 sgmcmc_vs_plain " + json.dumps({
         "timing_shape": [SG_CHAINS, DIM], "lr": SG_LR, "cases": cases,
-        "timing": timing}))
+        "sgld_bodies": sorted(bodies), "timing": timing}))
     check(not failures, "; ".join(failures))
+    check(bodies == {"flat", "warp"}, "phase 12 reached the SGLD bodies "
+          "{}, not both".format(sorted(bodies)))
     return max_err, timing
 
 
@@ -2239,13 +2261,25 @@ def phase_random_vs_plain(torch, dev):
 # warp-per-row layout, more rows than the block has warps (32; 16 at K = 4),
 # so that a warp sums several rows: phase 18's 64 particles on 100 dims
 # among them.
+#
+# The layouts of advi_layout besides the timed shapes': one block of fewer
+# warps than rows would fill (toy2d at 3 and 40 rows; 5 rows at 100 dims),
+# and a lane-a-row fit over a cluster (3000 rows: 12 blocks of 8 warps).
 ADVI_CASES = (("toy2d", 2, 500, 200), ("diagonal", 100, 32, 200),
               ("equicorrelated", 100, 32, 200), ("diagonal", 37, 7, 200),
               ("equicorrelated", 37, 7, 200), ("diagonal", 200, 5, 50),
               ("equicorrelated", 400, 3, 50), ("diagonal", 3, 3000, 50),
               ("equicorrelated", 4, 33, 200), ("diagonal", 100, 64, 200),
               ("equicorrelated", 37, 75, 200), ("diagonal", 200, 70, 50),
-              ("equicorrelated", 400, 40, 50), ("diagonal", 400, 21, 50))
+              ("equicorrelated", 400, 40, 50), ("diagonal", 400, 21, 50),
+              ("toy2d", 2, 3, 50), ("toy2d", 2, 40, 50),
+              ("diagonal", 100, 5, 50), ("equicorrelated", 1, 7, 50))
+# Held at every cluster size the rule can return (1-16, each at the warps
+# advi_warps gives it): ADVI_LAYOUT_STEPS steps at 0 differing elements,
+# rows fewer than blocks among them.
+ADVI_LAYOUT_CASES = (("toy2d", 2, 5), ("toy2d", 2, 500), ("diagonal", 100, 7),
+                     ("diagonal", 100, 64))
+ADVI_LAYOUT_STEPS = 10
 ADVI_SHORT_STEPS = (1, 2, 10)  # held at 0 differing elements
 # The long fits: relative to 1 + |ref|. Every particle mean is a float64 sum
 # rounded once on both sides; where such a sum is inexact its order can flip
@@ -2329,6 +2363,7 @@ def phase_advi_vs_plain(torch, dev):
             torch.cuda.synchronize()
             rec = {"density": kind, "dim": d, "n_particles": n,
                    "n_steps": steps,
+                   "layout": list(advi_step.advi_layout(d, n)),
                    "noise": "injected" if nz is not None else "philox",
                    "held_at": "0 differing" if exact else "tolerance",
                    **_advi_compare(torch, got, want)}
@@ -2360,6 +2395,24 @@ def phase_advi_vs_plain(torch, dev):
                   "same_as_plain": same, "non_finite_seen": some})
     if not (same and some):
         failures.append("toy2d non-finite pattern")
+    # Every cluster size, forced.
+    for kind, d, n in ADVI_LAYOUT_CASES:
+        dens, loc0, ls0, lr = _advi_density(torch, dev, kind, d)
+        want = plain(dens, loc0, ls0, ADVI_LAYOUT_STEPS, n, key, lr)
+        for cluster in range(1, advi_step.MAX_CLUSTER + 1):
+            layout = (cluster, advi_step.advi_warps(d, n, cluster))
+            got = kernel(dens, loc0, ls0, ADVI_LAYOUT_STEPS, n, key, lr,
+                         _layout=layout)
+            torch.cuda.synchronize()
+            rec = {"density": kind, "dim": d, "n_particles": n,
+                   "n_steps": ADVI_LAYOUT_STEPS, "layout": list(layout),
+                   "noise": "philox", "held_at": "0 differing",
+                   **_advi_compare(torch, got, want)}
+            rec["ok"] = all(rec[f]["differing"] == 0 for f in ADVI_TOL)
+            cases.append(rec)
+            if not rec["ok"]:
+                failures.append("{} d={} n={} layout {}".format(
+                    kind, d, n, layout))
 
     timing = {}
     for kind, d, n, fit_steps in (("toy2d", 2, 500, TOY2D_STEPS),
@@ -2381,6 +2434,7 @@ def phase_advi_vs_plain(torch, dev):
             "fit_bound_ms": _advi_bound(kind, d, n, fit_steps)["bound_ms"]}
         rec["kernel_us_per_step"] = rec["kernel_fit_ms"] / fit_steps * 1e3
         rec["plain_us_per_step"] = rec["plain_ms"] / short * 1e3
+        rec["layout"] = list(advi_step.advi_layout(d, n))
         timing[label] = rec
     print("phase17 advi_vs_plain " + json.dumps({
         "tolerance": ADVI_TOL, "cases": cases, "timing": timing,

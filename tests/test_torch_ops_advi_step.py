@@ -342,3 +342,62 @@ def test_advi_takes_the_kernel_on_the_card():
                            experimental_fused=False)
     assert advi_step.fused_meanfield_advi.launches == before + 1
     assert res.losses.shape == (20,)
+
+
+# Every cluster size advi_layout can return (1-16), each at the warps the
+# rule gives there: rows fewer than the blocks (n = 3, 5, 7), n not a
+# multiple of the split, both layouts (a lane a row at dim <= 4, a warp a row
+# above) and every warp-a-row width (K = 1, 2, 4).
+LAYOUT_CASES = [("toy2d", 2, 3), ("toy2d", 2, 5), ("diagonal", 3, 7),
+                ("toy2d", 2, 500), ("equicorrelated", 4, 33),
+                ("diagonal", 1, 1000), ("diagonal", 100, 7),
+                ("diagonal", 100, 64), ("equicorrelated", 37, 75),
+                ("diagonal", 200, 70), ("equicorrelated", 400, 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, 17))
+@pytest.mark.parametrize("kind,d,n", LAYOUT_CASES)
+def test_every_layout_matches_plain_version_bit_for_bit(kind, d, n, cluster):
+    """1, 2 and 10 steps, on the kernel's own draws and on injected noise:
+    0 differing elements at every cluster size."""
+    dev = _cuda()
+    dens = _density(kind, d, device=dev)
+    loc0 = torch.zeros(d, device=dev)
+    ls0 = torch.full((d,), math.log(0.1), device=dev)
+    if kind == "toy2d":
+        loc0, ls0 = loc0 - 2.0, torch.full((d,), -5.0, device=dev)
+    layout = (cluster, advi_step.advi_warps(d, n, cluster))
+    g = torch.Generator(device=dev).manual_seed(n)
+    for steps in (1, 2, 10):
+        for noise in (None, torch.randn(steps, n, d, generator=g,
+                                        device=dev)):
+            before = advi_step.fused_meanfield_advi.launches
+            got = advi_step.fused_meanfield_advi(
+                dens, loc0, ls0, steps, n, KEY, lambda t: 0.05, noise=noise,
+                _layout=layout)
+            assert advi_step.fused_meanfield_advi.launches == before + 1
+            want = advi_step.fused_meanfield_advi_reference(
+                dens, loc0, ls0, steps, n, KEY, lambda t: 0.05, noise=noise)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("loc", "log_scale", "losses"), got, want):
+                assert int((a != b).sum()) == 0, (name, steps, layout)
+
+
+@pytest.mark.cuda
+def test_unschedulable_layout_raises():
+    """A layout past the kernel's limits is refused by the wrapper; one
+    the entry refuses raises with the CUDA error (no fallback)."""
+    dev = _cuda()
+    dens = _density("diagonal", 8, device=dev)
+    z = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        advi_step.fused_meanfield_advi(dens, z, z, 2, 4, KEY, lambda t: 0.1,
+                                       _layout=(17, 1))
+    lib, _ = advi_step.kernel_library()
+    rc = lib.zs_fused_meanfield_advi(
+        0, *advi_step.density_pointers(dens, dev)[1:], z.data_ptr(),
+        z.data_ptr(), z.data_ptr(), None, 1, 4, 8, 17, 1, 0.9, 0.1, 0.999,
+        0.001, 1e-8, 0.0, 1, 2, z.data_ptr(), z.data_ptr(), z.data_ptr(),
+        None)
+    assert rc != 0

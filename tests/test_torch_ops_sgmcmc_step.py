@@ -36,6 +36,7 @@ from zhusuan_tpu_torch.ops.sghmc_step import (
 from zhusuan_tpu_torch.ops.sgld_step import (
     fused_sgld_step,
     fused_sgld_step_reference,
+    sgld_layout,
     sgld_step_supported,
 )
 from zhusuan_tpu_torch.ops.sgnht_step import (
@@ -356,3 +357,65 @@ def test_fused_true_raises_on_ineligible_cuda_input(cls):
     st = s.init({"x": torch.zeros(16, 4, device="cuda")}, key=(1, 2))
     with pytest.raises(ValueError):
         s.sample(lambda obs: -0.5 * (obs["x"] ** 2).sum(-1), {}, st, (1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr_on", ["device", "host"])
+@pytest.mark.parametrize("chains", [1, 7, 33, 32768])
+@pytest.mark.parametrize("kind,d", [("diagonal", 100), ("diagonal", 8),
+                                    ("diagonal", 37),
+                                    ("equicorrelated", 100)])
+def test_sgld_both_bodies_match_reference(kind, d, chains, lr_on):
+    """K3 on the flat body (diagonal, d % 4 == 0) and the warp body: every
+    element bit for bit on the diagonal density (within 1e-4 on the
+    equicorrelated one, whose row sum runs in another order), on the
+    kernel's own draws and on injected ones; where the flat body runs,
+    the warp body gives the same bits."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(chains + d)
+    if kind == "diagonal":
+        dens = DiagonalGaussianLogJoint(
+            "x", 0.1 * torch.randn(d, generator=g, device=dev),
+            torch.linspace(0.1, 1.0, d, device=dev))
+    else:
+        dens = EquicorrelatedGaussianLogJoint("x", d, 0.95)
+    q = torch.randn(chains, d, generator=g, device=dev)
+    lr = torch.tensor(LR, device=dev) if lr_on == "device" else LR
+    flat = sgld_layout(dens, d) == "flat"
+    assert flat == (kind == "diagonal" and d % 4 == 0)
+    for noise in (None, torch.randn(chains, d, generator=g, device=dev)):
+        before = fused_sgld_step.launches
+        got = fused_sgld_step(dens, q, lr, (5, 6), 11, noise=noise)
+        assert fused_sgld_step.launches == before + 1
+        want = fused_sgld_step_reference(dens, q, lr, (5, 6), 11,
+                                         noise=noise)
+        torch.cuda.synchronize()
+        if kind == "diagonal":
+            assert int((got != want).sum()) == 0
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        if flat:
+            warp = fused_sgld_step(dens, q, lr, (5, 6), 11, noise=noise,
+                                   _path="warp")
+            assert torch.equal(got, warp)
+
+
+@pytest.mark.cuda
+def test_sgld_misaligned_view_takes_the_warp_body():
+    """A state that starts off a 16-byte boundary cannot take the flat
+    body's 16-byte loads: the wrapper sends it to the warp body, which
+    gives the same bits."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    c, d = 33, 8
+    dens = DiagonalGaussianLogJoint("x", torch.zeros(d, device=dev),
+                                    torch.linspace(0.1, 1.0, d, device=dev))
+    buf = torch.randn(c * d + 1, device=dev)
+    q = buf[1:].view(c, d)
+    assert q.data_ptr() % 16 != 0
+    got = fused_sgld_step(dens, q, LR, (5, 6), 2)
+    want = fused_sgld_step_reference(dens, q, LR, (5, 6), 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, fused_sgld_step(dens, q.clone(), LR, (5, 6), 2))

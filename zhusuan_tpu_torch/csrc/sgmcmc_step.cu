@@ -35,8 +35,18 @@
 // groups of 4 contiguous elements g = l + 32 k (k < K), so one Philox call
 // yields exactly the 4 normals its lane needs, and a row sum (the
 // equicorrelated density's gradient, SGHMC's sum of v'^2) is a warp shuffle
-// sum. Loads are 4-byte and the row is not staged through shared memory:
-// making the kernels reach their bound is later work.
+// sum. Loads are 4-byte and the row is not staged through shared memory.
+//
+// SGLD on the diagonal density at dim % 4 == 0 (the main path's 32768 x 100)
+// takes a second body, `sgld_flat_kernel`: the update is elementwise there
+// (no row sum), so no warp is needed. [chains, dim] is a flat array of
+// groups of 4 elements, one thread a group in a grid-stride loop, every
+// load and store 16 bytes (q, the injected eps, q'; the density's loc and
+// inv_var as float4), no lane on padding. Flat group i is (chain, grp) =
+// (i / (dim / 4), i % (dim / 4)) and draws from the same Philox counter
+// (t, chain, grp, 0x200), so q' is bit for bit the warp body's. The
+// equicorrelated density, other widths and the PSGLD, SGHMC and SGNHT
+// modes keep the warp-per-chain body (ops/sgld_step.py::sgld_layout).
 //
 // Built with -fmad=false (ops/_build.py), and every expression is written in
 // the order of the plain torch version's elementwise ops
@@ -49,6 +59,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "densities.cuh"
 #include "philox.cuh"
@@ -247,6 +259,106 @@ __global__ void __launch_bounds__(256) sgmcmc_kernel(const Args a) {
   }
 }
 
+// SGLD, diagonal density, dim % 4 == 0: thread i of the grid-stride loop
+// updates flat group i of [chains, dim / 4] (see the top of the file).
+template <typename Index, bool kInjected>
+__global__ void __launch_bounds__(256)
+    sgld_flat_kernel(const Args a, Index n_groups, uint32_t row_groups) {
+  const float lr = a.lr_dev != nullptr ? *a.lr_dev : a.lr_host;
+  const float sq = sqrtf(lr);
+  const float half_lr = 0.5f * lr;
+  const float4* q4 = reinterpret_cast<const float4*>(a.q);
+  const float4* mu4 = reinterpret_cast<const float4*>(a.dens0);
+  const float4* w4 = reinterpret_cast<const float4*>(a.dens1);
+  const float4* eps4 = reinterpret_cast<const float4*>(a.eps);
+  float4* out4 = reinterpret_cast<float4*>(a.out_q);
+  const Index step = static_cast<Index>(gridDim.x) * blockDim.x;
+  for (Index i = static_cast<Index>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_groups; i += step) {
+    const Index chain = i / row_groups;
+    const uint32_t grp = static_cast<uint32_t>(i - chain * row_groups);
+    const float4 x = q4[i];
+    const float4 mu = __ldg(mu4 + grp);
+    const float4 w = __ldg(w4 + grp);
+    float nz[4];
+    if (kInjected) {
+      const float4 e = eps4[i];
+      nz[0] = e.x;
+      nz[1] = e.y;
+      nz[2] = e.z;
+      nz[3] = e.w;
+    } else {
+      zs::normals4(a.t, static_cast<uint32_t>(chain), grp, kStreamNoise,
+                   a.key0, a.key1, nz);
+    }
+    // The warp body's SGLD arithmetic: g = -(x - mu) w, then
+    // q + (0.5 lr) g + sqrt(lr) eps.
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const float ms[4] = {mu.x, mu.y, mu.z, mu.w};
+    const float ws[4] = {w.x, w.y, w.z, w.w};
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float g = -(xs[e] - ms[e]) * ws[e];
+      const float drift = xs[e] + half_lr * g;
+      o[e] = drift + sq * nz[e];
+    }
+    out4[i] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// The grid is as many blocks as the card holds at once (SMs x resident
+// blocks an SM, read once per device and instantiation), so no block waits
+// for a second wave; each thread loops over its groups.
+template <typename Index, bool kInjected>
+int launch_flat(const Args& a, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  static std::atomic<int> resident[kMaxDevices];
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int count = resident[device].load(std::memory_order_relaxed);
+  if (count == 0) {
+    int sms = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sgld_flat_kernel<Index, kInjected>, kThreads, 0);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    count = sms * (per_sm > 0 ? per_sm : 1);
+    resident[device].store(count, std::memory_order_relaxed);
+  }
+  const uint32_t row_groups = static_cast<uint32_t>(a.dim / 4);
+  const Index n_groups = static_cast<Index>(a.n_chains) * row_groups;
+  const unsigned long long wanted =
+      (static_cast<unsigned long long>(n_groups) + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(
+      wanted < static_cast<unsigned long long>(count) ? wanted : count);
+  sgld_flat_kernel<Index, kInjected>
+      <<<blocks, kThreads, 0, stream>>>(a, n_groups, row_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_flat(int density, const Args& a, void* stream) {
+  if (a.n_chains < 1 || a.dim < 4 || a.dim % 4 != 0 ||
+      density != zs::kDiagonalGaussian || a.dens0 == nullptr ||
+      a.dens1 == nullptr || a.q == nullptr || a.out_q == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned long long groups =
+      static_cast<unsigned long long>(a.n_chains) * (a.dim / 4);
+  const bool injected = a.eps != nullptr;
+  if (groups <= 0xFFFFFFFFull - 0xFFFFFFull) {  // i + step stays below 2^32
+    return injected ? launch_flat<uint32_t, true>(a, s)
+                    : launch_flat<uint32_t, false>(a, s);
+  }
+  return injected ? launch_flat<unsigned long long, true>(a, s)
+                  : launch_flat<unsigned long long, false>(a, s);
+}
+
 template <int K, template <int> class Density, int M>
 void launch(const Args& a, cudaStream_t stream) {
   constexpr int kThreads = 256;  // 8 chains per block
@@ -322,14 +434,19 @@ extern "C" const char* zs_cuda_error_string(int code) {
 // null: the kernel then draws them from Philox keyed by (key0, key1) with
 // counter (t, chain, group, stream). Each returns the CUDA error code of the
 // launch (0 on success).
+//
+// SGLD: flat != 0 takes the flat body (ops/sgld_step.py::sgld_layout): the
+// diagonal density at dim % 4 == 0, with q, eps, out_q and the density's
+// arrays 16-byte aligned; anything else is refused.
 extern "C" int zs_fused_sgld_step(const void* q, int density,
                                   const void* dens0, const void* dens1,
                                   const void* lr_dev, float lr_host,
                                   const void* eps, int n_chains, int dim,
                                   uint32_t key0, uint32_t key1, uint32_t t,
-                                  void* out_q, void* stream) {
+                                  int flat, void* out_q, void* stream) {
   const Args a = common(q, dens0, dens1, lr_dev, lr_host, eps, n_chains, dim,
                         key0, key1, t, out_q);
+  if (flat) return dispatch_flat(density, a, stream);
   return dispatch<kSgld>(density, a, stream);
 }
 

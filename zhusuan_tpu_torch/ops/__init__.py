@@ -25,6 +25,7 @@ the numerics guard (no kernel). Kernels are built from
 """
 
 from zhusuan_tpu_torch.ops.advi_step import (
+    advi_layout,
     advi_step_supported,
     fused_meanfield_advi,
     fused_meanfield_advi_reference,
@@ -82,6 +83,7 @@ from zhusuan_tpu_torch.ops.sghmc_step import (
 from zhusuan_tpu_torch.ops.sgld_step import (
     fused_sgld_step,
     fused_sgld_step_reference,
+    sgld_layout,
     sgld_step_supported,
 )
 from zhusuan_tpu_torch.ops.sgnht_step import (
@@ -95,6 +97,7 @@ __all__ = [
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
     "Toy2DLogJoint",
+    "advi_layout",
     "advi_step_supported",
     "check_numerics",
     "chees_step_supported",
@@ -130,6 +133,7 @@ __all__ = [
     "psgld_step_supported",
     "random_supported",
     "sghmc_step_supported",
+    "sgld_layout",
     "sgld_step_supported",
     "sgnht_step_supported",
 ]

@@ -4,8 +4,11 @@ plain version.
 Replaces the Pallas TPU kernel ``zhusuan_tpu/ops/advi_step.py::
 fused_meanfield_advi`` (``pallas_call`` at :270): the ENTIRE mean-field SGVB
 optimisation in one launch. Per step the kernel (``csrc/advi_step.cu``, one
-thread block; a warp per particle row, or a lane per row where ``dim <= 4``,
-as in the toy2d recipe) draws the particle noise, evaluates
+thread-block cluster whose blocks share out the particle rows and push
+their partial sums into each other's shared memory, each waiting on a
+transaction barrier for its inputs; a warp per particle row, or a lane per
+row where ``dim <= 4``, as in the toy2d recipe; the layout from
+:func:`advi_layout`) draws the particle noise, evaluates
 the unconstrained log-posterior ``F`` and its z-gradient, forms the exact
 pathwise ELBO gradient of the Gaussian's parameters
 
@@ -17,8 +20,9 @@ total derivative is exactly ``(0, 1)``: the JAX module's docstring derives
 it), writes the loss estimate ``-mean F - 0.5 mean|eps|^2 - d 0.5 log(2 pi)
 - sum(log_scale)`` (the value the plain ``sgvb`` loop reports) and applies an
 Adam step in optax's form (``m / c1 / (sqrt(v / c2) + eps)``, bias
-corrections ``1 - b^t``). Parameters and Adam moments stay in shared memory
-for the whole fit; the host sees one launch per fit.
+corrections ``1 - b^t``). Every block keeps a replica of the parameters
+and Adam moments for the whole fit and updates it from the same totals in
+the same order; the host sees one launch per fit.
 
 Departures from the TPU kernel, each forced by the card:
 
@@ -54,6 +58,7 @@ tolerance.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Callable, Optional
 
@@ -73,7 +78,8 @@ from zhusuan_tpu_torch.ops.hmc_step import (
     density_pointers,
 )
 
-__all__ = ["DENSITIES", "advi_step_supported", "fused_meanfield_advi",
+__all__ = ["DENSITIES", "advi_layout", "advi_rows", "advi_shared_bytes",
+           "advi_step_supported", "advi_warps", "fused_meanfield_advi",
            "fused_meanfield_advi_reference", "schedule_table"]
 
 #: The built-in densities the ADVI trainer's kernel evaluates.
@@ -85,6 +91,11 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 # block of at most 1 MB, a loss trace of at most 2^20 steps.
 _BLOCK_BYTES_LIMIT = 1 << 20
 _MAX_STEPS = 1 << 20
+# csrc/advi_step.cu's limits: blocks of a cluster (16 needs the
+# non-portable cluster size), warps a block, a block's dynamic shared memory.
+MAX_CLUSTER = 16
+MAX_WARPS = 16
+SHARED_BYTES_LIMIT = 232448 - 16  # less the two static transaction barriers
 
 
 def advi_step_supported(dim: int, n_particles: int, n_steps: int,
@@ -97,6 +108,113 @@ def advi_step_supported(dim: int, n_particles: int, n_steps: int,
     if n_particles < 1:
         return False
     return n_particles * dim * itemsize <= _BLOCK_BYTES_LIMIT
+
+
+def _lanes_quantities(dim: int) -> int:
+    """Doubles a warp pushes a step at ``dim <= 4``: the 2 dim + 2 sums
+    padded to a power of two (``csrc/advi_step.cu::Lanes::QP``)."""
+    q = 2 * dim + 2
+    return 4 if q <= 4 else 8 if q <= 8 else 16
+
+
+def advi_shared_bytes(dim: int, cluster: int, warps: int) -> int:
+    """A block's dynamic shared memory at this layout
+    (``csrc/advi_step.cu``'s rule). ``dim <= 4``: the double-buffered slots
+    of the cluster's ``cluster * warps`` partials. ``dim > 4``: the slots of
+    ``cluster`` partials and the block's ``warps`` rows of ``2 (dim + 1)``
+    doubles, then the replica (6 padded float vectors)."""
+    if dim <= 4:
+        return 8 * 2 * cluster * warps * _lanes_quantities(dim)
+    padded = 128 * (1 if dim <= 128 else 2 if dim <= 256 else 4)
+    return 8 * 2 * (dim + 1) * (2 * cluster + warps) + 4 * 6 * padded
+
+
+def _layout_fits(dim: int, cluster: int, warps: int) -> bool:
+    return (1 <= cluster <= MAX_CLUSTER and 1 <= warps <= MAX_WARPS
+            and advi_shared_bytes(dim, cluster, warps) <= SHARED_BYTES_LIMIT)
+
+
+# The layout rule's constants, from a sweep of every (cluster, warps) pair
+# at nine (density, dim, particles) shapes on an H100 (PERF.md §6;
+# scripts/profile_advi_sgld.py --sweep). A unit is a particle row at a warp
+# a row (dim > 4) or a tile of 32 rows at a lane a row (dim <= 4). Up to
+# ONE_BLOCK_UNITS units one block wins (40 rows of toy2d: 1.157 us a step on
+# one block of 2 warps, 1.24-1.26 on 2-4 blocks); past it, blocks of at most
+# CLUSTER_WARPS warps, one unit a warp, over at least LANES_MIN_CLUSTER blocks
+# at a lane a row (toy2d's 500 rows: 4 blocks of 4 warps 1.323 us, 2 of 8
+# 1.417).
+ONE_BLOCK_UNITS = 8
+CLUSTER_WARPS = 8
+LANES_MIN_CLUSTER = 4
+
+
+@functools.lru_cache(maxsize=None)
+def advi_layout(dim: int, n_particles: int):
+    """``(cluster, warps, mode)`` of the kernel for one fit: the blocks of
+    its cluster (1-16), the warps a block, and ``"lanes"`` (a lane per
+    particle row, ``dim <= 4``) or ``"warps"`` (a warp per row).
+
+    One block while :data:`ONE_BLOCK_UNITS` warps hold the rows, one row a
+    lane or warp; else blocks of at most :data:`CLUSTER_WARPS` warps (over
+    at least :data:`LANES_MIN_CLUSTER` blocks at a lane a row), as many as
+    give each lane or warp one row, at most 16, fewer where a block's shared
+    memory would not hold their partial sums. On an H100 (PERF.md §6), at
+    the seven of the sweep's nine shapes where it timed the rule's own pair,
+    that pair was the fastest or within 1% of it; at all nine the pairs
+    around it beat the one-block kernel before this one."""
+    if not 1 <= dim <= MAX_DIM or n_particles < 1:
+        raise ValueError("advi_layout takes 1 <= dim <= {} and at least one "
+                         "particle; got dim={}, n_particles={}.".format(
+                             MAX_DIM, dim, n_particles))
+    lanes = dim <= 4
+    mode = "lanes" if lanes else "warps"
+    units = -(-n_particles // 32) if lanes else n_particles
+    if units <= ONE_BLOCK_UNITS:
+        return 1, units, mode
+    least = LANES_MIN_CLUSTER if lanes else 1
+    cluster = min(MAX_CLUSTER, max(least, -(-units // CLUSTER_WARPS)))
+    warps = min(CLUSTER_WARPS, -(-units // cluster))
+    while cluster > 1 and not _layout_fits(dim, cluster, warps):
+        cluster -= 1
+    while not _layout_fits(dim, cluster, warps):
+        warps -= 1
+    return cluster, warps, mode
+
+
+def advi_warps(dim: int, n_particles: int, cluster: int) -> int:
+    """The warps a block takes when the cluster is forced to ``cluster``
+    blocks (measurements and tests reach every cluster size with it): one
+    a 32-row tile (``dim <= 4``) or a row, shared out over the blocks, at
+    most 16, and as many as fit the block's shared memory."""
+    units = -(-n_particles // 32) if dim <= 4 else n_particles
+    warps = max(1, min(MAX_WARPS, -(-units // cluster)))
+    while warps > 1 and not _layout_fits(dim, cluster, warps):
+        warps -= 1
+    return warps
+
+
+def advi_rows(dim: int, n_particles: int, cluster: int, warps: int):
+    """The particle rows each warp of the layout evaluates, in the kernel's
+    order: ``rows[block][warp]`` is a list of row indices (a lane's rows
+    when ``dim <= 4`` are the warp's rows ``32 k + lane``). Mirrors
+    ``csrc/advi_step.cu``: at ``dim <= 4`` warp ``p = block * warps + warp``
+    takes the 32-row tiles ``p, p + P, ...`` (``P = cluster * warps``); at
+    ``dim > 4`` it takes rows ``p, p + P, ...``."""
+    n_prod = cluster * warps
+    out = []
+    for block in range(cluster):
+        per_warp = []
+        for warp in range(warps):
+            p = block * warps + warp
+            if dim <= 4:
+                rows = [r for tile in range(p, -(-n_particles // 32), n_prod)
+                        for r in range(32 * tile,
+                                       min(32 * tile + 32, n_particles))]
+            else:
+                rows = list(range(p, n_particles, n_prod))
+            per_warp.append(rows)
+        out.append(per_warp)
+    return out
 
 
 def _f32(v) -> float:
@@ -128,7 +246,7 @@ def kernel_library():
         ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                               ctypes.c_float)
         lib.zs_fused_meanfield_advi.argtypes = (
-            [i32] + [ptr] * 6 + [i32] * 3 + [f32] * 6 + [u32] * 2 + [ptr] * 4)
+            [i32] + [ptr] * 6 + [i32] * 5 + [f32] * 6 + [u32] * 2 + [ptr] * 4)
         lib.zs_fused_meanfield_advi.restype = i32
         lib.zs_cuda_error_string.argtypes = [i32]
         lib.zs_cuda_error_string.restype = ctypes.c_char_p
@@ -185,7 +303,8 @@ def fused_meanfield_advi(density, loc0, log_scale0, n_steps: int,
                          n_particles: int, key, lr_schedule: Callable,
                          b1: float = 0.9, b2: float = 0.999,
                          adam_eps: float = 1e-8,
-                         noise: Optional[torch.Tensor] = None):
+                         noise: Optional[torch.Tensor] = None, *,
+                         _layout=None):
     """Run the whole mean-field SGVB fit of ``density`` in one launch.
 
     On CUDA tensors this launches the CUDA kernel (or raises); on CPU
@@ -203,11 +322,23 @@ def fused_meanfield_advi(density, loc0, log_scale0, n_steps: int,
         (``lambda t: lr`` for a constant rate); evaluated on the host.
     :param noise: optional standard normals ``[n_steps, n_particles, dim]``
         replacing the Philox draws (testing hook).
+    :param _layout: ``(cluster, warps)`` in place of :func:`advi_layout`'s
+        (measurements and tests reach every layout with it).
     :return: ``(loc [dim], log_scale [dim], losses [n_steps])``: the fitted
         parameters and the per-step negative-ELBO estimates.
     """
     dim, n_steps, n_particles = _check(density, loc0, log_scale0, n_steps,
                                        n_particles, noise)
+    if _layout is None:
+        cluster, warps, _ = advi_layout(dim, n_particles)
+    else:
+        cluster, warps = (int(v) for v in _layout)
+        if not _layout_fits(dim, cluster, warps):
+            raise ValueError(
+                "fused_meanfield_advi: layout (cluster={}, warps={}) does not "
+                "fit dim {}: 1-{} blocks, 1-{} warps, {} bytes of shared "
+                "memory at most.".format(cluster, warps, dim, MAX_CLUSTER,
+                                         MAX_WARPS, SHARED_BYTES_LIMIT))
     if loc0.device.type == "cpu":
         return fused_meanfield_advi_reference(
             density, loc0, log_scale0, n_steps, n_particles, key,
@@ -230,7 +361,8 @@ def fused_meanfield_advi(density, loc0, log_scale0, n_steps: int,
         *density_pointers(density, dev), loc0.data_ptr(),
         log_scale0.data_ptr(), table.data_ptr(),
         None if noise_kept is None else noise_kept.data_ptr(), n_steps,
-        n_particles, dim, *_adam_constants(b1, b2, adam_eps, dim), k0, k1,
+        n_particles, dim, cluster, warps,
+        *_adam_constants(b1, b2, adam_eps, dim), k0, k1,
         out_loc.data_ptr(), out_ls.data_ptr(), losses.data_ptr())
     return out_loc, out_ls, losses
 

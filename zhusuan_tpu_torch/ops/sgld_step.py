@@ -3,10 +3,14 @@
 Replaces the Pallas TPU kernel ``zhusuan_tpu/ops/sgld_step.py::
 fused_sgld_step``: the whole Langevin update ``q' = q + 0.5 lr g(q) +
 sqrt(lr) eps`` (noise draw, gradient, position update) in one pass over
-the state. The kernel is the SGLD mode of the SGMCMC kernel body in
-``csrc/sgmcmc_step.cu`` (a warp per chain, as the HMC kernels): it reads q
-once and writes q' once, so at the main path's 32768 x 100 float32 its
-bound is device-memory bandwidth (26 MB at 3.35 TB/s, 7.8 us on an H100).
+the state. The kernel reads q once and writes q' once, so at the main
+path's 32768 x 100 float32 its bound is device-memory bandwidth (26 MB at
+3.35 TB/s, 7.8 us on an H100). :func:`sgld_layout` names its body in
+``csrc/sgmcmc_step.cu``: on the diagonal density at ``dim % 4 == 0`` (the
+main path) the update is elementwise, so a flat pass takes ``[n_chains,
+dim]`` as groups of 4 elements, a thread a group, with 16-byte loads and
+stores (:func:`sgld_flat_groups` is its index map); anything else takes the
+SGLD mode of the SGMCMC kernel body (a warp per chain, as the HMC kernels).
 The same library holds the PSGLD, SGHMC and SGNHT modes
 (:mod:`.psgld_step`, :mod:`.sghmc_step`, :mod:`.sgnht_step`), which share
 this module's checks and loader.
@@ -45,7 +49,7 @@ from zhusuan_tpu_torch.ops.hmc_step import (
 )
 
 __all__ = ["DENSITIES", "fused_sgld_step", "fused_sgld_step_reference",
-           "sgld_step_supported"]
+           "sgld_flat_groups", "sgld_layout", "sgld_step_supported"]
 
 #: The built-in densities the SGMCMC kernels take the gradient of.
 DENSITIES = (DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint)
@@ -57,6 +61,31 @@ def sgld_step_supported(q_shape, dtype: Optional[torch.dtype] = None) -> bool:
     kernel's, as in the JAX package; the PSGLD, SGHMC and SGNHT kernels
     share it."""
     return hmc_step_supported(q_shape) and dtype in (None, torch.float32)
+
+
+def sgld_layout(density, dim: int) -> str:
+    """The SGLD kernel's body for ``density`` at ``dim``: ``"flat"`` (a
+    thread a group of 4 elements, 16-byte loads and stores) where the
+    gradient is elementwise and the row splits into whole groups, i.e. the
+    diagonal density at ``dim % 4 == 0``; else ``"warp"`` (a warp a chain,
+    the body PSGLD, SGHMC and SGNHT share)."""
+    if isinstance(density, DiagonalGaussianLogJoint) and dim % 4 == 0:
+        return "flat"
+    return "warp"
+
+
+def sgld_flat_groups(n_chains: int, dim: int, device=None):
+    """The flat body's index map: for flat group ``i`` of ``[n_chains,
+    dim / 4]`` (elements ``4 i .. 4 i + 3`` of the flattened state), its
+    ``(chain, group)`` as two int64 tensors, ``(i // (dim / 4),
+    i % (dim / 4))``, the Philox counter words the kernel draws it with."""
+    row_groups = dim // 4
+    i = torch.arange(n_chains * row_groups, dtype=torch.int64, device=device)
+    return i // row_groups, i % row_groups
+
+
+def _aligned(*tensors) -> bool:
+    return all(v is None or v.data_ptr() % 16 == 0 for v in tensors)
 
 
 def kernel_library():
@@ -72,7 +101,7 @@ def kernel_library():
         lr = [ptr, f32]  # lr_dev, lr_host
         tail = [i32, i32, u32, u32, u32]  # n_chains, dim, key0, key1, t
         lib.zs_fused_sgld_step.argtypes = (
-            [ptr] + dens + lr + [ptr] + tail + [ptr, ptr])
+            [ptr] + dens + lr + [ptr] + tail + [i32, ptr, ptr])
         lib.zs_fused_psgld_step.argtypes = (
             [ptr, ptr] + dens + lr + [f32] * 3 + [ptr] + tail + [ptr] * 3)
         lib.zs_fused_sghmc_step.argtypes = (
@@ -177,7 +206,8 @@ def launch_key(key):
     return tuple(int(k) & 0xFFFFFFFF for k in key)
 
 
-def fused_sgld_step(density, q, lr, key, t: int, *, noise=None):
+def fused_sgld_step(density, q, lr, key, t: int, *, noise=None,
+                    _path=None):
     """Run one SGLD update ``q + 0.5 lr grad(q) + sqrt(lr) eps`` for every
     chain.
 
@@ -191,6 +221,9 @@ def fused_sgld_step(density, q, lr, key, t: int, *, noise=None):
     :param t: iteration number, the first word of the Philox counter.
     :param noise: optional ``[n_chains, dim]`` standard normals replacing
         the draws (testing hook).
+    :param _path: ``"warp"`` to take the warp-per-chain body where
+        :func:`sgld_layout` says ``"flat"`` (measurements and tests compare
+        the two).
     :return: ``q'``.
     """
     check_state("fused_sgld_step", density, q)
@@ -201,13 +234,17 @@ def fused_sgld_step(density, q, lr, key, t: int, *, noise=None):
     c, d = q.shape
     dev = q.device
     lr_ptr, lr_host, _lr_kept = lr_argument(lr, dev)
-    _eps_kept, eps_ptr = noise_pointer(noise)
+    eps_kept, eps_ptr = noise_pointer(noise)
     out_q = torch.empty_like(q)
+    dens_id, dens0, dens1 = density_pointers(density, dev)
+    # The flat body reads 16 bytes at a time: a view that starts off a
+    # 16-byte boundary takes the warp body.
+    flat = (sgld_layout(density, d) == "flat" and _path != "warp"
+            and _aligned(q, eps_kept, *density.kernel_args(dev)))
     launch_kernel(
         fused_sgld_step, kernel_library, "zs_fused_sgld_step", dev,
-        q.data_ptr(), *density_pointers(density, dev), lr_ptr, lr_host,
-        eps_ptr, c, d, *launch_key(key), int(t) & 0xFFFFFFFF,
-        out_q.data_ptr())
+        q.data_ptr(), dens_id, dens0, dens1, lr_ptr, lr_host, eps_ptr, c, d,
+        *launch_key(key), int(t) & 0xFFFFFFFF, int(flat), out_q.data_ptr())
     return out_q
 
 
