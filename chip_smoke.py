@@ -187,6 +187,38 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    standalone samplers (``RANDOM_DRAWS`` arrays of 1024 x 1024 each, held
    to its moment gates). The launch counts of the three kernels are set to
    0 before the kernel-path part and read after it.
+19. VAE main path (budget 40 s): ``examples.acceptance.run_vae_protocol``
+   of the port, the VAE protocol of ``baseline_ref/vae_protocol.py`` at full
+   width (784-500-500 encoder, z 40, 40-500-500-784 decoder,
+   Bernoulli likelihood, Adam 1e-3, batch 128) through ``fit_scan``: 10k
+   rows of synthetic MNIST, the protocol's per-epoch permutations, dynamic
+   binarization, 20 epochs of 78 steps. Prints each epoch's lower bound and
+   SGVB steps/s (the median of the last three epochs). Gated on the
+   epoch-2 bound within ``VAE_EPOCH2_SDS`` sd of the JAX package's 5-seed
+   mean (``VAE_EPOCH2``, from ``baseline_ref/vae_seed_sweep.json``) and
+   the epoch-20 bound within ``VAE_EPOCH20_TOL`` of its run
+   (``VAE_EPOCH20``, ``baseline_ref/ours_vae.json``); then the IS
+   log-likelihood at 1000 particles on 1000 binarized test rows (8
+   batches of ``[1000, 128, 784]`` logits), finite and below the final
+   bound plus ``VAE_IS_MARGIN``;
+20. IWAE main path (budget 15 s): the VAE's nets on k = 50 (batch 64, the
+   VAE protocol's rows binarized per step), ``IWAE_WARMUP`` +
+   ``IWAE_STEPS`` steps of ``iwae.make_train_step``; steps/s, gated on a
+   finite bound that rises (the last ``IWAE_TAIL`` timed steps over the
+   first);
+21. SBN main path (budget 15 s): the SBN 784-200-200-200
+   with VIMCO (k = 10, batch 24, Adam(1e-3, eps=1e-4)) on
+   ``configs_protocol.py``'s synthetic binary MNIST, ``SBN_WARMUP`` +
+   ``SBN_STEPS`` steps; steps/s, gated on a finite bound that rises;
+22. toy2d and BNN configurations at reduced step counts (budget 40 s;
+   ``CONFIG_STEPS``: toy2d 50 + 2000, BNN SGVB and SGHMC 50 + 1000 each,
+   of the recipes' 50 + 16000 and 50 + 8000, which
+   ``scripts/measure_configs_torch.py`` runs in full) through each
+   example's own train step; steps/s, gated on finite metrics, a rising
+   bound (toy2d, BNN SGVB) and a positive kinetic energy and finite test
+   RMSE (BNN SGHMC).
+   Phases 19-22 reach no hand-written kernel (neither do their JAX
+   counterparts) and add no entry to the kernels' record.
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -2681,6 +2713,119 @@ def phase_advi_main_path(torch, dev):
     return launches
 
 
+# Phases 19-22: the VAE, IWAE, SBN-VIMCO, toy2d and BNN paths. They run no
+# hand-written kernel (the JAX package's counterparts reach no pallas_call),
+# so they add no entry to the kernels' record.
+VAE_EPOCH2 = (-531.18, 0.15)  # the JAX package's 5-seed mean and sd
+VAE_EPOCH2_SDS = 3.0  # (baseline_ref/vae_seed_sweep.json, CPU)
+VAE_EPOCH20 = -529.98  # baseline_ref/ours_vae.json (the JAX package, CPU)
+VAE_EPOCH20_TOL = 0.5
+VAE_IS_PARTICLES = 1000
+VAE_IS_TEST = 1000  # binarized synthetic MNIST test rows
+VAE_IS_BATCH = 128  # 8 batches of [1000, 128, 784] logits
+VAE_IS_MARGIN = 5.0  # the IS estimate stays below the final train LB + 5
+IWAE_WARMUP, IWAE_STEPS = 20, 180
+IWAE_TAIL = 50
+SBN_WARMUP, SBN_STEPS = 30, 500
+CONFIG_STEPS = {"toy2d": (50, 2000), "bnn_sgvb": (50, 1000),
+                "bnn_sghmc": (50, 1000)}  # (untimed, timed): reduced
+
+
+def phase_vae_main_path(torch, dev):
+    from zhusuan_tpu_torch.examples import acceptance
+    from zhusuan_tpu_torch.examples.utils import protocols
+    from zhusuan_tpu_torch.examples.utils.dataset import load_binary_mnist
+    from zhusuan_tpu_torch.examples.variational_autoencoders import vae
+
+    def on_epoch(epoch, lb, seconds):
+        print("phase19 epoch {} lower bound {:.4f} ({:.3f} s)".format(
+            epoch, lb, seconds), flush=True)
+
+    params, out = acceptance.run_vae_protocol(dev, callback=on_epoch)
+    curve = out["elbo_curve"]
+    x_test = torch.as_tensor(load_binary_mnist()[2][:VAE_IS_TEST],
+                             device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test_ll = vae.eval_is_loglikelihood(
+        params, x_test, torch.Generator().manual_seed(19),
+        protocols.VAE_Z_DIM, VAE_IS_PARTICLES, VAE_IS_BATCH)
+    is_seconds = time.perf_counter() - t0
+    failures = []
+    epoch2_sds = (curve[1] - VAE_EPOCH2[0]) / VAE_EPOCH2[1]
+    if not out["finite"]:
+        failures.append("non-finite lower bound")
+    if not abs(epoch2_sds) <= VAE_EPOCH2_SDS:
+        failures.append("epoch-2 lower bound {:.4f} is {:.2f} sd from the "
+                        "JAX package's {}".format(curve[1], epoch2_sds,
+                                                  VAE_EPOCH2[0]))
+    if not abs(curve[-1] - VAE_EPOCH20) <= VAE_EPOCH20_TOL:
+        failures.append("epoch-20 lower bound {:.4f} vs the JAX package's "
+                        "{} (tolerance {})".format(curve[-1], VAE_EPOCH20,
+                                                   VAE_EPOCH20_TOL))
+    if not (math.isfinite(test_ll) and test_ll < curve[-1] + VAE_IS_MARGIN):
+        failures.append("IS log-likelihood {} not finite or not below the "
+                        "final lower bound + {}".format(test_ll,
+                                                        VAE_IS_MARGIN))
+    rec = {"vae_sgvb_steps_per_sec": out["steps_per_sec"],
+           "steps_per_epoch": out["steps_per_epoch"],
+           "epoch_sec": out["epoch_sec"], "elbo_curve": curve,
+           "epoch2_sds_from_jax": epoch2_sds,
+           "epoch20_minus_jax": curve[-1] - VAE_EPOCH20,
+           "test_is_loglikelihood": test_ll,
+           "is_particles": VAE_IS_PARTICLES, "is_rows": VAE_IS_TEST,
+           "is_seconds": is_seconds}
+    print("phase19 vae_main_path " + json.dumps(rec))
+    check(not failures, "VAE: " + "; ".join(failures))
+    return rec
+
+
+def phase_iwae_main_path(torch, dev):
+    from zhusuan_tpu_torch.examples import acceptance
+
+    out = acceptance.run("iwae", dev, warmup=IWAE_WARMUP, steps=IWAE_STEPS,
+                         tail=IWAE_TAIL)
+    out["k"], out["batch"] = acceptance.IWAE_PARTICLES, acceptance.IWAE_BATCH
+    print("phase20 iwae_main_path " + json.dumps(out))
+    check(out["finite"], "IWAE: a non-finite bound")
+    check(out["last_mean"] > out["first_mean"],
+          "IWAE: the bound did not rise ({first_mean} -> {last_mean})"
+          .format(**out))
+    return out
+
+
+def phase_sbn_main_path(torch, dev):
+    from zhusuan_tpu_torch.examples import acceptance
+
+    out = acceptance.run("sbn_vimco", dev, warmup=SBN_WARMUP,
+                         steps=SBN_STEPS)
+    print("phase21 sbn_vimco_main_path " + json.dumps(out))
+    check(out["finite"], "SBN VIMCO: a non-finite bound")
+    check(out["last_mean"] > out["first_mean"],
+          "SBN VIMCO: the bound did not rise ({first_mean} -> {last_mean})"
+          .format(**out))
+    return out
+
+
+def phase_configs(torch, dev):
+    from zhusuan_tpu_torch.examples import acceptance
+
+    recs = {}
+    for name, (warmup, steps) in CONFIG_STEPS.items():
+        recs[name] = acceptance.run(name, dev, warmup=warmup, steps=steps)
+        print("phase22 {} {}".format(name, json.dumps(recs[name])),
+              flush=True)
+    failures = [name for name, rec in recs.items() if not rec["finite"]]
+    failures += [name + ": the bound did not rise"
+                 for name in ("toy2d", "bnn_sgvb")
+                 if not recs[name]["last_mean"] > recs[name]["first_mean"]]
+    if not (recs["bnn_sghmc"]["final_mean_k"] > 0.0
+            and math.isfinite(recs["bnn_sghmc"]["test_rmse_standardized"])):
+        failures.append("bnn_sghmc: {}".format(recs["bnn_sghmc"]))
+    check(not failures, "configs: " + "; ".join(failures))
+    return recs
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2725,6 +2870,10 @@ def main():
     advi_err, advi_timing = run_phase("phase17", phase_advi_vs_plain, torch,
                                       dev)
     advi_launches = run_phase("phase18", phase_advi_main_path, torch, dev)
+    run_phase("phase19", phase_vae_main_path, torch, dev)
+    run_phase("phase20", phase_iwae_main_path, torch, dev)
+    run_phase("phase21", phase_sbn_main_path, torch, dev)
+    run_phase("phase22", phase_configs, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 

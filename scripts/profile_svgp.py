@@ -88,8 +88,13 @@ def measure(size, chol_inverse, steps, dev):
                              ProfilerActivity.CUDA]) as prof:
         run(steps)
     per_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    events = prof.events()
+    # A host-side annotation (the optimizer's "Optimizer.step#...") also
+    # shows as a device span covering the kernels under it: kernels and
+    # copies have names no host event carries.
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in host_names:
             per_name[e.name][0] += 1
             per_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     rec = {"size": size, "path": "kernel" if chol_inverse else "plain",

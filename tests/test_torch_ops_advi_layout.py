@@ -126,8 +126,9 @@ def test_forced_layout_leaves_the_plain_version_alone():
     (100, 200, (16, 8)),  # past 128 rows: two rows a warp
 ])
 def test_rule_takes_the_measured_layouts(dim, n, want):
-    """The layouts the H100 sweep measured fastest at these shapes (PERF.md
-    §6), or next to them where the sweep did not time the exact pair."""
+    """The layouts the H100 sweep measured fastest at these shapes
+    (PERF_APPENDIX.md), or next to them where the sweep did not time the
+    exact pair."""
     assert advi_step.advi_layout(dim, n)[:2] == want
 
 

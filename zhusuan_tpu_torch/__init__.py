@@ -14,19 +14,25 @@ driven by :mod:`.examples.gaussian_process.svgp`; the bijectors
 (:mod:`.bijectors`), the automatic guides and one-call ADVI
 (:func:`.variational.advi`) with the hand-written CUDA whole-fit trainer
 (:func:`.ops.fused_meanfield_advi`), and the standalone CUDA samplers
-(:func:`.ops.gpu_normal`, :func:`.ops.gpu_uniform`).
+(:func:`.ops.gpu_normal`, :func:`.ops.gpu_uniform`); ``Bernoulli``, the
+importance-weighted objectives (IWAE, DReG, VIMCO), the IS evaluation
+(:mod:`.evaluation`) and the packaged training loop (:func:`.fit.fit_scan`),
+driven by the VAE, IWAE, SBN, toy2d and BNN examples under :mod:`.examples`.
 """
 
 from zhusuan_tpu_torch import (
     bijectors,
     diagnostics,
     distributions,
+    evaluation,
+    fit,
     framework,
     mcmc,
     ops,
     utils,
     variational,
 )
+from zhusuan_tpu_torch.fit import fit_scan, make_fit_epoch
 from zhusuan_tpu_torch.framework import (
     BayesianNet,
     MetaBayesianNet,
@@ -95,15 +101,19 @@ __all__ = [
     "Toy2DLogJoint",
     "advi",
     "fit_dense_preconditioner",
+    "fit_scan",
     "fused_chees_step",
     "fused_leapfrog",
     "fused_meanfield_advi",
     "gpu_normal",
     "gpu_uniform",
+    "make_fit_epoch",
     "whiten_log_joint",
     "bijectors",
     "diagnostics",
     "distributions",
+    "evaluation",
+    "fit",
     "framework",
     "mcmc",
     "ops",

@@ -43,7 +43,7 @@
 // writes its own slots and takes the block barrier, then draws the noise.
 // The first design waited on the cluster barrier, split (arrive.release,
 // the noise, wait.acquire): a step took 1.62-1.67 us at toy2d's cluster
-// layouts against 1.32 with the transaction barriers (PERF.md §6).
+// layouts against 1.32 with the transaction barriers (PERF_APPENDIX.md).
 // Two layouts, by width:
 //   dim <= 4 (advi_lanes_kernel<D>, D = dim; the toy2d recipe's 500 x 2):
 //     a LANE owns a particle row (a row is one Philox group) and evaluates

@@ -8,8 +8,10 @@ base.py:150-157).
 
 Divergences from the JAX package: ``sample`` takes an explicit
 ``torch.Generator`` on the parameters' device in place of a PRNG key, and
-an ``eps=`` testing hook that supplies the standard-normal draws (so tests
-can feed both packages the same numbers); ``path_param`` detaches.
+an ``eps=`` testing hook that supplies the distribution's base draws (the
+standard normals of ``Normal`` and ``MultivariateNormalCholesky``, the
+uniforms of ``Bernoulli``), so tests can feed both packages the same
+numbers; ``path_param`` detaches.
 """
 
 from __future__ import annotations
@@ -153,9 +155,9 @@ class Distribution:
         ``base.py:237-263``).
 
         :param generator: a ``torch.Generator`` on :attr:`device`.
-        :param eps: optional standard normals of the sample's shape that
-            replace the draws (a testing hook; reparameterized Gaussian
-            heads only).
+        :param eps: optional base draws of the sample's shape that replace
+            the generator's (a testing hook): standard normals for the
+            Gaussian heads, uniforms on [0, 1) for :class:`Bernoulli`.
         """
         if n_samples is None:
             if eps is not None:
@@ -176,16 +178,27 @@ class Distribution:
         """Standard normals of ``shape`` in the sample dtype on
         :attr:`device`: ``eps`` when given (checked), else drawn from
         ``generator``."""
+        return self._base_draws(torch.randn, self._dtype, generator, shape,
+                                eps)
+
+    def _uniforms(self, generator, shape, eps):
+        """Uniforms on [0, 1) of ``shape`` in the parameter dtype on
+        :attr:`device`: ``eps`` when given (checked), else drawn from
+        ``generator``."""
+        return self._base_draws(torch.rand, self._param_dtype, generator,
+                                shape, eps)
+
+    def _base_draws(self, draw, dtype, generator, shape, eps):
         if eps is not None:
-            eps = torch.as_tensor(eps, dtype=self._dtype, device=self._device)
+            eps = torch.as_tensor(eps, dtype=dtype, device=self._device)
             if tuple(eps.shape) != tuple(shape):
                 raise ValueError("eps must have shape {}; got {}.".format(
                     tuple(shape), tuple(eps.shape)))
             return eps
         if generator is None:
             raise ValueError("Sampling needs a torch.Generator or eps.")
-        return torch.randn(shape, generator=generator, dtype=self._dtype,
-                           device=self._device)
+        return draw(shape, generator=generator, dtype=dtype,
+                    device=self._device)
 
     # -- densities ----------------------------------------------------- #
     def _check_input_shape(self, given):

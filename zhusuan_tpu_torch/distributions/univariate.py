@@ -1,9 +1,10 @@
 """Univariate distributions.
 
 Port of ``zhusuan_tpu/distributions/univariate.py``; so far
-:class:`Normal` (parity: reference ``univariate.py:43-184``) and
-:class:`Gamma` (``univariate.py:662-750``). The other twelve names come with
-later slices of the port.
+:class:`Normal` (parity: reference ``univariate.py:43-184``),
+:class:`Bernoulli` (``univariate.py:334-406``) and :class:`Gamma`
+(``univariate.py:662-750``). The other eleven names come with later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from zhusuan_tpu_torch.distributions.utils import (
 )
 from zhusuan_tpu_torch.ops.checks import check_numerics
 
-__all__ = ["Normal", "Gamma"]
+__all__ = ["Normal", "Bernoulli", "Gamma"]
 
 _HALF_LOG_2PI = float(0.5 * (np.log(2.0) + np.log(np.pi)))
 
@@ -118,6 +119,55 @@ class Normal(Distribution):
         z = (given - self.path_param(self._mean)) * torch.exp(
             -self.path_param(self._logstd))
         return torch.special.log_ndtr(-z)
+
+
+class Bernoulli(Distribution):
+    """Bernoulli on {0, 1} parameterized by log-odds.
+
+    Parity: reference ``univariate.py:334-406``. Sampler: ``u <
+    sigmoid(logits)`` with ``u`` uniform on [0, 1) in the parameter dtype
+    (univariate.py:386-396; ``eps=`` supplies ``u``); density: the negative
+    sigmoid cross-entropy ``x * logits - softplus(logits)``
+    (univariate.py:398-403). Not reparameterized.
+
+    The softplus is ``logaddexp(logits, 0)``, as ``jax.nn.softplus`` is:
+    ``torch.nn.functional.softplus`` returns ``x`` itself above its
+    threshold of 20, an error of up to ``exp(-20)``.
+    """
+
+    def __init__(self, logits, dtype=torch.int32, group_ndims: int = 0,
+                 **kwargs):
+        device = param_device(logits)
+        param_dtype = assert_same_float_dtype([(logits, "logits")])
+        self._logits = as_param(logits, param_dtype, device)
+        super().__init__(
+            dtype=dtype,
+            param_dtype=param_dtype,
+            is_continuous=False,
+            is_reparameterized=False,
+            group_ndims=group_ndims,
+            device=device,
+            **kwargs,
+        )
+
+    logits = property(lambda self: self._logits,
+                      doc="The log-odds of being 1.")
+
+    def _batch_shape(self):
+        return tuple(self._logits.shape)
+
+    def _value_shape(self):
+        return ()
+
+    def _sample(self, generator, n_samples, eps):
+        p = torch.sigmoid(self._logits.detach())
+        u = self._uniforms(generator, (n_samples,) + self.batch_shape, eps)
+        return (u < p).to(self.dtype)
+
+    def _log_prob(self, given):
+        x = given.to(self.param_dtype)
+        logits = self._logits
+        return x * logits - torch.logaddexp(logits, torch.zeros_like(logits))
 
 
 class Gamma(Distribution):

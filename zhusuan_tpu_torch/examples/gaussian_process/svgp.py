@@ -38,6 +38,8 @@ from zhusuan_tpu_torch.examples.gaussian_process.utils import (
     RBFKernel,
     gp_conditional,
 )
+from zhusuan_tpu_torch.examples.utils import nn, protocols
+from zhusuan_tpu_torch.examples.utils.cli import add_device_arg, resolve_device
 from zhusuan_tpu_torch.examples.utils.dataset import (
     load_uci_boston_housing,
     load_uci_diabetes,
@@ -62,8 +64,7 @@ __all__ = [
 # The Boston protocol (baseline_ref/configs_protocol.py:56-57): 100 inducing
 # points, 20 particles, full batch (456 <= 5000), Adam(1e-2), 30 warm-up
 # then 600 timed steps, synthetic data from seed 42.
-SVGP_CONFIG = dict(n_train_raw=506, x_dim=13, n_z=100, n_particles=20,
-                   lr=1e-2, warmup_steps=30, timed_steps=600, data_seed=42)
+SVGP_CONFIG = protocols.SVGP
 
 PARAM_NAMES = ("k_raw_scale", "z_pos", "z_mean", "z_cov_raw", "noise_raw")
 _JITTER = 1e-6
@@ -176,15 +177,13 @@ def init_params(n_z, n_covariates, x_train, device=None):
 def params_from_numpy(arrays, device=None, dtype=None):
     """Leaf tensors (requiring grad) from a dict of numpy arrays under the
     JAX example's names, e.g. the JAX package's parameters as numpy."""
-    device = _device(device)
-    return {k: torch.tensor(np.array(arrays[k]), dtype=dtype,
-                            device=device).requires_grad_(True)
-            for k in PARAM_NAMES}
+    return nn.params_from_numpy({k: arrays[k] for k in PARAM_NAMES},
+                                device, dtype)
 
 
 def params_to_numpy(params):
     """The parameters as a dict of numpy arrays (JAX names)."""
-    return {k: params[k].detach().cpu().numpy() for k in PARAM_NAMES}
+    return nn.params_to_numpy({k: params[k] for k in PARAM_NAMES})
 
 
 def _device(device):
@@ -292,14 +291,9 @@ def main(argv=None):
                         choices=["boston_housing", "diabetes",
                                  "protein_data"])
     parser.add_argument("-lr", default=1e-2, type=float)
-    parser.add_argument("--device", default="cuda:0",
-                        help="torch device (default the card; 'cpu' to run "
-                             "on the CPU)")
+    add_device_arg(parser)
     hps = parser.parse_args(argv)
-    device = torch.device(hps.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("No CUDA device: pass --device cpu to run on the "
-                         "CPU.")
+    device = resolve_device(hps.device)
     loader = {"boston_housing": load_uci_boston_housing,
               "diabetes": load_uci_diabetes,
               "protein_data": load_uci_protein_data}[hps.dataset]

@@ -1,0 +1,2 @@
+"""Toy examples: mean-field SGVB on the 2-D intractable posterior
+(:mod:`.toy2d_intractable`)."""

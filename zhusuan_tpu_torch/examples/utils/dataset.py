@@ -1,8 +1,8 @@
-"""Regression data for the port's examples.
+"""Data for the port's examples.
 
 The port's own copies of what its examples need from
-``examples/utils/dataset.py`` (the file-or-synthetic UCI loaders, the
-scikit-learn diabetes set, ``standardize``) and from
+``examples/utils/dataset.py`` (the file-or-synthetic MNIST and UCI loaders,
+the scikit-learn diabetes set, ``standardize``) and from
 ``baseline_ref/configs_protocol.py:56-93`` (the synthetic splits of the
 measured SVGP recipe). Everything is numpy; nothing is downloaded: the UCI
 files are read from ``ZS_DATA_DIR`` when present, else replaced by
@@ -11,13 +11,16 @@ deterministic synthetic data of the same shapes.
 
 from __future__ import annotations
 
+import gzip
 import os
+import struct
 
 import numpy as np
 
 __all__ = [
     "synthetic_regression", "standardize", "regression_splits",
-    "load_uci_boston_housing", "load_uci_diabetes", "load_uci_protein_data",
+    "load_uci_boston_housing", "load_uci_diabetes", "save_uci_diabetes",
+    "load_uci_protein_data", "load_mnist_realval", "load_binary_mnist",
 ]
 
 
@@ -95,22 +98,42 @@ def load_uci_boston_housing(path=None, seed=0):
 
 def load_uci_diabetes(path=None, seed=0):
     """Diabetes regression (Efron et al. 2004; 442 x 10): real data bundled
-    with scikit-learn, so it needs no file and no download
-    (``examples/utils/dataset.py:193-220``). Same return contract as
-    :func:`load_uci_boston_housing`; ``synthetic`` is always False. Raises
-    ``ImportError`` with the reason where scikit-learn is not installed.
+    with scikit-learn, so it needs no download
+    (``examples/utils/dataset.py:193-220``). Read from ``diabetes.npz``
+    under ``ZS_DATA_DIR`` when present (the same arrays, written by
+    :func:`save_uci_diabetes` where scikit-learn is installed), else from
+    scikit-learn. Same return contract as :func:`load_uci_boston_housing`;
+    ``synthetic`` is always False. Raises ``ImportError`` with the reason
+    where neither is there.
     """
-    del path
+    base = path or os.path.join(_data_dir(), "diabetes.npz")
+    if os.path.exists(base):
+        with np.load(base) as f:
+            data, target = f["data"], f["target"]
+    else:
+        data, target = _sklearn_diabetes()
+    return (*_split(data.astype(np.float64), target.astype(np.float64),
+                    seed), False)
+
+
+def save_uci_diabetes(path):
+    """Write scikit-learn's diabetes arrays to ``path`` (``.npz``), for a
+    host without scikit-learn (see :func:`load_uci_diabetes`)."""
+    data, target = _sklearn_diabetes()
+    np.savez(path, data=data, target=target)
+
+
+def _sklearn_diabetes():
     try:
         from sklearn.datasets import load_diabetes
     except ImportError as e:
         raise ImportError(
             "The diabetes dataset ships with scikit-learn, which is not "
             "installed here; use -dataset boston_housing or protein_data, "
+            "put a diabetes.npz from save_uci_diabetes under ZS_DATA_DIR, "
             "or run where scikit-learn is available.") from e
     raw = load_diabetes()
-    return (*_split(raw.data.astype(np.float64),
-                    raw.target.astype(np.float64), seed), False)
+    return raw.data, raw.target
 
 
 def load_uci_protein_data(path=None, seed=0):
@@ -126,3 +149,87 @@ def load_uci_protein_data(path=None, seed=0):
         x, y = synthetic_regression(45730, 9, seed=7)
         synthetic = True
     return (*_split(x, y, seed), synthetic)
+
+
+def _read_idx_images(path):
+    with gzip.open(path, "rb") as f:
+        _, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+    return data.reshape(n, rows * cols).astype(np.float32) / 255.0
+
+
+def _read_idx_labels(path):
+    with gzip.open(path, "rb") as f:
+        _ = struct.unpack(">II", f.read(8))
+        return np.frombuffer(f.read(), dtype=np.uint8).astype(np.int32)
+
+
+def _synthetic_mnist(n_train=50000, n_valid=10000, n_test=10000, seed=1234):
+    """Deterministic MNIST-shaped synthetic digits (``examples/utils/
+    dataset.py:82-107``): blurred random strokes per class template, values
+    in [0, 1], 784 features, 10 classes."""
+    rng = np.random.RandomState(seed)
+    templates = rng.rand(10, 28, 28) ** 3
+    for _ in range(2):
+        templates = (
+            templates
+            + np.roll(templates, 1, -1) + np.roll(templates, -1, -1)
+            + np.roll(templates, 1, -2) + np.roll(templates, -1, -2)
+        ) / 5.0
+    templates /= templates.max(axis=(1, 2), keepdims=True)
+
+    def make(n):
+        labels = rng.randint(0, 10, size=n)
+        base = templates[labels]
+        noise = rng.rand(n, 28, 28) * 0.3
+        imgs = np.clip(base * 0.9 + noise - 0.15, 0.0, 1.0)
+        return imgs.reshape(n, 784).astype(np.float32), labels.astype(np.int32)
+
+    x_train, t_train = make(n_train)
+    x_valid, t_valid = make(n_valid)
+    x_test, t_test = make(n_test)
+    return x_train, t_train, x_valid, t_valid, x_test, t_test
+
+
+def load_mnist_realval(path=None):
+    """MNIST with real-valued pixels in [0, 1] (``examples/utils/
+    dataset.py:110-137``; reference ``dataset.py:102-142``) from the IDX
+    files under ``ZS_DATA_DIR``/mnist when present, else
+    :func:`_synthetic_mnist`.
+
+    :return: ``(x_train, t_train, x_valid, t_valid, x_test, t_test,
+        synthetic)``.
+    """
+    base = path or os.path.join(_data_dir(), "mnist")
+    files = [
+        "train-images-idx3-ubyte.gz",
+        "train-labels-idx1-ubyte.gz",
+        "t10k-images-idx3-ubyte.gz",
+        "t10k-labels-idx1-ubyte.gz",
+    ]
+    paths = [os.path.join(base, f) for f in files]
+    if all(os.path.exists(p) for p in paths):
+        x = _read_idx_images(paths[0])
+        t = _read_idx_labels(paths[1])
+        x_test = _read_idx_images(paths[2])
+        t_test = _read_idx_labels(paths[3])
+        return (x[:-10000], t[:-10000], x[-10000:], t[-10000:], x_test,
+                t_test, False)
+    return (*_synthetic_mnist(), True)
+
+
+def load_binary_mnist(path=None, seed=0):
+    """Binarized MNIST (Bernoulli-sampled pixels, ``RandomState(seed)``),
+    the VAE benchmark's input (``examples/utils/dataset.py:140-151``).
+
+    :return: ``(x_train, x_valid, x_test, synthetic)`` with values in
+        {0, 1}, float32.
+    """
+    x_train, _, x_valid, _, x_test, _, synthetic = load_mnist_realval(path)
+    rng = np.random.RandomState(seed)
+    return (
+        (rng.rand(*x_train.shape) < x_train).astype(np.float32),
+        (rng.rand(*x_valid.shape) < x_valid).astype(np.float32),
+        (rng.rand(*x_test.shape) < x_test).astype(np.float32),
+        synthetic,
+    )

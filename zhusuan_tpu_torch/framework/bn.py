@@ -4,17 +4,20 @@ Port of ``zhusuan_tpu/framework/bn.py`` (parity: reference
 ``zhusuan/framework/bn.py``): ``StochasticTensor`` (bn.py:26-316) and
 ``BayesianNet`` with ``stochastic``/``deterministic``/``get``/
 ``cond_log_prob``/``log_joint`` (bn.py:319-497), the compatibility queries
-``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and so far three
-sugar methods, ``normal``, ``gamma`` and ``multivariate_normal_cholesky``;
-the other 33 come with their distributions.
+``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and so far four
+sugar methods, ``normal``, ``bernoulli``, ``gamma`` and
+``multivariate_normal_cholesky``; the other 32 come with their
+distributions.
 
 Randomness: a net's ``key`` is an int seed. Each unobserved node draws from
 its own ``torch.Generator`` on its distribution's device, seeded from
 ``(key, zlib.crc32(name))``: the counterpart of the JAX package's
 ``fold_in(key, crc32(name))``, so a node's draw is reproducible and does not
 depend on the order in which nodes are created. The numbers differ from
-JAX's; ``noise={name: eps}`` supplies a node's standard normals instead (a
-testing hook, so both packages can be fed the same draws).
+JAX's; ``noise={name: eps}`` supplies a node's base draws instead (a
+testing hook, so both packages can be fed the same draws): the standard
+normals of a Gaussian node, the uniforms of a Bernoulli node (see
+:meth:`~zhusuan_tpu_torch.distributions.Distribution.sample`).
 """
 
 from __future__ import annotations
@@ -157,8 +160,10 @@ class BayesianNet(Context):
     :param observed: dict of node names to observed values.
     :param key: int seed of the nodes' generators (see the module
         docstring); needed only to sample unobserved nodes.
-    :param noise: optional ``{name: eps}`` standard normals replacing a
-        node's draws (testing hook).
+    :param noise: optional ``{name: eps}`` replacing a node's base draws
+        (testing hook): standard normals for ``Normal`` and
+        ``MultivariateNormalCholesky`` nodes, uniforms on [0, 1) for
+        ``Bernoulli`` nodes, each of the sample's shape.
     """
 
     def __init__(self, observed: Optional[Dict] = None, key=None,
@@ -357,6 +362,15 @@ class BayesianNet(Context):
             group_ndims=group_ndims, is_reparameterized=is_reparameterized,
             use_path_derivative=use_path_derivative,
             check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def bernoulli(
+        self, name, logits, group_ndims=0, n_samples=None,
+        dtype=torch.int32, **kwargs,
+    ):
+        """Add a Bernoulli node (reference bn.py:628)."""
+        dist = distributions.Bernoulli(
+            logits, group_ndims=group_ndims, dtype=dtype, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
 
     def gamma(

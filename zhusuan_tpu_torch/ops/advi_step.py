@@ -135,7 +135,7 @@ def _layout_fits(dim: int, cluster: int, warps: int) -> bool:
 
 
 # The layout rule's constants, from a sweep of every (cluster, warps) pair
-# at nine (density, dim, particles) shapes on an H100 (PERF.md §6;
+# at nine (density, dim, particles) shapes on an H100 (PERF_APPENDIX.md;
 # scripts/profile_advi_sgld.py --sweep). A unit is a particle row at a warp
 # a row (dim > 4) or a tile of 32 rows at a lane a row (dim <= 4). Up to
 # ONE_BLOCK_UNITS units one block wins (40 rows of toy2d: 1.157 us a step on
@@ -158,10 +158,11 @@ def advi_layout(dim: int, n_particles: int):
     lane or warp; else blocks of at most :data:`CLUSTER_WARPS` warps (over
     at least :data:`LANES_MIN_CLUSTER` blocks at a lane a row), as many as
     give each lane or warp one row, at most 16, fewer where a block's shared
-    memory would not hold their partial sums. On an H100 (PERF.md §6), at
-    the seven of the sweep's nine shapes where it timed the rule's own pair,
-    that pair was the fastest or within 1% of it; at all nine the pairs
-    around it beat the one-block kernel before this one."""
+    memory would not hold their partial sums. On an H100
+    (PERF_APPENDIX.md), at the seven of the sweep's nine shapes where it
+    timed the rule's own pair, that pair was the fastest or within 1% of
+    it; at all nine the pairs around it beat the one-block kernel before
+    this one."""
     if not 1 <= dim <= MAX_DIM or n_particles < 1:
         raise ValueError("advi_layout takes 1 <= dim <= {} and at least one "
                          "particle; got dim={}, n_particles={}.".format(

@@ -101,7 +101,7 @@ def nuts_lanes(dim: int) -> int:
     narrowest of 8, 16 and 32 lanes that hold the row in at most 4 groups of
     4 elements a lane (the chain's scalar work is then shared by the most
     chains). At 4096 x 100 on an H100, 8 lanes beat 16 and 32 at depths 6, 8
-    and 10 (PERF.md §6)."""
+    and 10 (PERF_APPENDIX.md)."""
     if not 1 <= dim <= MAX_DIM:
         raise ValueError("the kernel takes 1 <= dim <= {}; got {}.".format(
             MAX_DIM, dim))
@@ -141,10 +141,10 @@ def nuts_layout(dim: int, max_tree_depth: int, n_chains: int):
     """``(lanes, stacks_in_shared)`` of the kernel for this shape: the
     chain's width (:func:`nuts_lanes`), and the checkpoint stacks in shared
     memory when every chain is then resident on the card at once, else in
-    global memory (L2). Set from measurements on an H100 (PERF.md §6): at
-    4096 x 100 shared stacks won at depths 6 and 8 (all chains resident
-    either way) and lost 1.5x at depth 10, where they hold 3168 of the 4096
-    chains and the rest wait."""
+    global memory (L2). Set from measurements on an H100
+    (PERF_APPENDIX.md): at 4096 x 100 shared stacks won at depths 6 and 8
+    (all chains resident either way) and lost 1.5x at depth 10, where they
+    hold 3168 of the 4096 chains and the rest wait."""
     resident = H100_SMS * nuts_resident_chains(dim, max_tree_depth, True)
     return nuts_lanes(dim), n_chains <= resident
 

@@ -2,7 +2,8 @@
 
 Capability parity with reference ``zhusuan/utils.py`` (log_sum_exp at
 utils.py:156, log_mean_exp at utils.py:177, merge_dicts at utils.py:220),
-on torch tensors.
+on torch tensors, and two helpers for nested dict/list/tuple trees of
+tensors (``jax.tree.map`` and ``jax.tree.leaves`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from typing import Any, Dict
 
 import torch
 
-__all__ = ["log_sum_exp", "log_mean_exp", "merge_dicts"]
+__all__ = ["log_sum_exp", "log_mean_exp", "merge_dicts", "tree_map",
+           "tree_leaves"]
 
 
 def _dims(x, axis):
@@ -55,3 +57,21 @@ def merge_dicts(*dict_list: Dict[str, Any]) -> Dict[str, Any]:
         if d:
             out.update(d)
     return out
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict/list/tuple tree, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

@@ -1,10 +1,12 @@
 """Variational inference (port of ``zhusuan_tpu/variational``).
 
 Ported so far: the :class:`VariationalObjective` base, the ELBO
-(:func:`elbo`, ``sgvb`` and ``reinforce``), the automatic guides
-(:class:`MeanFieldGuide`, :class:`FullRankGuide`) and one-call ADVI
-(:func:`advi`). ``monte_carlo.py``, ``inclusive_kl.py``, ``renyi.py``,
-``laplace.py``, ``pathfinder.py`` and ``svgd.py`` come with later slices.
+(:func:`elbo`, ``sgvb`` and ``reinforce``), the importance-weighted
+objective (:func:`importance_weighted_objective`: IWAE ``sgvb``, ``dreg``
+and ``vimco``), the automatic guides (:class:`MeanFieldGuide`,
+:class:`FullRankGuide`) and one-call ADVI (:func:`advi`).
+``inclusive_kl.py``, ``renyi.py``, ``laplace.py``, ``pathfinder.py`` and
+``svgd.py`` come with later slices.
 """
 
 from zhusuan_tpu_torch.variational.advi import (
@@ -23,8 +25,14 @@ from zhusuan_tpu_torch.variational.exclusive_kl import (
     EvidenceLowerBoundObjective,
     elbo,
 )
+from zhusuan_tpu_torch.variational.monte_carlo import (
+    ImportanceWeightedObjective,
+    importance_weighted_objective,
+    iw_objective,
+)
 
 __all__ = ["ADVIResult", "EvidenceLowerBoundObjective", "FullRankGuide",
-           "MeanFieldGuide", "VariationalObjective", "advi",
-           "cosine_decay_schedule", "elbo", "params_from_numpy",
-           "params_to_numpy"]
+           "ImportanceWeightedObjective", "MeanFieldGuide",
+           "VariationalObjective", "advi", "cosine_decay_schedule", "elbo",
+           "importance_weighted_objective", "iw_objective",
+           "params_from_numpy", "params_to_numpy"]

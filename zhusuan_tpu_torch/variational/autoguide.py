@@ -65,6 +65,7 @@ from zhusuan_tpu_torch.framework.bn import StochasticTensor
 from zhusuan_tpu_torch.framework.meta_bn import MetaBayesianNet
 from zhusuan_tpu_torch.ops._random import iteration_generator
 from zhusuan_tpu_torch.ops.densities import BuiltinDensity
+from zhusuan_tpu_torch.utils import tree_map
 
 __all__ = ["MeanFieldGuide", "FullRankGuide", "params_from_numpy",
            "params_to_numpy"]
@@ -425,11 +426,6 @@ class FullRankGuide(_AutoGuideBase):
         return L @ L.T
 
 
-def _map_leaves(params, fn):
-    return {k: ({n: fn(v) for n, v in sub.items()} if isinstance(sub, dict)
-                else fn(sub)) for k, sub in params.items()}
-
-
 def params_from_numpy(guide, params, device=None, dtype=None):
     """The JAX guide's parameter pytree (``{"loc": {name: array},
     "log_scale": {...}}``, or ``{"loc", "chol_raw"}``) given as numpy arrays,
@@ -449,10 +445,10 @@ def params_from_numpy(guide, params, device=None, dtype=None):
             raise ValueError("params[{!r}] has names {}; the guide's latents "
                              "are {}.".format(k, sorted(params[k]),
                                               sorted(sub)))
-    return _map_leaves(params, lambda v: torch.as_tensor(
-        np.asarray(v), dtype=dtype, device=device))
+    return tree_map(lambda v: torch.as_tensor(
+        np.asarray(v), dtype=dtype, device=device), params)
 
 
 def params_to_numpy(params):
     """A guide's parameter dict as numpy arrays of the same structure."""
-    return _map_leaves(params, lambda v: v.detach().cpu().numpy())
+    return tree_map(lambda v: v.detach().cpu().numpy(), params)
