@@ -219,6 +219,37 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    RMSE (BNN SGHMC).
    Phases 19-22 reach no hand-written kernel (neither do their JAX
    counterparts) and add no entry to the kernels' record.
+23. distribution zoo (budget 15 s): the 17 distributions of
+   ``univariate.py`` and ``multivariate.py`` beyond ``Normal``,
+   ``Bernoulli``, ``Gamma`` and ``MultivariateNormalCholesky``: ``log_prob`` in float32 on the card against the same inputs
+   in float64 on the CPU, within ``ZOO_TOL`` of ``1 + |ref|`` (infinities
+   on the same elements); the mean and variance of ``ZOO_DRAWS`` draws a
+   class (both sampler branches of ``Binomial``, ``Multinomial``, ``Beta``
+   and ``Dirichlet``; indicators for the categorical heads and the
+   Concretes' arg-max class) within ``ZOO_SES`` standard errors of the
+   exact values; the reparameterized draws' gradients finite; and
+   ``marginalize`` of a model on the card with every site enumerated
+   (nothing observed, int supports made on the host) giving log 1 = 0;
+24. gaussian.py (budget 15 s): ``examples/toy_examples/gaussian.py``'s
+   recipe at full size (1000 chains x 10 dims, 100 burn-in iterations
+   adapting over the first 50, 100 sampling iterations) on both routes:
+   ``--fused`` (the built-in density, K1 each iteration) and the
+   ``bn.normal`` model (the plain path), each an untimed run and then a
+   timed one; each route's pooled std within ``GAUSS_REL_STD`` of the
+   target's, K1's launches counted from 0 around each timed run
+   (``N_ITERS`` and 0). Then K1 against its plain version at
+   1000 x 10 on injected noise: no chain takes the other MH decision,
+   outputs within ``Q_TOL`` of ``1 + |ref|``; K1 timed back to back and
+   in a CUDA graph beside its plain version and its bound: an entry of
+   its own in the kernels' record;
+25. the training examples (budget 30 s): the Bernoulli-latent VAE
+   (REINFORCE), the Gumbel-softmax VAE, the convolutional VAE and
+   variational dropout at full width, one epoch each through
+   ``examples.acceptance.run`` (390, 390, 300 and 60 steps); steps/s,
+   gated on a finite bound whose mean over the last ``EXAMPLE_TAIL``
+   steps is above the first's, and variational dropout's test accuracy
+   (2000 rows, 100 particles) above ``VDROP_MIN_ACC``. These reach no
+   hand-written kernel.
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -2826,6 +2857,404 @@ def phase_configs(torch, dev):
     return recs
 
 
+# --------------------------------------------------------------------- #
+# Phases 23-25: the rest of the model path and the examples it unblocked
+# --------------------------------------------------------------------- #
+ZOO_TOL = 1e-4  # float32 on the card vs float64 on the CPU, of 1 + |ref|
+ZOO_DRAWS = 1000000
+ZOO_SES = 4.0  # moments within this many standard errors
+GAUSS_REL_STD = 0.2  # tests/test_examples.py:24's gate on gaussian.py
+GAUSS_STEP = 0.1  # K1 vs plain at gaussian.py's width: near its adapted step
+EXAMPLE_TAIL = 20
+VDROP_MIN_ACC = 0.5
+
+
+def _zoo_log_prob_cases(np):
+    """``(name, args, kwargs, given)`` with float64 numpy parameters: each
+    class of phase 23, at batch shapes of a few hundred
+    elements, values inside the support (and outside it for Uniform)."""
+    rng = np.random.RandomState(23)
+    b = (64, 8)
+
+    def pos(*shape):
+        return 0.5 + 2.0 * rng.rand(*shape)
+
+    def simplex(*shape):
+        x = rng.rand(*shape) + 0.05
+        return x / x.sum(-1, keepdims=True)
+
+    def tril(*shape):
+        a = np.tril(rng.randn(*shape) * 0.3, -1)
+        return a + np.eye(shape[-1]) * (0.5 + rng.rand(*shape[:-1], 1))
+
+    lo = rng.randn(*b)
+    logits5 = rng.randn(64, 5)
+    counts = np.stack([rng.multinomial(10, [0.2] * 5) for _ in range(64)])
+    return [
+        ("FoldNormal", (rng.randn(*b),), {"std": pos(*b)},
+         np.abs(rng.randn(*b))),
+        ("Categorical", (rng.randn(64, 8, 5),), {},
+         rng.randint(0, 5, size=b)),
+        ("Uniform", (lo, lo + pos(*b)), {}, lo + 1.5 * rng.rand(*b)),
+        ("Beta", (pos(*b), pos(*b)), {}, 0.05 + 0.9 * rng.rand(*b)),
+        ("Poisson", (4.0 * pos(*b),), {}, rng.randint(0, 12, size=b)),
+        ("Binomial", (rng.randn(*b), 30), {}, rng.randint(0, 31, size=b)),
+        ("InverseGamma", (pos(*b) + 1.0, pos(*b)), {}, pos(*b)),
+        ("Laplace", (rng.randn(*b), pos(*b)), {}, 3.0 * rng.randn(*b)),
+        ("BinConcrete", (np.array(0.7), rng.randn(*b)), {},
+         0.01 + 0.98 * rng.rand(*b)),
+        ("Multinomial", (logits5, 10), {}, counts),
+        ("UnnormalizedMultinomial", (logits5,), {}, counts),
+        ("OnehotCategorical", (logits5,), {},
+         np.eye(5, dtype=np.int64)[rng.randint(0, 5, size=64)]),
+        ("Dirichlet", (pos(64, 5),), {}, simplex(64, 5)),
+        ("ExpConcrete", (np.array(0.6), logits5), {},
+         np.log(simplex(64, 5))),
+        ("Concrete", (np.array(0.6), logits5), {}, simplex(64, 5)),
+        ("MatrixVariateNormalCholesky",
+         (rng.randn(16, 3, 4), tril(16, 3, 3), tril(4, 4)), {},
+         rng.randn(16, 3, 4)),
+        ("MultivariateStudentTCholesky",
+         (3.0 + 5.0 * rng.rand(16), rng.randn(16, 3), tril(16, 3, 3)), {},
+         2.0 * rng.randn(16, 3)),
+    ]
+
+
+def _zoo_dist(torch, np, zd, name, args, kwargs, dtype, dev):
+    def conv(v):
+        return (torch.tensor(v, dtype=dtype, device=dev)
+                if isinstance(v, np.ndarray) else v)
+
+    return getattr(zd, name)(*[conv(a) for a in args],
+                             **{k: conv(v) for k, v in kwargs.items()})
+
+
+def _moments_ok(torch, x, mean, var):
+    """``(ok, worst)``: the draws' mean and variance (over the leading
+    axis, in float64) within ``ZOO_SES`` standard errors of ``mean`` and
+    ``var``; the variance's standard error from the draws' fourth central
+    moment. ``worst`` is the largest deviation in standard errors."""
+    x = x.double()
+    n = x.shape[0]
+    m = x.mean(0)
+    c = x - m
+    v = (c * c).mean(0)
+    m4 = (c ** 4).mean(0)
+    mean = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
+    var = torch.as_tensor(var, dtype=torch.float64, device=x.device)
+    z_mean = (m - mean).abs() / torch.sqrt(var / n)
+    z_var = (v - var).abs() / torch.sqrt(torch.clamp(m4 - v * v,
+                                                     min=1e-30) / n)
+    worst = float(torch.maximum(z_mean.max(), z_var.max()))
+    return worst < ZOO_SES, worst
+
+
+def phase_distribution_zoo(torch, dev):
+    """Phase 23 (budget 15 s): the 17 distributions of ``univariate.py``
+    and ``multivariate.py`` beyond ``Normal``, ``Bernoulli``, ``Gamma`` and
+    ``MultivariateNormalCholesky``, on the card."""
+    import numpy as np
+
+    from zhusuan_tpu_torch import distributions as zd
+
+    failures, log_prob_err = [], {}
+    for name, args, kwargs, given in _zoo_log_prob_cases(np):
+        got_d = _zoo_dist(torch, np, zd, name, args, kwargs, torch.float32,
+                          dev)
+        want_d = _zoo_dist(torch, np, zd, name, args, kwargs, torch.float64,
+                           torch.device("cpu"))
+        if given.dtype.kind == "i":
+            g_dev = torch.tensor(given, dtype=torch.int32, device=dev)
+            g_cpu = torch.tensor(given, dtype=torch.int32)
+        else:
+            g_dev = torch.tensor(given, dtype=torch.float32, device=dev)
+            g_cpu = torch.tensor(given, dtype=torch.float64)
+        got = got_d.log_prob(g_dev)
+        check(got.is_cuda and got.dtype == torch.float32,
+              "{}: log_prob not float32 on the card".format(name))
+        got = got.double().cpu()
+        want = want_d.log_prob(g_cpu)
+        fin = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), fin):
+            failures.append("{}: log_prob finite on one side only".format(
+                name))
+            continue
+        rel = float(((got - want).abs()[fin] / (1.0 + want.abs()[fin]))
+                    .max())
+        log_prob_err[name] = rel
+        if not rel <= ZOO_TOL:
+            failures.append("{}: float32 log_prob off by {} of 1 + |ref|"
+                            .format(name, rel))
+
+    def f32(*v):  # one value: a 0-d tensor
+        return torch.tensor(v if len(v) > 1 else v[0], dtype=torch.float32,
+                            device=dev)
+
+    def sig(x):
+        return 1.0 / (1.0 + math.exp(-x))
+
+    logits4 = [0.3, -0.2, 1.1, -1.0]
+    p4 = np.exp(logits4) / np.exp(logits4).sum()
+    mu0, sd0 = 0.5, 1.5
+    fold_mean = (sd0 * math.sqrt(2 / math.pi) * math.exp(
+        -mu0 ** 2 / (2 * sd0 ** 2)) + mu0 * math.erf(mu0 / math.sqrt(2)
+                                                      / sd0))
+    alpha3 = np.array([2.0, 3.0, 4.0])
+    a0 = alpha3.sum()
+    u_tril = np.array([[1.2, 0.0, 0.0], [0.3, 0.8, 0.0], [-0.2, 0.4, 1.1]])
+    v_tril = np.array([[0.9, 0.0], [0.5, 0.7]])
+    uu, vv = u_tril @ u_tril.T, v_tril @ v_tril.T
+    df = 9.0
+    t_scale = np.diag(u_tril @ u_tril.T) * df / (df - 2.0)
+    pb = sig(0.4)
+    # (label, distribution, draws -> statistic, exact mean, exact var)
+    moment_cases = [
+        ("FoldNormal", zd.FoldNormal(f32(mu0), std=sd0), None, fold_mean,
+         mu0 ** 2 + sd0 ** 2 - fold_mean ** 2),
+        ("Categorical", zd.Categorical(f32(*logits4)),
+         lambda x: torch.nn.functional.one_hot(x.long(), 4), p4,
+         p4 * (1 - p4)),
+        ("Uniform", zd.Uniform(f32(-1.0), f32(3.0)), None, 1.0, 16.0 / 12),
+        ("Beta", zd.Beta(f32(2.0), f32(3.0)), None, 0.4, 0.04),
+        ("Beta(reparameterized)", zd.Beta(f32(2.0), f32(3.0),
+                                          is_reparameterized=True), None,
+         0.4, 0.04),
+        ("Poisson", zd.Poisson(f32(7.0)), None, 7.0, 7.0),
+        ("Binomial(n=20)", zd.Binomial(f32(0.4), 20), None, 20 * pb,
+         20 * pb * (1 - pb)),
+        ("Binomial(n=500)", zd.Binomial(f32(0.4), 500), None, 500 * pb,
+         500 * pb * (1 - pb)),
+        ("InverseGamma", zd.InverseGamma(f32(9.0), f32(2.0)), None, 0.25,
+         4.0 / (64.0 * 7.0)),
+        ("Laplace", zd.Laplace(f32(1.0), f32(2.0)), None, 1.0, 8.0),
+        ("BinConcrete", zd.BinConcrete(f32(1.0), f32(0.7)),
+         lambda x: (x > 0.5).double(), sig(0.7), sig(0.7) * (1 - sig(0.7))),
+        ("Multinomial(n=7)", zd.Multinomial(f32(*logits4), 7), None,
+         7 * p4, 7 * p4 * (1 - p4)),
+        ("Multinomial(n=300)", zd.Multinomial(f32(*logits4), 300), None,
+         300 * p4, 300 * p4 * (1 - p4)),
+        ("OnehotCategorical", zd.OnehotCategorical(f32(*logits4)), None, p4,
+         p4 * (1 - p4)),
+        ("Dirichlet", zd.Dirichlet(f32(*alpha3)), None, alpha3 / a0,
+         alpha3 * (a0 - alpha3) / (a0 ** 2 * (a0 + 1))),
+        ("Dirichlet(reparameterized)", zd.Dirichlet(
+            f32(*alpha3), is_reparameterized=True), None, alpha3 / a0,
+         alpha3 * (a0 - alpha3) / (a0 ** 2 * (a0 + 1))),
+        # The arg-max class of a Concrete draw follows softmax(logits) at
+        # any temperature.
+        ("ExpConcrete", zd.ExpConcrete(f32(0.5), f32(*logits4)),
+         lambda x: torch.nn.functional.one_hot(x.argmax(-1), 4), p4,
+         p4 * (1 - p4)),
+        ("Concrete", zd.Concrete(f32(0.5), f32(*logits4)),
+         lambda x: torch.nn.functional.one_hot(x.argmax(-1), 4), p4,
+         p4 * (1 - p4)),
+        ("MatrixVariateNormalCholesky", zd.MatrixVariateNormalCholesky(
+            torch.zeros(3, 2, device=dev),
+            torch.tensor(u_tril, dtype=torch.float32, device=dev),
+            torch.tensor(v_tril, dtype=torch.float32, device=dev)), None,
+         np.zeros((3, 2)), np.outer(np.diag(uu), np.diag(vv))),
+        ("MultivariateStudentTCholesky", zd.MultivariateStudentTCholesky(
+            f32(df), f32(0.5, -1.0, 2.0),
+            torch.tensor(u_tril, dtype=torch.float32, device=dev)), None,
+         np.array([0.5, -1.0, 2.0]), t_scale),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    moments = {}
+    for label, dist, stat, mean, var in moment_cases:
+        x = dist.sample(gen, ZOO_DRAWS)
+        check(x.is_cuda, "{}: samples not on the card".format(label))
+        ok, worst = _moments_ok(torch, stat(x) if stat else x, mean, var)
+        moments[label] = worst
+        if not ok:
+            failures.append("{}: a moment {:.2f} standard errors off".format(
+                label, worst))
+
+    # Reparameterized draws carry finite gradients into every parameter.
+    def leaf(*v):
+        return f32(*v).requires_grad_(True)
+
+    eye3 = torch.eye(3, device=dev)
+    grad_cases = [
+        ("FoldNormal", lambda p: zd.FoldNormal(p[0], std=p[1]),
+         [leaf(0.5), leaf(1.5)]),
+        ("Uniform", lambda p: zd.Uniform(p[0], p[1]), [leaf(-1.0),
+                                                      leaf(2.0)]),
+        ("Laplace", lambda p: zd.Laplace(p[0], p[1]), [leaf(1.0), leaf(2.0)]),
+        ("BinConcrete", lambda p: zd.BinConcrete(p[0], p[1]),
+         [leaf(0.7), leaf(0.3, -1.0)]),
+        ("ExpConcrete", lambda p: zd.ExpConcrete(p[0], p[1]),
+         [leaf(0.7), leaf(*logits4)]),
+        ("Concrete", lambda p: zd.Concrete(p[0], p[1]),
+         [leaf(0.7), leaf(*logits4)]),
+        ("Beta", lambda p: zd.Beta(p[0], p[1], is_reparameterized=True),
+         [leaf(2.0), leaf(3.0)]),
+        ("InverseGamma", lambda p: zd.InverseGamma(
+            p[0], p[1], is_reparameterized=True), [leaf(5.0), leaf(2.0)]),
+        ("Dirichlet", lambda p: zd.Dirichlet(p[0], is_reparameterized=True),
+         [leaf(2.0, 3.0, 4.0)]),
+        ("MatrixVariateNormalCholesky",
+         lambda p: zd.MatrixVariateNormalCholesky(p[0], p[1], p[2]),
+         [torch.zeros(3, 2, device=dev, requires_grad=True),
+          (1.5 * eye3).requires_grad_(True),
+          torch.eye(2, device=dev, requires_grad=True)]),
+        # df enters the draw detached (its density gradient stays exact).
+        ("MultivariateStudentTCholesky",
+         lambda p: zd.MultivariateStudentTCholesky(f32(9.0), p[0], p[1]),
+         [leaf(0.5, -1.0, 2.0), eye3.clone().requires_grad_(True)]),
+    ]
+    grads_finite = {}
+    for label, make, params in grad_cases:
+        x = make(params).sample(gen, 10000)
+        torch.sum(torch.sin(x)).backward()
+        grads_finite[label] = all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            for p in params)
+        if not grads_finite[label]:
+            failures.append("{}: a non-finite sample gradient".format(label))
+
+    # Every site of a model on the card enumerated: ``observed`` is empty,
+    # the int supports are made on the host, and the whole joint sums to
+    # log 1 = 0.
+    from zhusuan_tpu_torch import framework as zf
+
+    lg = f32(*logits4)
+
+    @zf.meta_bayesian_net()
+    def all_discrete():
+        bn = zf.BayesianNet()
+        bn.categorical("z", lg)
+        bn.bernoulli("b", lg[0] - lg[1])
+        bn.onehot_categorical("o", lg, dtype=torch.float32)
+        return bn
+
+    lp = zf.marginalize(all_discrete(), {
+        "z": 4, "b": 2, "o": torch.eye(4, device=dev)})({})
+    enumerated_err = float(lp.abs())
+    if not (lp.is_cuda and enumerated_err <= 1e-5):
+        failures.append("marginalize with every site enumerated: log 1 off "
+                        "by {} (on {})".format(enumerated_err, lp.device))
+    print("phase23 distribution_zoo " + json.dumps({
+        "log_prob_max_rel_err_f32_vs_f64": log_prob_err,
+        "moments_worst_standard_errors": moments, "draws": ZOO_DRAWS,
+        "reparameterized_gradients_finite": grads_finite,
+        "marginalize_all_enumerated_abs_err": enumerated_err}))
+    check(not failures, "distribution zoo: " + "; ".join(failures))
+
+
+def phase_gaussian_example(torch, dev):
+    """Phase 24 (budget 15 s): ``examples/toy_examples/gaussian.py`` at its
+    full recipe on both routes, and K1 against its plain version at its
+    width."""
+    from zhusuan_tpu_torch.examples.toy_examples import gaussian
+    from zhusuan_tpu_torch.ops.hmc_step import (
+        fused_hmc_step, fused_hmc_step_reference,
+    )
+
+    routes = {}
+    for fused in (True, False):
+        # An untimed run first: a route's first run in a process pays its
+        # warm-up (0.49 s against 0.08-0.12 s for `--fused` on the H100).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gaussian.run(dev, fused)
+        torch.cuda.synchronize()
+        first_sec = time.perf_counter() - t0
+        fused_hmc_step.launches = 0
+        t0 = time.perf_counter()
+        state, out, rel_err = gaussian.run(dev, fused)
+        torch.cuda.synchronize()
+        routes["fused" if fused else "model"] = {
+            "wall_sec": time.perf_counter() - t0,
+            "first_run_wall_sec": first_sec,
+            "launches": fused_hmc_step.launches,
+            "max_rel_std_err": float(rel_err.max()),
+            "mean_acceptance": float(out["acceptance_rate"].mean()),
+            "step_size": float(state.step_size)}
+    fused_rec, model_rec = routes["fused"], routes["model"]
+    check(fused_rec["launches"] == gaussian.N_ITERS,
+          "gaussian.py --fused launched K1 {} times, not {}".format(
+              fused_rec["launches"], gaussian.N_ITERS))
+    check(model_rec["launches"] == 0,
+          "gaussian.py's model route launched K1")
+    for name, rec in routes.items():
+        check(rec["max_rel_std_err"] < GAUSS_REL_STD,
+              "gaussian.py {}: std relative error {}".format(
+                  name, rec["max_rel_std_err"]))
+
+    # K1 against its plain version at gaussian.py's shape: its density,
+    # positions in the typical set, an adapted-looking mass, injected
+    # noise; every MH decision the same.
+    c, d = gaussian.N_CHAINS, gaussian.N_X
+    g = torch.Generator(device=dev).manual_seed(24)
+    dens = gaussian.log_joint(True, device=dev)
+    q = dens.scale * torch.randn(c, d, generator=g, device=dev)
+    mass = 1.0 / torch.square(dens.scale)[None] * (
+        0.8 + 0.4 * torch.rand(1, d, generator=g, device=dev))
+    noise = (torch.randn(c, d, generator=g, device=dev),
+             torch.rand(c, generator=g, device=dev))
+    got = fused_hmc_step(dens, q, mass, GAUSS_STEP, gaussian.N_LEAPFROGS,
+                         (1, 2), 1, noise=noise)
+    torch.cuda.synchronize()
+    want = fused_hmc_step_reference(dens, q, mass, GAUSS_STEP,
+                                    gaussian.N_LEAPFROGS, (1, 2), 1,
+                                    noise=noise)
+    u = noise[1]
+    differing = int(((u < got[2]) != (u < want[2])).sum())
+    names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
+    errs = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(names, got, want)}
+    check(differing == 0, "K1 at {}x{}: {} chains take the other MH "
+                          "decision".format(c, d, differing))
+    worst = max(errs[n] / (1.0 + float(w.float().abs().max()))
+                for n, w in zip(names, want))
+    check(worst <= Q_TOL, "K1 at {}x{}: outputs differ by {} of 1 + |ref|"
+          .format(c, d, worst))
+    step = torch.full((), GAUSS_STEP, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def plain():
+        return fused_hmc_step_reference(
+            dens, q, mass, step, gaussian.N_LEAPFROGS, None, 1,
+            noise=(torch.randn(c, d, generator=gen, device=dev),
+                   torch.rand(c, generator=gen, device=dev)))
+
+    timing = {
+        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, gaussian.N_LEAPFROGS, (3, 4), 1), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, gaussian.N_LEAPFROGS, (3, 4), 1), 20),
+        "plain_ms": _time_ms(torch, plain, 20),
+        **_hmc_step_bound(c, d, gaussian.N_LEAPFROGS, "diagonal"),
+        "shape": [c, d], "decisions_differing": differing,
+        "accept_rate": float((u < want[2]).float().mean()),
+        "max_abs_err": errs}
+    print("phase24 gaussian_example " + json.dumps({
+        "routes": routes, "k1_vs_plain": timing}))
+    return fused_rec["launches"], max(errs.values()), timing
+
+
+def phase_example_trainings(torch, dev):
+    """Phase 25 (budget 30 s): the four training examples at full width,
+    one epoch each through their own step functions."""
+    from zhusuan_tpu_torch.examples import acceptance
+
+    recs, failures = {}, []
+    for name in ("bernoulli_latent_vae", "gumbel_softmax_vae", "vae_conv",
+                 "variational_dropout"):
+        rec = acceptance.run(name, dev, tail=EXAMPLE_TAIL)
+        recs[name] = rec
+        print("phase25 {} {}".format(name, json.dumps(rec)), flush=True)
+        if not rec["finite"]:
+            failures.append(name + ": a non-finite bound")
+        if not rec["last_mean"] > rec["first_mean"]:
+            failures.append("{}: the bound did not rise ({} -> {})".format(
+                name, rec["first_mean"], rec["last_mean"]))
+    acc = recs["variational_dropout"]["test_acc"]
+    if not acc > VDROP_MIN_ACC:
+        failures.append("variational dropout: test accuracy {}".format(acc))
+    check(not failures, "examples: " + "; ".join(failures))
+    return recs
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2874,6 +3303,10 @@ def main():
     run_phase("phase20", phase_iwae_main_path, torch, dev)
     run_phase("phase21", phase_sbn_main_path, torch, dev)
     run_phase("phase22", phase_configs, torch, dev)
+    run_phase("phase23", phase_distribution_zoo, torch, dev)
+    gauss_launches, gauss_err, gauss_t = run_phase(
+        "phase24", phase_gaussian_example, torch, dev)
+    run_phase("phase25", phase_example_trainings, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -2974,6 +3407,18 @@ def main():
         "ms": ms,
         "plain_ms": plain_ms,
         **bound(_hmc_step_bound(N_CHAINS, DIM, 5, "diagonal")),
+    }, {
+        "name": "fused_hmc_step (gaussian.py, 1000 x 10)",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/hmc_step.py:206",
+        "launches": gauss_launches,
+        "max_abs_err": gauss_err,
+        "ms": gauss_t["kernel_ms"],
+        "ms_graph": gauss_t["kernel_graph_ms"],
+        "plain_ms": gauss_t["plain_ms"],
+        **bound(gauss_t),
+        "shape": gauss_t["shape"],
     }, {
         "name": "fused_nuts_transition",
         "route": "cuda",

@@ -1,5 +1,7 @@
-"""Where the time goes in a training step of the VAE, IWAE and SBN paths
-and of the toy2d and BNN configurations (``PERF.md`` section 5).
+"""Where the time goes in a training step of the VAE, IWAE and SBN paths,
+of the toy2d and BNN configurations and of the Bernoulli-latent,
+Gumbel-softmax and convolutional VAEs and variational dropout
+(``PERF.md`` section 5).
 
 The VAE runs the main path of ``chip_smoke.py`` phase 19,
 ``vae.fit_protocol`` (784-500-500-40, batch 128, one particle, the VAE
@@ -11,7 +13,9 @@ run their example's own train step at the full width of phases 20-22
 (the VAE's nets, k = 50, batch 64), the SBN with VIMCO (784-200-200-200,
 k = 10, batch 24), toy2d SGVB (500 particles), the BNN with SGVB ([13, 50,
 1], batch 10, 10 particles) and with SGHMC ([9, 50, 1], batch 100, 20
-particles): 30 warm-up steps, ``--steps`` steps timed without the
+particles), and the four training examples at their full widths (batch
+128; variational dropout batch 1000, 10 particles): 30 warm-up steps,
+``--steps`` steps timed without the
 profiler, then ``--steps`` more under ``torch.profiler``. Each path prints
 one JSON line: wall time per step, device time per step (the sum of the
 device activities' durations), the busy share (device over wall), device

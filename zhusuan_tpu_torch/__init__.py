@@ -17,7 +17,12 @@ driven by :mod:`.examples.gaussian_process.svgp`; the bijectors
 (:func:`.ops.gpu_normal`, :func:`.ops.gpu_uniform`); ``Bernoulli``, the
 importance-weighted objectives (IWAE, DReG, VIMCO), the IS evaluation
 (:mod:`.evaluation`) and the packaged training loop (:func:`.fit.fit_scan`),
-driven by the VAE, IWAE, SBN, toy2d and BNN examples under :mod:`.examples`.
+driven by the VAE, IWAE, SBN, toy2d and BNN examples under :mod:`.examples`;
+the rest of the model path (every distribution of ``univariate.py`` and
+``multivariate.py`` with its ``BayesianNet`` method, :func:`marginalize`,
+:func:`posterior_predictive`), driven by the Gaussian HMC toy, the
+Bernoulli-latent, Gumbel-softmax and convolutional VAEs and variational
+dropout.
 """
 
 from zhusuan_tpu_torch import (
@@ -37,7 +42,9 @@ from zhusuan_tpu_torch.framework import (
     BayesianNet,
     MetaBayesianNet,
     StochasticTensor,
+    marginalize,
     meta_bayesian_net,
+    posterior_predictive,
 )
 from zhusuan_tpu_torch.mcmc import (
     HMC,
@@ -78,7 +85,9 @@ __all__ = [
     "BayesianNet",
     "MetaBayesianNet",
     "StochasticTensor",
+    "marginalize",
     "meta_bayesian_net",
+    "posterior_predictive",
     "ADVIResult",
     "ChEESHMC",
     "ChEESInfo",

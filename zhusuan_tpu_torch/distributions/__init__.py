@@ -1,22 +1,17 @@
 """Distributions (port of ``zhusuan_tpu/distributions``).
 
-Ported so far: the :class:`Distribution` base, :class:`Normal` and
-:class:`MultivariateNormalCholesky` (the SVGP path), :class:`Gamma` (the
-positive-support latent of the automatic guides) and :class:`Bernoulli`
-(the VAE likelihood and the sigmoid belief nets' layers). The rest of
-``univariate.py`` and ``multivariate.py``, and ``extra.py``, ``lkj.py``,
-``wishart.py``, ``mixture.py`` and ``flow.py``, come with later slices.
+Ported so far: the :class:`Distribution` base, all fourteen names of
+``univariate.py`` and all thirteen of ``multivariate.py`` (the JAX
+package's ``MultivariateStudentTCholesky`` among them), under the JAX
+names, aliases included. ``extra.py``, ``lkj.py``, ``wishart.py``,
+``mixture.py``, ``special.py`` and ``flow.py`` are not ported yet.
 """
 
+from zhusuan_tpu_torch.distributions import utils  # noqa: F401
+from zhusuan_tpu_torch.distributions import multivariate as _multi
+from zhusuan_tpu_torch.distributions import univariate as _uni
 from zhusuan_tpu_torch.distributions.base import Distribution
-from zhusuan_tpu_torch.distributions.multivariate import (
-    MultivariateNormalCholesky,
-)
-from zhusuan_tpu_torch.distributions.univariate import (
-    Bernoulli,
-    Gamma,
-    Normal,
-)
+from zhusuan_tpu_torch.distributions.multivariate import *  # noqa: F401,F403
+from zhusuan_tpu_torch.distributions.univariate import *  # noqa: F401,F403
 
-__all__ = ["Bernoulli", "Distribution", "Gamma",
-           "MultivariateNormalCholesky", "Normal"]
+__all__ = ["Distribution"] + _uni.__all__ + _multi.__all__

@@ -8,10 +8,15 @@ base.py:150-157).
 
 Divergences from the JAX package: ``sample`` takes an explicit
 ``torch.Generator`` on the parameters' device in place of a PRNG key, and
-an ``eps=`` testing hook that supplies the distribution's base draws (the
-standard normals of ``Normal`` and ``MultivariateNormalCholesky``, the
-uniforms of ``Bernoulli``), so tests can feed both packages the same
-numbers; ``path_param`` detaches.
+an ``eps=`` testing hook that supplies the distribution's base draws, so
+tests can feed both packages the same numbers; ``path_param`` detaches.
+The base draws are standard normals
+(``Normal``, ``FoldNormal`` and the Gaussian heads), uniforms on [0, 1)
+(``Bernoulli``, ``Uniform``, small-``n`` ``Binomial``) or uniforms on the
+open interval (0, 1) (the Gumbel and logistic samplers of
+``Categorical``, ``OnehotCategorical``, small-``n`` ``Multinomial`` and the
+Concrete family, and ``Laplace``); a sampler built on torch's gamma,
+beta, Poisson or binomial samplers takes no ``eps=``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from zhusuan_tpu_torch.distributions.utils import (
+    open_interval_standard_uniform,
+)
 from zhusuan_tpu_torch.framework.arith import unwrap
 
 __all__ = ["Distribution"]
@@ -155,9 +163,11 @@ class Distribution:
         ``base.py:237-263``).
 
         :param generator: a ``torch.Generator`` on :attr:`device`.
-        :param eps: optional base draws of the sample's shape that replace
-            the generator's (a testing hook): standard normals for the
-            Gaussian heads, uniforms on [0, 1) for :class:`Bernoulli`.
+        :param eps: optional base draws that replace the generator's (a
+            testing hook; see the module docstring for each class's): of
+            the sample's shape, but for small-``n`` ``Binomial`` and
+            ``Multinomial`` (an axis of ``n`` after the sample axis) and
+            the categorical heads (an axis of ``K`` last).
         """
         if n_samples is None:
             if eps is not None:
@@ -188,6 +198,27 @@ class Distribution:
         return self._base_draws(torch.rand, self._param_dtype, generator,
                                 shape, eps)
 
+    def _open_uniforms(self, generator, shape, eps):
+        """Uniforms on the open interval (0, 1) of ``shape`` in the
+        parameter dtype on :attr:`device` (see
+        :func:`~zhusuan_tpu_torch.distributions.utils.
+        open_interval_standard_uniform`): ``eps`` when given (checked),
+        else drawn from ``generator``."""
+        return self._base_draws(
+            lambda shape, **kw: open_interval_standard_uniform(shape=shape,
+                                                               **kw),
+            self._param_dtype, generator, shape, eps)
+
+    def _no_eps(self, eps, generator, sampler):
+        """The check of a sampler that takes no base draws: ``eps`` must be
+        None and ``generator`` given."""
+        if eps is not None:
+            raise ValueError(
+                "{} draws from {}, which is not a transform of base draws: "
+                "it takes no eps.".format(type(self).__name__, sampler))
+        if generator is None:
+            raise ValueError("Sampling needs a torch.Generator.")
+
     def _base_draws(self, draw, dtype, generator, shape, eps):
         if eps is not None:
             eps = torch.as_tensor(eps, dtype=dtype, device=self._device)
@@ -205,6 +236,10 @@ class Distribution:
         given = unwrap(given)
         if not isinstance(given, torch.Tensor):
             given = torch.as_tensor(given, device=self._device)
+        elif given.device.type == "cpu" and self._device.type != "cpu":
+            # A value made on the host (an enumerated support, an index)
+            # scores on the card beside the parameters.
+            given = given.to(self._device)
         if self.is_continuous or not given.is_floating_point():
             given = given.to(self.dtype)
         else:

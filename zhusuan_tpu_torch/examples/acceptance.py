@@ -3,7 +3,11 @@
 Each configuration of :mod:`~zhusuan_tpu_torch.examples.utils.protocols`
 (the port's copy of ``baseline_ref/configs_protocol.py`` and
 ``vae_protocol.py``) but the VAE protocol, which :func:`run_vae_protocol`
-runs through ``fit_scan``, has a step builder in :data:`STEPS`:
+runs through ``fit_scan``, and each training example without a protocol
+(the Bernoulli-latent, Gumbel-softmax and convolutional VAEs and
+variational dropout, at their full widths on the loaders' MNIST, one
+epoch by default: :func:`epoch_steps`) has a step builder in
+:data:`STEPS`:
 ``STEPS[name](device, n_steps, seed) -> (step, extras)``, where
 ``step(i)`` runs training step ``i`` through the example's own functions
 and returns its metric (a detached 0-d tensor, no host sync) and
@@ -23,22 +27,40 @@ extras.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
 import torch
 
-from zhusuan_tpu_torch.examples.bayesian_neural_nets import bnn_sgmcmc, bnn_vi
+from zhusuan_tpu_torch.examples.bayesian_neural_nets import (
+    bnn_sgmcmc,
+    bnn_vi,
+)
+from zhusuan_tpu_torch.examples.bayesian_neural_nets import (
+    variational_dropout as vdrop,
+)
 from zhusuan_tpu_torch.examples.sigmoid_belief_nets import sbn, sbn_vimco
 from zhusuan_tpu_torch.examples.toy_examples import toy2d_intractable as toy
 from zhusuan_tpu_torch.examples.utils import protocols
-from zhusuan_tpu_torch.examples.utils.dataset import regression_splits
-from zhusuan_tpu_torch.examples.variational_autoencoders import iwae, vae
+from zhusuan_tpu_torch.examples.utils.dataset import (
+    epoch_batches,
+    load_binary_mnist,
+    regression_splits,
+)
+from zhusuan_tpu_torch.examples.variational_autoencoders import (
+    bernoulli_latent_vae,
+    gumbel_softmax_vae,
+    iwae,
+    vae,
+    vae_conv,
+)
 from zhusuan_tpu_torch.fit import draw_keys
 from zhusuan_tpu_torch.ops._random import philox_key
 from zhusuan_tpu_torch.utils import tree_leaves
 
-__all__ = ["TAIL", "STEPS", "RECIPES", "run", "run_vae_protocol"]
+__all__ = ["TAIL", "STEPS", "RECIPES", "EXAMPLES", "epoch_steps", "run",
+           "run_vae_protocol"]
 
 TAIL = 100
 IWAE_PARTICLES = 50
@@ -165,9 +187,163 @@ def iwae_step(device, n_steps, seed=20):
     return step, _no_extras
 
 
+@functools.lru_cache(maxsize=1)
+def _binary_mnist_train():
+    return load_binary_mnist()[0]
+
+
+@functools.lru_cache(maxsize=1)
+def _vdrop_data():
+    return vdrop.load_data()
+
+
+# Each training example without a protocol, as its own ``main`` loops
+# over its data: (training inputs, batch size, first epoch, most batches
+# an epoch).
+EXAMPLES = {
+    "bernoulli_latent_vae": (_binary_mnist_train, 128, 1, None),
+    "gumbel_softmax_vae": (_binary_mnist_train, 128, 0, None),
+    "vae_conv": (_binary_mnist_train, 128, 1, vae_conv.MAX_STEPS_PER_EPOCH),
+    "variational_dropout": (lambda: _vdrop_data()[0], 1000, 1, None),
+}
+
+
+def _epoch(name, k, device=None):
+    """The row indices ``[n_batches, batch_size]`` of the ``k``-th epoch
+    (from 0) of example ``name``'s own loop."""
+    inputs, batch_size, first_epoch, max_batches = EXAMPLES[name]
+    return torch.as_tensor(epoch_batches(
+        inputs().shape[0], batch_size, first_epoch + k, max_batches),
+        device=device)
+
+
+def epoch_steps(name):
+    """The steps of one epoch of training example ``name``."""
+    return len(_epoch(name, 0))
+
+
+def _example_rows(name, device):
+    """``rows(i)``: the row indices of step ``i`` of example ``name``'s
+    own epoch loop, each epoch made on first use."""
+    epochs = {0: _epoch(name, 0, device)}
+    n_batches = len(epochs[0])
+
+    def rows(i):
+        k, j = divmod(i, n_batches)
+        if k not in epochs:
+            epochs[k] = _epoch(name, k, device)
+        return epochs[k][j]
+
+    return rows
+
+
+def _mnist_batches(name, device):
+    """``batch(i)``: step ``i``'s rows of the binarized MNIST."""
+    x = torch.as_tensor(_binary_mnist_train(), device=device)
+    rows = _example_rows(name, device)
+    return lambda i: x[rows(i)]
+
+
+def bernoulli_latent_vae_step(device, n_steps, seed=1234):
+    """The Bernoulli-latent VAE (784-500-500-40, REINFORCE with the
+    784-100-1 baseline and the moving-average center), batch 128, Adam
+    1e-3; the metric is the lower bound."""
+    params = bernoulli_latent_vae.init_params(
+        torch.Generator(device=device).manual_seed(seed))
+    train_step = bernoulli_latent_vae.make_train_step(
+        torch.optim.Adam(tree_leaves(params), lr=1e-3), 40)
+    batch = _mnist_batches("bernoulli_latent_vae", device)
+    keys = draw_keys(torch.Generator().manual_seed(seed), n_steps)
+    moving_mean = torch.zeros((), device=device)
+
+    def step(i):
+        nonlocal moving_mean
+        moving_mean, lb = train_step(params, moving_mean, batch(i), keys[i])
+        return lb
+
+    return step, _no_extras
+
+
+def gumbel_softmax_vae_step(device, n_steps, seed=1234, epochs=10):
+    """The Gumbel-softmax VAE (20 x 10 ExpConcrete latents, hidden 400),
+    batch 128, Adam 1e-3, the temperature of each step's epoch (1.0 down
+    to 0.5 over ``epochs``); the metric is the relaxed lower bound."""
+    params = gumbel_softmax_vae.init_params(
+        torch.Generator(device=device).manual_seed(seed))
+    train_step = gumbel_softmax_vae.make_train_step(
+        torch.optim.Adam(tree_leaves(params), lr=1e-3), 20, 10)
+    n_batches = epoch_steps("gumbel_softmax_vae")
+    batch = _mnist_batches("gumbel_softmax_vae", device)
+    keys = draw_keys(torch.Generator().manual_seed(seed), n_steps)
+    temps = [gumbel_softmax_vae.temperature(e, epochs, device)
+             for e in range(epochs)]
+
+    def step(i):
+        tau = temps[min(i // n_batches, epochs - 1)]
+        return train_step(params, batch(i), keys[i], tau)
+
+    return step, _no_extras
+
+
+def vae_conv_step(device, n_steps, seed=1234):
+    """The convolutional VAE (28x28x1 -> 14x14x32 -> 7x7x64 -> 500 -> z 40
+    and back by transposed convolutions), batch 128, Adam 1e-3, 300 steps
+    an epoch; the metric is the lower bound."""
+    params = vae_conv.init_params(
+        torch.Generator(device=device).manual_seed(seed))
+    train_step = vae_conv.make_train_step(
+        torch.optim.Adam(tree_leaves(params), lr=1e-3), 40)
+    batch = _mnist_batches("vae_conv", device)
+    keys = draw_keys(torch.Generator().manual_seed(seed), n_steps)
+    return (lambda i: train_step(params, batch(i), keys[i])), _no_extras
+
+
+VDROP_PARTICLES, VDROP_TEST = 10, 2000
+
+
+def variational_dropout_step(device, n_steps, seed=1234):
+    """Variational dropout (784-100-100-100-10, batch 1000, 10 particles,
+    Adam(1e-3, eps=1e-4)); the metric is the bound a training row (the
+    negative cost), the extras the last training batch's accuracy and the
+    test accuracy on 2000 rows from 100 particles."""
+    x_train, y_train, x_test, y_test, _ = _vdrop_data()
+    n_train = x_train.shape[0]
+    net_size = [x_train.shape[1], *vdrop.NET_HIDDEN, 10]
+    params = vdrop.init_params(
+        torch.Generator(device=device).manual_seed(seed), net_size)
+    train_step = vdrop.make_train_step(
+        torch.optim.Adam(tree_leaves(params), lr=1e-3, eps=1e-4), net_size,
+        n_train, VDROP_PARTICLES)
+    x_d = torch.as_tensor(x_train, device=device)
+    y_d = torch.as_tensor(y_train, device=device)
+    rows = _example_rows("variational_dropout", device)
+    gen = torch.Generator().manual_seed(seed)
+    keys = draw_keys(gen, n_steps)
+    last_acc = [None]
+
+    def step(i):
+        idx = rows(i)
+        cost, last_acc[0] = train_step(params, x_d[idx], y_d[idx], keys[i])
+        return -cost
+
+    def extras():
+        with torch.no_grad():
+            _, acc = vdrop.loss_fn(
+                params, torch.as_tensor(x_test[:VDROP_TEST], device=device),
+                torch.as_tensor(y_test[:VDROP_TEST], device=device),
+                draw_keys(gen, 1)[0], net_size, n_train, 100)
+        return {"train_acc_last_batch": float(last_acc[0]),
+                "test_acc": float(acc)}
+
+    return step, extras
+
+
 STEPS = {"toy2d": toy2d_step, "bnn_sgvb": bnn_sgvb_step,
          "bnn_sghmc": bnn_sghmc_step, "sbn_vimco": sbn_vimco_step,
-         "iwae": iwae_step}
+         "iwae": iwae_step, "bernoulli_latent_vae": bernoulli_latent_vae_step,
+         "gumbel_softmax_vae": gumbel_softmax_vae_step,
+         "vae_conv": vae_conv_step,
+         "variational_dropout": variational_dropout_step}
 RECIPES = {"toy2d": protocols.TOY2D, "bnn_sgvb": protocols.BNN_SGVB,
            "bnn_sghmc": protocols.BNN_SGHMC,
            "sbn_vimco": protocols.SBN_VIMCO}
@@ -182,7 +358,10 @@ def run(name, device, warmup=None, steps=None, tail=TAIL, seed=None):
     """``warmup`` untimed then ``steps`` timed steps of configuration
     ``name`` (the recipe's counts by default), timed by the host clock with
     the device synchronized at both ends."""
-    recipe = RECIPES.get(name, {})
+    # A training example without a protocol: one epoch, no untimed steps.
+    recipe = RECIPES.get(name) or (
+        {"warmup_steps": 0, "timed_steps": epoch_steps(name)}
+        if name in EXAMPLES else {})
     warmup = recipe["warmup_steps"] if warmup is None else int(warmup)
     steps = recipe["timed_steps"] if steps is None else int(steps)
     kwargs = {} if seed is None else {"seed": seed}

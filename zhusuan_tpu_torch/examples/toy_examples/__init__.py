@@ -1,2 +1,3 @@
 """Toy examples: mean-field SGVB on the 2-D intractable posterior
-(:mod:`.toy2d_intractable`)."""
+(:mod:`.toy2d_intractable`) and HMC on a diagonal Gaussian
+(:mod:`.gaussian`)."""

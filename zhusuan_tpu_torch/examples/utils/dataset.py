@@ -21,6 +21,7 @@ __all__ = [
     "synthetic_regression", "standardize", "regression_splits",
     "load_uci_boston_housing", "load_uci_diabetes", "save_uci_diabetes",
     "load_uci_protein_data", "load_mnist_realval", "load_binary_mnist",
+    "epoch_batches",
 ]
 
 
@@ -233,3 +234,15 @@ def load_binary_mnist(path=None, seed=0):
         (rng.rand(*x_test.shape) < x_test).astype(np.float32),
         synthetic,
     )
+
+
+def epoch_batches(n_rows, batch_size, epoch, max_batches=None):
+    """One epoch's batches of the training examples' loops: row indices
+    ``[n_batches, batch_size]``, a permutation by ``RandomState(epoch)``
+    cut into ``n_rows // batch_size`` batches (at most ``max_batches``);
+    the rows that fill no batch are left out."""
+    n = n_rows // batch_size
+    if max_batches is not None:
+        n = min(n, max_batches)
+    perm = np.random.RandomState(epoch).permutation(n_rows)
+    return perm[:n * batch_size].reshape(n, batch_size)

@@ -4,9 +4,10 @@ Port of ``zhusuan_tpu/framework/bn.py`` (parity: reference
 ``zhusuan/framework/bn.py``): ``StochasticTensor`` (bn.py:26-316) and
 ``BayesianNet`` with ``stochastic``/``deterministic``/``get``/
 ``cond_log_prob``/``log_joint`` (bn.py:319-497), the compatibility queries
-``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and so far four
-sugar methods, ``normal``, ``bernoulli``, ``gamma`` and
-``multivariate_normal_cholesky``; the other 32 come with their
+``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and the sugar
+methods of every distribution of ``univariate.py`` and ``multivariate.py``
+(21 methods and 6 aliases, in the JAX package's order); those of
+``extra.py``, ``special.py`` and ``mixture.py`` come with their
 distributions.
 
 Randomness: a net's ``key`` is an int seed. Each unobserved node draws from
@@ -16,7 +17,8 @@ its own ``torch.Generator`` on its distribution's device, seeded from
 depend on the order in which nodes are created. The numbers differ from
 JAX's; ``noise={name: eps}`` supplies a node's base draws instead (a
 testing hook, so both packages can be fed the same draws): the standard
-normals of a Gaussian node, the uniforms of a Bernoulli node (see
+normals of a Gaussian node, the uniforms of a Bernoulli node, the
+open-interval uniforms behind a categorical or Concrete node's Gumbels (see
 :meth:`~zhusuan_tpu_torch.distributions.Distribution.sample`).
 """
 
@@ -161,9 +163,10 @@ class BayesianNet(Context):
     :param key: int seed of the nodes' generators (see the module
         docstring); needed only to sample unobserved nodes.
     :param noise: optional ``{name: eps}`` replacing a node's base draws
-        (testing hook): standard normals for ``Normal`` and
-        ``MultivariateNormalCholesky`` nodes, uniforms on [0, 1) for
-        ``Bernoulli`` nodes, each of the sample's shape.
+        (testing hook), each of the shape its distribution's ``eps=``
+        takes: standard normals for the Gaussian nodes, uniforms on [0, 1)
+        for ``Bernoulli`` and ``Uniform`` nodes, uniforms on (0, 1) for the
+        categorical, Laplace and Concrete nodes.
     """
 
     def __init__(self, observed: Optional[Dict] = None, key=None,
@@ -364,6 +367,19 @@ class BayesianNet(Context):
             check_numerics=check_numerics, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
 
+    def fold_normal(
+        self, name, mean=0.0, _sentinel=None, std=None, logstd=None,
+        group_ndims=0, n_samples=None, is_reparameterized=True,
+        use_path_derivative=False, check_numerics=False, **kwargs,
+    ):
+        """Add a FoldNormal node (reference bn.py:592)."""
+        dist = distributions.FoldNormal(
+            mean, _sentinel=_sentinel, std=std, logstd=logstd,
+            group_ndims=group_ndims, is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
     def bernoulli(
         self, name, logits, group_ndims=0, n_samples=None,
         dtype=torch.int32, **kwargs,
@@ -373,6 +389,28 @@ class BayesianNet(Context):
             logits, group_ndims=group_ndims, dtype=dtype, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
 
+    def categorical(
+        self, name, logits, group_ndims=0, n_samples=None,
+        dtype=torch.int32, **kwargs,
+    ):
+        """Add a Categorical node (reference bn.py:656)."""
+        dist = distributions.Categorical(
+            logits, group_ndims=group_ndims, dtype=dtype, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    discrete = categorical
+
+    def uniform(
+        self, name, minval=0.0, maxval=1.0, group_ndims=0, n_samples=None,
+        is_reparameterized=True, check_numerics=False, **kwargs,
+    ):
+        """Add a Uniform node (reference bn.py:686)."""
+        dist = distributions.Uniform(
+            minval, maxval, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
     def gamma(
         self, name, alpha, beta, group_ndims=0, n_samples=None,
         check_numerics=False, **kwargs,
@@ -380,6 +418,36 @@ class BayesianNet(Context):
         """Add a Gamma node (reference bn.py:718)."""
         dist = distributions.Gamma(
             alpha, beta, group_ndims=group_ndims,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def beta(
+        self, name, alpha, beta, group_ndims=0, n_samples=None,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Beta node (reference bn.py:748)."""
+        dist = distributions.Beta(
+            alpha, beta, group_ndims=group_ndims,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def poisson(
+        self, name, rate, group_ndims=0, n_samples=None, dtype=torch.int32,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Poisson node (reference bn.py:778)."""
+        dist = distributions.Poisson(
+            rate, group_ndims=group_ndims, dtype=dtype,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def binomial(
+        self, name, logits, n_experiments, group_ndims=0, n_samples=None,
+        dtype=torch.int32, check_numerics=False, **kwargs,
+    ):
+        """Add a Binomial node (reference bn.py:808)."""
+        dist = distributions.Binomial(
+            logits, n_experiments, group_ndims=group_ndims, dtype=dtype,
             check_numerics=check_numerics, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
 
@@ -395,3 +463,142 @@ class BayesianNet(Context):
             use_path_derivative=use_path_derivative,
             check_numerics=check_numerics, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
+
+    def multivariate_student_t_cholesky(
+        self, name, df, loc, scale_tril, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a MultivariateStudentTCholesky node (the JAX package's,
+        beyond the reference)."""
+        dist = distributions.MultivariateStudentTCholesky(
+            df, loc, scale_tril, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def matrix_variate_normal_cholesky(
+        self, name, mean, u_tril, v_tril, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a MatrixVariateNormalCholesky node (reference bn.py:872)."""
+        dist = distributions.MatrixVariateNormalCholesky(
+            mean, u_tril, v_tril, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def multinomial(
+        self, name, logits, n_experiments, normalize_logits=True,
+        group_ndims=0, n_samples=None, dtype=torch.int32, **kwargs,
+    ):
+        """Add a Multinomial node (reference bn.py:906)."""
+        dist = distributions.Multinomial(
+            logits, n_experiments, normalize_logits=normalize_logits,
+            group_ndims=group_ndims, dtype=dtype, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def unnormalized_multinomial(
+        self, name, logits, normalize_logits=True, group_ndims=0,
+        dtype=torch.int32, **kwargs,
+    ):
+        """Add an UnnormalizedMultinomial node (reference bn.py:938); it
+        cannot be sampled, so it takes no ``n_samples``."""
+        dist = distributions.UnnormalizedMultinomial(
+            logits, normalize_logits=normalize_logits,
+            group_ndims=group_ndims, dtype=dtype, **kwargs)
+        return self.stochastic(name, dist)
+
+    bag_of_categoricals = unnormalized_multinomial
+
+    def onehot_categorical(
+        self, name, logits, group_ndims=0, n_samples=None, dtype=torch.int32,
+        **kwargs,
+    ):
+        """Add a OnehotCategorical node (reference bn.py:969)."""
+        dist = distributions.OnehotCategorical(
+            logits, group_ndims=group_ndims, dtype=dtype, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    onehot_discrete = onehot_categorical
+
+    def dirichlet(
+        self, name, alpha, group_ndims=0, n_samples=None,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Dirichlet node (reference bn.py:999)."""
+        dist = distributions.Dirichlet(
+            alpha, group_ndims=group_ndims, check_numerics=check_numerics,
+            **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def inverse_gamma(
+        self, name, alpha, beta, group_ndims=0, n_samples=None,
+        check_numerics=False, **kwargs,
+    ):
+        """Add an InverseGamma node (reference bn.py:1027)."""
+        dist = distributions.InverseGamma(
+            alpha, beta, group_ndims=group_ndims,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def laplace(
+        self, name, loc, scale, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Laplace node (reference bn.py:1057)."""
+        dist = distributions.Laplace(
+            loc, scale, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def bin_concrete(
+        self, name, temperature, logits, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a BinConcrete node (reference bn.py:1089)."""
+        dist = distributions.BinConcrete(
+            temperature, logits, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    bin_gumbel_softmax = bin_concrete
+
+    def exp_concrete(
+        self, name, temperature, logits, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add an ExpConcrete node (reference bn.py:1123)."""
+        dist = distributions.ExpConcrete(
+            temperature, logits, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    exp_gumbel_softmax = exp_concrete
+
+    def concrete(
+        self, name, temperature, logits, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Concrete node (reference bn.py:1157)."""
+        dist = distributions.Concrete(
+            temperature, logits, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    gumbel_softmax = concrete
