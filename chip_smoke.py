@@ -250,6 +250,36 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    steps is above the first's, and variational dropout's test accuracy
    (2000 rows, 100 particles) above ``VDROP_MIN_ACC``. These reach no
    hand-written kernel.
+26. the checking workflow (budget 30 s): ``bench.py``'s HMC target at
+   32768 x 100 through ``HMC(adapt_step_size=True, step_size_jitter=0.1)``:
+   ``warmup_run`` (``WF_WARMUP`` iterations, Stan's windows, the mass
+   installed at each window's end), ``run`` (``WF_ITERS`` iterations,
+   bfloat16 samples), then ``summary`` and the rank-normalized R-hat on
+   the card and the KSD of ``KSD_DRAWS`` draws against the same draws
+   shifted by ``KSD_SHIFT`` sd; warm-up, sampling and diagnostics timed
+   apart; K1's launches counted from 0 on the kernel route (700) and on the
+   plain route (0). Gated on the pooled std (10%), both R-hats below
+   ``WF_RHAT_MAX``, acceptance in [0.6, 0.95] and the shifted KSD at least
+   ``KSD_MIN_RATIO`` times the unshifted one. Then K1 against its plain
+   version on one jittered step with the installed mass (0 differing
+   chains, outputs within ``Q_TOL``) and timed: an entry of its own in the
+   kernels' record;
+27. AIS (budget 25 s): ``evaluation.AIS`` at ``AIS_CHAINS`` x ``AIS_DIM``
+   on ``z ~ N(0, I)``, ``x | z ~ N(z, I)``, ``AIS_TEMPS`` temperatures,
+   ``AIS_ADAPT`` adaptation iterations; the tempered log-joint is a
+   closure, so the plain transition runs (0 launches, checked). Gated on
+   the estimate within three times the spread of the JAX package's CPU
+   estimates over 8 keys (``AIS_REFERENCE``) and below the analytic log Z
+   plus three spreads;
+28. the checking examples (budget 35 s): ``model_comparison/loo_compare``
+   at its defaults (degree 0 behind by more than ``LOO_LOSS_SES`` paired
+   SEs, degrees 1 and 2 within ``LOO_TIE_SES``, every ``pareto_k`` below
+   ``LOO_MAX_K``), ``toy_examples/evidence_sandwich`` at its defaults
+   (``L_0.5 <= log Z <= CUBO_2``), and ``sigmoid_belief_nets/
+   sbn_adaptive_is``, ``semi_supervised_vae/vae_ssl`` and
+   ``vae_ssl_adaptive_is`` at full width, one epoch each (500, 200, 200
+   steps of their 10 epochs): steps/s, the bound finite and rising (last
+   ``EXAMPLE_TAIL`` steps over the first).
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -3255,6 +3285,439 @@ def phase_example_trainings(torch, dev):
     check(not failures, "examples: " + "; ".join(failures))
     return recs
 
+# Phases 26-28: the inference-checking slice (budget 90 s together).
+WF_WARMUP = 200  # warmup_run iterations (75 / 25 + 50 windows / 50)
+WF_ITERS = 500
+WF_JITTER = 0.1
+WF_RHAT_MAX = 1.01
+KSD_DRAWS = 4096
+KSD_SHIFT = 0.5  # in target standard deviations, every dimension
+KSD_MIN_RATIO = 10.0
+AIS_CHAINS = 4096
+AIS_DIM = 100
+AIS_TEMPS = 1000
+AIS_ADAPT = 30
+AIS_STEP = 0.3
+AIS_LEAPFROGS = 5
+AIS_SEED = 27
+AIS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "scripts", "ais_jax_reference.json")
+LOO_LOSS_SES = 4.0  # degree 0 loses by more than this many paired SEs
+LOO_TIE_SES = 2.0  # degrees 1 and 2 tie within this many
+LOO_MAX_K = 0.7
+
+
+def ais_observation():
+    """Phase 27's one observed ``x``: ``AIS_DIM`` draws of its marginal
+    ``N(0, 2)`` from ``AIS_SEED`` (float64 numpy)."""
+    import numpy as np
+
+    return np.random.RandomState(AIS_SEED).randn(AIS_DIM) * math.sqrt(2.0)
+
+
+def ais_log_z():
+    """The analytic ``log p(x) = sum_d log N(x_d; 0, sqrt 2)``."""
+    x = ais_observation()
+    return float(sum(-0.5 * math.log(4.0 * math.pi) - v * v / 4.0
+                     for v in x))
+
+
+def phase_workflow(torch, dev):
+    """Phase 26 (budget 30 s): bench.py's HMC target at 32768 x 100 through
+    the checking workflow: ``warmup_run`` with a jittered step (K1 every
+    iteration, the mass installed at each window's end), a 500-iteration
+    ``run`` with bfloat16 samples, ``summary`` (split R-hat, ESS) and the
+    rank-normalized R-hat on the card, and the KSD of 4096 draws against
+    the same draws shifted by ``KSD_SHIFT`` sd; the same recipe on the
+    plain route; K1 against its plain version on a jittered step with the
+    installed mass."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch import diagnostics
+    from zhusuan_tpu_torch.diagnostics import (
+        kernel_stein_discrepancy, potential_scale_reduction, summary,
+    )
+    from zhusuan_tpu_torch.ops.hmc_step import (
+        fused_hmc_step, fused_hmc_step_reference,
+    )
+
+    target_std = torch.linspace(0.1, 1.0, DIM, device=dev)
+    dens = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev),
+                                       target_std)
+
+    def route(fused):
+        hmc = zt.HMC(step_size=0.1, n_leapfrogs=5, adapt_step_size=True,
+                     step_size_jitter=WF_JITTER,
+                     experimental_fused_step="auto" if fused else False)
+        state = hmc.init({"x": torch.zeros(N_CHAINS, DIM, device=dev)},
+                         log_joint=dens)
+        torch.cuda.synchronize()
+        fused_hmc_step.launches = 0
+        t0 = time.perf_counter()
+        state = hmc.warmup_run(dens, {}, state,
+                               torch.Generator().manual_seed(26), WF_WARMUP)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        warm_launches = fused_hmc_step.launches
+        state, out = hmc.run(dens, {}, state,
+                             torch.Generator().manual_seed(27), WF_ITERS,
+                             collect_fields=("samples", "acceptance_rate"),
+                             collect_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return state, out, {
+            "launches": fused_hmc_step.launches,
+            "warmup_launches": warm_launches,
+            "warmup_sec": t1 - t0, "sample_sec": t2 - t1,
+            "step_size": float(state.step_size),
+            "mean_acceptance": float(out["acceptance_rate"].mean())}
+
+    state, out, kernel = route(True)
+    samples = out["samples"]["x"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, table = summary({"x": samples})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rank_rhat = potential_scale_reduction(samples, rank_normalized=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # Its two halves apart: the bulk (rank-normal scores of x) and the
+    # folded (of |x - median|), column chunk by column chunk.
+    flat, chunks = diagnostics._column_chunks(samples)
+    halves = [[], []]
+    for cols in chunks:
+        for h, z in zip(halves, diagnostics._bulk_and_folded(
+                flat[:, :, cols].double())):
+            h.append(diagnostics._split_rhat(z))
+    bulk_rhat, folded_rhat = (torch.cat(h) for h in halves)
+    # The card's float64 against the host's on a slice (4096 chains of the
+    # last column).
+    part = samples[:, :KSD_DRAWS, -1:]
+    host_err = float((potential_scale_reduction(part, True).cpu()
+                      - potential_scale_reduction(part.cpu(), True))
+                     .abs().max())
+    sd = stats["x"]["sd"].to(dev)
+    kernel.update({
+        "summary_sec": t1 - t0, "rank_rhat_sec": t2 - t1,
+        "draws": list(samples.shape),
+        "max_split_rhat": float(stats["x"]["r_hat"].max()),
+        "max_rank_rhat": float(rank_rhat.max()),
+        "max_bulk_rank_rhat": float(bulk_rhat.max()),
+        "max_folded_rank_rhat": float(folded_rhat.max()),
+        "median_folded_rank_rhat": float(folded_rhat.median()),
+        "rank_rhat_card_vs_host_abs_err": host_err,
+        "min_ess": float(stats["x"]["ess"].min()),
+        "max_rel_std_err": float((sd / target_std - 1.0).abs().max()),
+        "mass_over_precision": [
+            float(v) for v in (state.mass["x"][0] * target_std ** 2)
+            .aminmax()]})
+    draws = samples[-1, :KSD_DRAWS].float()
+
+    def score(x):
+        return -(x - dens.loc) / dens.scale ** 2
+
+    t0 = time.perf_counter()
+    ksd = float(kernel_stein_discrepancy(draws, score))
+    torch.cuda.synchronize()
+    kernel["ksd_sec"] = time.perf_counter() - t0
+    ksd_shifted = float(kernel_stein_discrepancy(
+        draws + KSD_SHIFT * target_std, score))
+    kernel.update({"ksd": ksd, "ksd_shifted": ksd_shifted})
+    del out, samples, draws
+
+    # K1 on a jittered step with the installed mass against its plain
+    # version, on injected noise: every MH decision the same.
+    g = torch.Generator(device=dev).manual_seed(261)
+    q, mass = state.q["x"], state.mass["x"]
+    step = state.step_size * torch.empty((), device=dev).uniform_(
+        1.0 - WF_JITTER, 1.0 + WF_JITTER, generator=g)
+    noise = (torch.randn(N_CHAINS, DIM, generator=g, device=dev),
+             torch.rand(N_CHAINS, generator=g, device=dev))
+    got = fused_hmc_step(dens, q, mass, step, 5, (1, 2), WF_WARMUP + 1,
+                         noise=noise)
+    torch.cuda.synchronize()
+    want = fused_hmc_step_reference(dens, q, mass, step, 5, (1, 2),
+                                    WF_WARMUP + 1, noise=noise)
+    u = noise[1]
+    differing = int(((u < got[2]) != (u < want[2])).sum())
+    names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
+    errs = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(names, got, want)}
+    worst = max(errs[n] / (1.0 + float(w.float().abs().max()))
+                for n, w in zip(names, want))
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def plain():
+        return fused_hmc_step_reference(
+            dens, q, mass, step, 5, None, 1,
+            noise=(torch.randn(N_CHAINS, DIM, generator=gen, device=dev),
+                   torch.rand(N_CHAINS, generator=gen, device=dev)))
+
+    timing = {
+        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, 5, (3, 4), 1), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, 5, (3, 4), 1), 20),
+        "plain_ms": _time_ms(torch, plain, 20),
+        **_hmc_step_bound(N_CHAINS, DIM, 5, "diagonal"),
+        "decisions_differing": differing, "max_abs_err": errs,
+        "accept_rate": float((u < want[2]).float().mean())}
+
+    _, plain_out, plain_rec = route(False)
+    plain_sd = _pooled_std(torch, plain_out["samples"]["x"])
+    plain_rec["max_rel_std_err"] = float(
+        (plain_sd / target_std - 1.0).abs().max())
+    del plain_out
+    print("phase26 workflow " + json.dumps({
+        "kernel": kernel, "plain": plain_rec, "k1_vs_plain": timing}))
+    print(table.splitlines()[0] + "\n" + "\n".join(
+        table.splitlines()[2:5]))
+    failures = []
+    if kernel["launches"] != WF_WARMUP + WF_ITERS:
+        failures.append("the kernel route launched K1 {} times, not "
+                        "{}".format(kernel["launches"], WF_WARMUP + WF_ITERS))
+    if plain_rec["launches"] != 0:
+        failures.append("the plain route launched K1")
+    for name, rec in (("kernel", kernel), ("plain", plain_rec)):
+        if not rec["max_rel_std_err"] < 0.1:
+            failures.append("{}: pooled std off by {:.4f}".format(
+                name, rec["max_rel_std_err"]))
+        if not 0.6 <= rec["mean_acceptance"] <= 0.95:
+            failures.append("{}: mean acceptance {:.4f}".format(
+                name, rec["mean_acceptance"]))
+    # The folded half of the rank-normalized R-hat stays above 1.01 on this
+    # recipe in both packages: the adapted trajectory is ~half a period of
+    # the whitened target (x -> ~-0.97 x), so |x| barely moves in an
+    # iteration. The gate holds the split and bulk R-hats, the card's
+    # rank-normalized R-hat to its two halves and to the host's float64.
+    for f in ("max_split_rhat", "max_bulk_rank_rhat"):
+        if not kernel[f] < WF_RHAT_MAX:
+            failures.append("{} {:.5f}".format(f, kernel[f]))
+    if not (kernel["max_rank_rhat"] == max(kernel["max_bulk_rank_rhat"],
+                                           kernel["max_folded_rank_rhat"])
+            and host_err <= 1e-9):
+        failures.append("rank-normalized R-hat: card {} vs halves {} / {}, "
+                        "host error {}".format(
+                            kernel["max_rank_rhat"],
+                            kernel["max_bulk_rank_rhat"],
+                            kernel["max_folded_rank_rhat"], host_err))
+    if not ksd_shifted >= KSD_MIN_RATIO * abs(ksd):
+        failures.append("KSD {} shifted vs {} unshifted".format(
+            ksd_shifted, ksd))
+    if differing:
+        failures.append("K1 on a jittered step: {} chains take the other MH "
+                        "decision".format(differing))
+    if not worst <= Q_TOL:
+        failures.append("K1 on a jittered step: outputs differ by {} of "
+                        "1 + |ref|".format(worst))
+    check(not failures, "workflow: " + "; ".join(failures))
+    return kernel["launches"], max(errs.values()), timing
+
+
+def phase_ais(torch, dev):
+    """Phase 27 (budget 25 s): ``evaluation.AIS`` on the card at
+    ``AIS_CHAINS`` x ``AIS_DIM`` with ``AIS_TEMPS`` temperatures (the
+    tempered log-joint is a closure: the plain transition), gated on the
+    JAX package's CPU estimates of the same recipe
+    (``AIS_REFERENCE``, from ``scripts/ais_jax_reference.py``) and on the
+    analytic log Z."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.evaluation import AIS
+    from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+    with open(AIS_REFERENCE) as f:
+        reference = json.load(f)
+    want = {"n_chains": AIS_CHAINS, "dim": AIS_DIM,
+            "n_temperatures": AIS_TEMPS, "n_adapt": AIS_ADAPT,
+            "step_size": AIS_STEP, "n_leapfrogs": AIS_LEAPFROGS,
+            "seed": AIS_SEED}
+    check(reference["recipe"] == want, "{} was made for another recipe; "
+          "rerun scripts/ais_jax_reference.py".format(AIS_REFERENCE))
+    c, d = AIS_CHAINS, AIS_DIM
+
+    @meta_bayesian_net()
+    def model():
+        bn = BayesianNet()
+        z = bn.normal("z", torch.zeros(c, d, device=dev), std=1.0,
+                      group_ndims=1)
+        bn.normal("x", z.tensor, std=1.0, group_ndims=1)
+        return bn
+
+    @meta_bayesian_net()
+    def proposal():
+        bn = BayesianNet()
+        bn.normal("z", torch.zeros(c, d, device=dev), std=1.0, group_ndims=1)
+        return bn
+
+    x_obs = torch.as_tensor(ais_observation(), dtype=torch.float32,
+                            device=dev)
+    hmc = zt.HMC(step_size=AIS_STEP, n_leapfrogs=AIS_LEAPFROGS,
+                 adapt_step_size=True)
+    ais = AIS(model(), proposal(), hmc, observed={"x": x_obs}, latent=["z"],
+              n_temperatures=AIS_TEMPS, n_adapt=AIS_ADAPT)
+    torch.cuda.synchronize()
+    fused_hmc_step.launches = 0
+    t0 = time.perf_counter()
+    est = ais.run(torch.Generator().manual_seed(AIS_SEED))
+    est = float(est)  # synchronizes
+    seconds = time.perf_counter() - t0
+    mean, spread = (reference["estimate"]["mean"],
+                    reference["estimate"]["spread"])
+    log_z = ais_log_z()
+    rec = {"estimate": est, "jax_mean": mean, "jax_spread": spread,
+           "log_z": log_z, "wall_sec": seconds,
+           "ms_per_iteration": 1e3 * seconds / (AIS_TEMPS + AIS_ADAPT),
+           "k1_launches": fused_hmc_step.launches}
+    print("phase27 ais " + json.dumps(rec))
+    check(math.isfinite(est), "AIS: a non-finite estimate")
+    check(abs(est - mean) <= 3.0 * spread,
+          "AIS: {} vs the JAX package's {} (tolerance {})".format(
+              est, mean, 3.0 * spread))
+    check(est <= log_z + 3.0 * spread,
+          "AIS: {} above log Z {} + 3 spreads".format(est, log_z))
+    check(rec["k1_launches"] == 0, "AIS launched K1 on a closure")
+    return rec
+
+
+def _timed_steps(torch, step, n):
+    """``n`` calls of ``step(i) -> [..] tensor`` timed by the host clock
+    with the device synchronized at both ends; ``(values [n, ..] on the
+    host, seconds)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values = torch.stack([step(i) for i in range(n)])
+    torch.cuda.synchronize()
+    return values.cpu(), time.perf_counter() - t0
+
+
+def _rises(torch, values, name, failures):
+    """The mean of the first and last ``EXAMPLE_TAIL`` of ``values`` (a
+    bound a step); a failure unless every value is finite and the mean
+    rose."""
+    first = float(values[:EXAMPLE_TAIL].mean())
+    last = float(values[-EXAMPLE_TAIL:].mean())
+    if not bool(torch.isfinite(values).all()):
+        failures.append(name + ": a non-finite bound")
+    if not last > first:
+        failures.append("{}: the bound did not rise ({} -> {})".format(
+            name, first, last))
+    return {"first_mean": first, "last_mean": last}
+
+
+def phase_checking_examples(torch, dev):
+    """Phase 28 (budget 35 s): the five example files of the slice on the
+    card: ``loo_compare`` and ``evidence_sandwich`` at their defaults,
+    ``sbn_adaptive_is``, ``vae_ssl`` and ``vae_ssl_adaptive_is`` at full
+    width cut to one epoch each (500, 200 and 200 steps of their 10
+    epochs)."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.model_comparison import loo_compare
+    from zhusuan_tpu_torch.examples.semi_supervised_vae import (
+        vae_ssl, vae_ssl_adaptive_is,
+    )
+    from zhusuan_tpu_torch.examples.sigmoid_belief_nets import (
+        sbn, sbn_adaptive_is,
+    )
+    from zhusuan_tpu_torch.examples.toy_examples import evidence_sandwich
+    from zhusuan_tpu_torch.examples.utils.dataset import (
+        load_binary_mnist, load_mnist_semi_supervised,
+    )
+    from zhusuan_tpu_torch.fit import draw_keys
+    from zhusuan_tpu_torch.utils import tree_leaves
+
+    failures, recs = [], {}
+    argv = ["--device", str(dev)]
+
+    # loo_compare at its defaults.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, rows = loo_compare.main(argv)
+    rec = {"wall_sec": time.perf_counter() - t0,
+           "rows": [r._asdict() for r in rows],
+           "max_pareto_k": max(float(r.pareto_k.max())
+                               for r in results.values())}
+    recs["loo_compare"] = rec
+    by_name = {r.name: r for r in rows}
+    zero = by_name["degree 0"]
+    if not zero.elpd_diff > LOO_LOSS_SES * zero.dse:
+        failures.append("loo_compare: degree 0 loses by {:.2f} with paired "
+                        "SE {:.2f}".format(zero.elpd_diff, zero.dse))
+    if rows[0].name not in ("degree 1", "degree 2"):
+        failures.append("loo_compare: {} ranks first".format(rows[0].name))
+    tie = by_name["degree 2" if rows[0].name == "degree 1" else "degree 1"]
+    if not tie.elpd_diff <= LOO_TIE_SES * tie.dse:
+        failures.append("loo_compare: degrees 1 and 2 differ by {:.2f} with "
+                        "paired SE {:.2f}".format(tie.elpd_diff, tie.dse))
+    if not rec["max_pareto_k"] < LOO_MAX_K:
+        failures.append("loo_compare: pareto_k {:.3f}".format(
+            rec["max_pareto_k"]))
+
+    # evidence_sandwich at its defaults.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sand = evidence_sandwich.main(argv)
+    sand["wall_sec"] = time.perf_counter() - t0
+    recs["evidence_sandwich"] = sand
+    if not sand["lower"] <= sand["log_z"] <= sand["upper"]:
+        failures.append("evidence_sandwich: {lower} <= {log_z} <= {upper} "
+                        "does not hold".format(**sand))
+
+    # sbn_adaptive_is: one epoch at full width (784-200-200-200, k = 10,
+    # batch 24, 500 steps).
+    x_train, _, _, _ = load_binary_mnist()
+    x_train_d = torch.as_tensor(x_train, device=dev)
+    params = sbn.init_sbn_params(
+        torch.Generator(device=dev).manual_seed(1234), x_train.shape[1], 200)
+    step_fn = sbn_adaptive_is.make_train_step(
+        torch.optim.Adam(tree_leaves(params), lr=1e-3, eps=1e-4), 200, 10)
+    n = min(x_train.shape[0] // 24, 500)
+    perm = torch.as_tensor(np.random.RandomState(1).permutation(
+        x_train.shape[0]), device=dev)
+    keys = draw_keys(torch.Generator().manual_seed(1234), n)
+    values, seconds = _timed_steps(torch, lambda i: step_fn(
+        params, x_train_d[perm[i * 24:(i + 1) * 24]], keys[i]), n)
+    recs["sbn_adaptive_is"] = {"steps": n, "steps_per_sec": n / seconds,
+                               **_rises(torch, values, "sbn_adaptive_is",
+                                        failures)}
+
+    # The semi-supervised VAEs: one epoch each (200 steps, batch 100,
+    # 10 particles, z 100, hidden 500).
+    x_labeled, t_labeled, x_unlabeled, _, _, _ = load_mnist_semi_supervised()
+    x_l = torch.as_tensor(x_labeled, device=dev)
+    y_l = torch.as_tensor(t_labeled, device=dev)
+    for name, cost_fn in (("vae_ssl", vae_ssl.ssl_cost),
+                          ("vae_ssl_adaptive_is",
+                           vae_ssl_adaptive_is.adaptive_is_cost)):
+        params = vae_ssl.init_params(
+            torch.Generator(device=dev).manual_seed(1234), x_l.shape[1], 10,
+            100)
+        step_fn = vae_ssl.make_train_step(
+            cost_fn, torch.optim.Adam(tree_leaves(params), lr=3e-4), 10, 100,
+            10, 1200.0)
+        generator = torch.Generator().manual_seed(1234)
+        vae_ssl.run_epoch(step_fn, params, x_l, y_l, x_unlabeled[:1000],
+                          100, 0, generator, max_steps=2)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = vae_ssl.run_epoch(step_fn, params, x_l, y_l, x_unlabeled,
+                                  100, 1, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = stats.cpu()
+        bound = stats[:, 0] + stats[:, 1]
+        recs[name] = {"steps": stats.shape[0],
+                      "steps_per_sec": stats.shape[0] / seconds,
+                      "train_acc_last": float(stats[-EXAMPLE_TAIL:, 2].mean()),
+                      **_rises(torch, bound, name, failures)}
+    for name, rec in recs.items():
+        print("phase28 {} {}".format(name, json.dumps(rec, default=str)),
+              flush=True)
+    check(not failures, "checking examples: " + "; ".join(failures))
+    return recs
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3307,6 +3770,10 @@ def main():
     gauss_launches, gauss_err, gauss_t = run_phase(
         "phase24", phase_gaussian_example, torch, dev)
     run_phase("phase25", phase_example_trainings, torch, dev)
+    wf_launches, wf_err, wf_t = run_phase("phase26", phase_workflow, torch,
+                                          dev)
+    run_phase("phase27", phase_ais, torch, dev)
+    run_phase("phase28", phase_checking_examples, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -3419,6 +3886,18 @@ def main():
         "plain_ms": gauss_t["plain_ms"],
         **bound(gauss_t),
         "shape": gauss_t["shape"],
+    }, {
+        "name": "fused_hmc_step (windowed warmup + jittered step, "
+                "32768 x 100)",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/hmc_step.py:206",
+        "launches": wf_launches,
+        "max_abs_err": wf_err,
+        "ms": wf_t["kernel_graph_ms"],
+        "ms_back_to_back": wf_t["kernel_ms"],
+        "plain_ms": wf_t["plain_ms"],
+        **bound(wf_t),
     }, {
         "name": "fused_nuts_transition",
         "route": "cuda",

@@ -22,7 +22,14 @@ the rest of the model path (every distribution of ``univariate.py`` and
 ``multivariate.py`` with its ``BayesianNet`` method, :func:`marginalize`,
 :func:`posterior_predictive`), driven by the Gaussian HMC toy, the
 Bernoulli-latent, Gumbel-softmax and convolutional VAEs and variational
-dropout.
+dropout; the inference-checking toolkit: HMC's windowed warmup
+(``HMC.warmup_run``), step-size jitter, ``check_numerics`` and the
+step-size search options, split / rank-normalized / nested R-hat,
+``summary`` and the kernelized Stein discrepancy (:mod:`.diagnostics`),
+AIS, WAIC, PSIS-LOO and ``compare`` (:mod:`.evaluation`), the inclusive KL
+and the Renyi / chi upper bounds (:mod:`.variational`), driven by the
+evidence-sandwich, LOO-comparison, adaptive-IS SBN and semi-supervised VAE
+examples.
 """
 
 from zhusuan_tpu_torch import (

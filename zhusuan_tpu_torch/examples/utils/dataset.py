@@ -2,7 +2,8 @@
 
 The port's own copies of what its examples need from
 ``examples/utils/dataset.py`` (the file-or-synthetic MNIST and UCI loaders,
-the scikit-learn diabetes set, ``standardize``) and from
+the semi-supervised MNIST split, the scikit-learn diabetes set,
+``standardize``) and from
 ``baseline_ref/configs_protocol.py:56-93`` (the synthetic splits of the
 measured SVGP recipe). Everything is numpy; nothing is downloaded: the UCI
 files are read from ``ZS_DATA_DIR`` when present, else replaced by
@@ -21,7 +22,7 @@ __all__ = [
     "synthetic_regression", "standardize", "regression_splits",
     "load_uci_boston_housing", "load_uci_diabetes", "save_uci_diabetes",
     "load_uci_protein_data", "load_mnist_realval", "load_binary_mnist",
-    "epoch_batches",
+    "to_one_hot", "load_mnist_semi_supervised", "epoch_batches",
 ]
 
 
@@ -234,6 +235,34 @@ def load_binary_mnist(path=None, seed=0):
         (rng.rand(*x_test.shape) < x_test).astype(np.float32),
         synthetic,
     )
+
+
+def to_one_hot(x, depth):
+    """Integer labels -> one-hot int32 rows (``examples/utils/
+    dataset.py:62-66``; reference ``dataset.py:39-50``)."""
+    ret = np.zeros((x.shape[0], depth), dtype=np.int32)
+    ret[np.arange(x.shape[0]), x] = 1
+    return ret
+
+
+def load_mnist_semi_supervised(path=None, n_labeled=100, seed=1234):
+    """MNIST split into a small class-balanced labeled set (the first
+    ``n_labeled // 10`` rows of each class) and the rest unlabeled, the
+    semi-supervised VAE's input (``examples/utils/dataset.py:248-266``).
+    ``seed`` is kept for the JAX signature and unused there too.
+
+    :return: ``(x_labeled, t_labeled_onehot float32, x_unlabeled, x_test,
+        t_test, synthetic)``.
+    """
+    x_train, t_train, _, _, x_test, t_test, synthetic = \
+        load_mnist_realval(path)
+    per_class = n_labeled // 10
+    labeled_idx = np.concatenate(
+        [np.where(t_train == c)[0][:per_class] for c in range(10)])
+    x_labeled = x_train[labeled_idx]
+    t_labeled = to_one_hot(t_train[labeled_idx], 10).astype(np.float32)
+    x_unlabeled = np.delete(x_train, labeled_idx, axis=0)
+    return x_labeled, t_labeled, x_unlabeled, x_test, t_test, synthetic
 
 
 def epoch_batches(n_rows, batch_size, epoch, max_batches=None):

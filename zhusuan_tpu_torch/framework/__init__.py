@@ -13,7 +13,12 @@ from zhusuan_tpu_torch.framework.meta_bn import (
     meta_bayesian_net,
 )
 from zhusuan_tpu_torch.framework.predictive import posterior_predictive
-from zhusuan_tpu_torch.framework.utils import Context, Local, reuse_variables
+from zhusuan_tpu_torch.framework.utils import (
+    Context,
+    Local,
+    reuse,
+    reuse_variables,
+)
 
 __all__ = [
     "BayesianNet",
@@ -25,5 +30,6 @@ __all__ = [
     "marginalize",
     "meta_bayesian_net",
     "posterior_predictive",
+    "reuse",
     "reuse_variables",
 ]

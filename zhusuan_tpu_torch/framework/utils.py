@@ -4,15 +4,17 @@ Port of ``zhusuan_tpu/framework/utils.py`` (parity: reference
 ``zhusuan/framework/utils.py:20-46``, ``Context``). The stack is
 thread-local Python state that exists only while a model builder runs.
 ``reuse_variables`` is kept as a documented no-op: parameters are explicit
-tensors passed into builders, so there is nothing to reuse implicitly.
+tensors passed into builders, so there is nothing to reuse implicitly;
+``reuse`` is its deprecated alias.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
+import warnings
 
-__all__ = ["Context", "Local", "reuse_variables"]
+__all__ = ["Context", "Local", "reuse_variables", "reuse"]
 
 
 class Context:
@@ -80,3 +82,15 @@ def reuse_variables(scope):
         return wrapper
 
     return deco
+
+
+def reuse(scope):
+    """Deprecated alias of :func:`reuse_variables` (reference
+    ``framework/utils.py:109-117`` keeps ``reuse`` exported with a
+    deprecation warning pointing at ``reuse_variables``)."""
+    warnings.warn(
+        "zs.reuse is deprecated; use zs.reuse_variables instead.",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return reuse_variables(scope)

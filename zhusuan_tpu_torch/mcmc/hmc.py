@@ -15,7 +15,9 @@ Python loop over it. ``state.t`` is a host int, so the iteration-dependent
 decisions (the init step-size search at ``t == 1`` and
 ``t == mass_collect_iters``, the adaptation gate ``t < n_adapt``, the
 random-number counter) never read the device. The only host syncs in ``run`` are
-the init step-size search's trials.
+the init step-size search's trials. :meth:`HMC.warmup_run`, Stan's windowed
+warmup, keeps its schedule on the host too (:func:`warmup_schedule`), so
+its loop syncs only where a window's re-search runs.
 
 On a CUDA device, a single ``[n_chains, dim]`` float32/bfloat16 latent
 under a built-in density (:mod:`~zhusuan_tpu_torch.ops.densities`: the
@@ -49,6 +51,7 @@ from zhusuan_tpu_torch.mcmc.base import (
 )
 from zhusuan_tpu_torch.ops import hmc_step, leapfrog
 from zhusuan_tpu_torch.ops._random import iteration_generator, philox_key
+from zhusuan_tpu_torch.ops.checks import check_numerics as _check_numerics
 from zhusuan_tpu_torch.ops.densities import BuiltinDensity
 from zhusuan_tpu_torch.ops.hmc_step import (
     MAX_DIM,
@@ -58,7 +61,7 @@ from zhusuan_tpu_torch.ops.hmc_step import (
 from zhusuan_tpu_torch.ops.leapfrog import fused_leapfrog, leapfrog_supported
 
 __all__ = ["HMC", "HMCState", "HMCInfo", "state_from_numpy",
-           "state_to_numpy"]
+           "state_to_numpy", "warmup_schedule"]
 
 Latent = Dict[str, torch.Tensor]
 
@@ -119,6 +122,16 @@ class HMC:
     :param mass_collect_iters: iterations before the adapted mass is used
         (forced to 0 when ``adapt_mass`` is None, as in the reference).
     :param mass_decay: EW variance decay.
+    :param step_size_jitter: per-iteration multiplicative jitter: the whole
+        trajectory uses ``step_size * u`` with one ``u ~ U(1-j, 1+j)`` an
+        iteration (anti-resonance guard, Neal 2011 §3.2; not in the
+        reference), so detailed balance holds. On the kernel path ``u`` is
+        a device scalar drawn from the iteration's generator.
+    :param check_numerics: raise ``FloatingPointError`` when the pre-move
+        log probability is non-finite (the reference's "Try better
+        initialization" error, hmc.py:51-53). It reads the device's answer
+        every iteration (a host sync) and needs the plain path: ``"auto"``
+        takes it, ``experimental_fused_step=True`` raises on the card.
     :param experimental_fused_leapfrog: when the whole-step kernel is not
         taken, run the trajectory through the trajectory kernel
         (:func:`~zhusuan_tpu_torch.ops.leapfrog.fused_leapfrog`) if it is
@@ -146,6 +159,8 @@ class HMC:
         adapt_mass: Optional[bool] = None,
         mass_collect_iters: int = 10,
         mass_decay: float = 0.99,
+        step_size_jitter: float = 0.0,
+        check_numerics: bool = False,
         experimental_fused_leapfrog: bool = False,
         experimental_fused_step="auto",
     ):
@@ -171,6 +186,10 @@ class HMC:
             int(mass_collect_iters) if adapt_mass is not None else 0
         )
         self.mass_decay = float(mass_decay)
+        if not 0.0 <= step_size_jitter < 1.0:
+            raise ValueError("step_size_jitter must be in [0, 1).")
+        self.step_size_jitter = float(step_size_jitter)
+        self.check_numerics = bool(check_numerics)
         self.experimental_fused_leapfrog = bool(experimental_fused_leapfrog)
         if experimental_fused_step not in (True, False, "auto"):
             raise ValueError(
@@ -181,16 +200,22 @@ class HMC:
     # ------------------------------------------------------------------ #
     @staticmethod
     def _fused_ineligible(meta_bn, observed, q, mass, n_chain_dims):
-        """Why the kernel cannot take this transition (None if it can)."""
+        """Why the kernel cannot take this transition's inputs (None if it
+        can)."""
         return builtin_density_ineligible(
             meta_bn, observed, q, mass, n_chain_dims, hmc_step_supported,
             hmc_step.DENSITIES,
             "float32/bfloat16 with dim <= {}".format(MAX_DIM))
 
     def _use_fused_step(self, meta_bn, observed, q, mass, n_chain_dims):
-        return use_kernel(self.experimental_fused_step, q,
-                          lambda: self._fused_ineligible(
-                              meta_bn, observed, q, mass, n_chain_dims))
+        def ineligible():
+            if self.check_numerics:
+                return ("check_numerics reads the pre-move log probability, "
+                        "which only the plain path computes")
+            return self._fused_ineligible(meta_bn, observed, q, mass,
+                                          n_chain_dims)
+
+        return use_kernel(self.experimental_fused_step, q, ineligible)
 
     def _fused_trajectory(self, meta_bn, observed, q, mass, n_chain_dims):
         """The trajectory kernel as a ``trajectory`` of
@@ -284,8 +309,8 @@ class HMC:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def sample(self, meta_bn, observed, state: HMCState, key=None,
-               adapt_step_size=None, adapt_mass=None, cache=None, *,
-               noise=None):
+               adapt_step_size=None, adapt_mass=None, reinit_step_size=None,
+               init_step_size_search=None, cache=None, *, noise=None):
         """Run ONE HMC iteration: ``(state, key) -> (state, info)``.
 
         :param meta_bn: ``meta_bn(obs_dict)`` callable, e.g. a
@@ -301,16 +326,32 @@ class HMC:
             step-size adaptation this iteration (default: the constructor
             setting).
         :param adapt_mass: optional bool gating mass adaptation.
+        :param reinit_step_size: optional bool (or bool tensor, read on the
+            host: one sync) forcing the heuristic step-size re-search and a
+            dual-averaging fresh start this iteration (used by
+            :meth:`warmup_run` after each mass install).
+        :param init_step_size_search: ONLY None (the default trigger at
+            ``t == 1`` and ``t == mass_collect_iters``) or False (suppress
+            that trigger, as AIS's annealing does). Anything else raises;
+            ``reinit_step_size=True`` forces a search.
         :param cache: optional ``(log_prob, grad_dict)`` at ``state.q``
             (:meth:`make_cache`); the iteration then skips re-evaluating
             both, and returns the cache of the kept position as a third
             element. ``grad_dict`` may be None (value-only cache).
         :param noise: testing hook: ``(eps, u)``, standard normals shaped
             like the latent (a dict, or a tensor for a single latent) and
-            chain-shaped uniforms, replacing the momentum and MH draws.
+            chain-shaped uniforms, replacing the momentum and MH draws; with
+            ``step_size_jitter > 0``, ``(eps, u, u_jitter)``, the third the
+            jitter factor in ``[1-j, 1+j]``.
         :return: ``(new_state, HMCInfo)``, plus ``new_cache`` when
             ``cache`` was given.
         """
+        if not (init_step_size_search is None
+                or init_step_size_search is False):
+            raise ValueError(
+                "init_step_size_search accepts only None or the static "
+                "Python False (got {!r}); use reinit_step_size=True to "
+                "force a search.".format(init_step_size_search))
         log_post = make_log_joint_fn(meta_bn, observed)
         grad_fn = make_grad_fn(log_post)
         state_dtypes = {k: v.dtype for k, v in state.q.items()}
@@ -318,9 +359,17 @@ class HMC:
         q = {k: (v.float() if v.dtype == torch.bfloat16 else v)
              for k, v in state.q.items()}
         x0 = q[next(iter(q))]
-        eps = u_in = gen = None
+        eps = u_in = u_jit = gen = None
+        jitter = self.step_size_jitter > 0.0
         if noise is not None:
-            eps, u_in = noise
+            if jitter:
+                if len(noise) != 3:
+                    raise ValueError(
+                        "with step_size_jitter, noise is (eps, u, "
+                        "u_jitter).")
+                eps, u_in, u_jit = noise
+            else:
+                eps, u_in = noise
             if isinstance(eps, torch.Tensor):
                 (name,) = q
                 eps = {name: eps}
@@ -361,9 +410,13 @@ class HMC:
 
         # --- step size (+ heuristic init search; hmc.py:458-472) ------- #
         if self.adapt_step_size is not None:
-            if_init_ss = new_t == 1 or new_t == self.mass_collect_iters
+            if_init_ss = (init_step_size_search is None
+                          and (new_t == 1
+                               or new_t == self.mass_collect_iters))
+            if reinit_step_size is not None:
+                if_init_ss = if_init_ss or bool(reinit_step_size)
             if if_init_ss:
-                if use_fused and noise is None:
+                if gen is None and noise is None:
                     gen = iteration_generator(key, new_t, x0.device)
                 p_s = (tree_random_momentum(gen, q, mass, eps)
                        if use_fused else p)
@@ -376,15 +429,29 @@ class HMC:
             if_init_ss = False
             step_size = state.step_size
 
+        # --- step-size jitter (JAX mcmc/hmc.py:603-611): one draw an
+        # iteration scales the whole trajectory; adaptation sees the
+        # unjittered step.
+        trajectory_step = step_size
+        if jitter:
+            if u_jit is None:
+                if gen is None:
+                    gen = iteration_generator(key, new_t, x0.device)
+                j = self.step_size_jitter
+                u_jit = torch.empty(
+                    (), dtype=step_size.dtype, device=step_size.device
+                ).uniform_(1.0 - j, 1.0 + j, generator=gen)
+            trajectory_step = step_size * u_jit
+
         new_cache = None
         if use_fused:
             ((name, x),) = state.q.items()
             # The carried (possibly bf16) array goes in; the kernel
-            # upcasts in registers.
+            # upcasts in registers. The jittered step is a device scalar.
             (out_q, p0, acceptance_rate, old_log_prob, new_log_prob, old_h,
              new_h) = fused_hmc_step(
-                meta_bn, x, mass[name], step_size, self.n_leapfrogs, key,
-                new_t,
+                meta_bn, x, mass[name], trajectory_step, self.n_leapfrogs,
+                key, new_t,
                 noise=None if noise is None else (eps[name], u_in))
             accepted_q = {name: out_q}
             p = {name: p0}
@@ -398,10 +465,17 @@ class HMC:
             # --- leapfrog + MH test (hmc.py:474-498) ------------------- #
             (accepted_q, acceptance_rate, old_log_prob, new_log_prob, old_h,
              new_h, accepted_g, _, _) = hmc_transition(
-                q, p, u_in, step_size, self.n_leapfrogs, grad_fn, log_post,
-                mass, n_chain_dims, old_lp_in, g0,
+                q, p, u_in, trajectory_step, self.n_leapfrogs, grad_fn,
+                log_post, mass, n_chain_dims, old_lp_in, g0,
                 self._fused_trajectory(meta_bn, observed, q, mass,
                                        n_chain_dims))
+            if self.check_numerics:
+                # The reference's "Try better initialization" error
+                # (hmc.py:51-53); reads the device (a host sync).
+                _check_numerics(
+                    old_log_prob,
+                    "HMC: old_log_prob has numeric errors! Try better "
+                    "initialization.")
             if cache is not None:
                 new_cache = (new_log_prob, accepted_g)
 
@@ -564,6 +638,138 @@ class HMC:
             if collect and hit == 0 and row <= n_out:
                 store(row - 1, info)
         return state, outputs
+
+    # ------------------------------------------------------------------ #
+    def warmup_run(self, meta_bn, observed, state: HMCState, key,
+                   n_warmup: int, init_buffer: int = 75,
+                   term_buffer: int = 50, base_window: int = 25, *,
+                   noise=None) -> HMCState:
+        """Stan-style three-phase windowed warmup (JAX
+        ``mcmc/hmc.py:943-1100``; beyond the reference's single burn-in
+        gate):
+
+        1. ``init_buffer`` iterations: step-size adaptation only.
+        2. expanding windows (``base_window``, 2x, 4x, ...): the positions
+           accumulate into a batched Welford estimator over (iteration x
+           chains); at each window's end the regularized diagonal
+           precision ``1 / (var n/(n+5) + 1e-3 * 5/(n+5))`` is installed
+           as the mass and the accumulator restarts; the next iteration
+           re-searches the step size and restarts dual averaging.
+        3. ``term_buffer`` iterations: step-size adaptation against the
+           final mass.
+
+        Requires ``adapt_step_size`` enabled and ``adapt_mass=None`` (this
+        driver owns the mass) and one chain axis. The schedule is host-side
+        (:func:`warmup_schedule`); with fewer than ``init_buffer +
+        term_buffer + base_window`` iterations it falls back to
+        ``run(n_adapt=n_warmup, collect=False)``. The mass stays
+        ``[1, dim]`` in the adaptation dtype (float32 for float32 and
+        bfloat16 positions), the shape the HMC kernel takes.
+
+        :param noise: testing hook: a sequence whose ``i``-th element is
+            iteration ``i``'s ``noise`` for :meth:`sample`.
+        :return: the warmed-up :class:`HMCState` (the mass in
+            ``state.mass``).
+        """
+        if self.adapt_step_size is None:
+            raise ValueError("warmup_run requires adapt_step_size enabled.")
+        if self.adapt_mass is not None:
+            raise ValueError(
+                "warmup_run owns the mass schedule; construct HMC with "
+                "adapt_mass=None (the EW scheme and windowed warmup are "
+                "alternatives).")
+        if (len(state.q) == 1 and isinstance(meta_bn, BuiltinDensity)
+                and meta_bn.name in state.q):
+            n_chain_dims = state.q[meta_bn.name].ndim - 1
+        else:
+            with torch.no_grad():
+                n_chain_dims = make_log_joint_fn(meta_bn, observed)(
+                    state.q).ndim
+        if n_chain_dims != 1:
+            raise ValueError(
+                "warmup_run supports exactly one chain axis (log-joint "
+                "output rank 1); got chain rank {}. Use run(n_adapt=...) "
+                "for other chain shapes.".format(n_chain_dims))
+        n_warmup = int(n_warmup)
+        if n_warmup < init_buffer + term_buffer + base_window:
+            return self.run(meta_bn, observed, state, key, n_warmup,
+                            n_adapt=n_warmup, collect=False)[0]
+        accumulate, install, reinit = warmup_schedule(
+            n_warmup, init_buffer, term_buffer, base_window)
+        if noise is None:
+            key = _as_key(key)
+        dtype = state.step_size.dtype
+
+        def zeros():
+            return {k: torch.zeros_like(v) for k, v in state.mass.items()}
+
+        count = torch.zeros((), dtype=dtype, device=state.step_size.device)
+        mean, m2 = zeros(), zeros()
+        cache = (None if self.experimental_fused_leapfrog
+                 or self._use_fused_step(meta_bn, observed, state.q,
+                                         state.mass, 1)
+                 else self.make_cache(meta_bn, observed, state))
+        for i in range(n_warmup):
+            state, _, *rest = self.sample(
+                meta_bn, observed, state, key, adapt_step_size=True,
+                reinit_step_size=bool(reinit[i]), cache=cache,
+                noise=None if noise is None else noise[i])
+            cache = rest[0] if rest else None
+            if not accumulate[i]:
+                continue
+            # Batched Welford: fold the whole chain batch at once (JAX
+            # :1041-1063, the same order of operations).
+            with torch.no_grad():
+                n_chains = next(iter(state.q.values())).shape[0]
+                new_count = count + float(n_chains)
+                tot = torch.clamp(new_count, min=1.0)
+                for name, x in state.q.items():
+                    x = x.to(dtype)
+                    batch_mean = torch.mean(x, dim=0, keepdim=True)
+                    batch_m2 = torch.sum((x - batch_mean) ** 2, dim=0,
+                                         keepdim=True)
+                    delta = batch_mean - mean[name]
+                    mean[name] = mean[name] + delta * (float(n_chains) / tot)
+                    m2[name] = m2[name] + (
+                        batch_m2 + delta ** 2 * count * n_chains / tot)
+                count = new_count
+                if install[i]:
+                    # Stan's shrinkage toward unit variance, installed as
+                    # the precision; then the accumulator restarts.
+                    n_eff = torch.clamp(count - 1.0, min=1.0)
+                    masses = {}
+                    for name in state.q:
+                        var = m2[name] / n_eff
+                        var = (var * (count / (count + 5.0))
+                               + 1e-3 * (5.0 / (count + 5.0)))
+                        masses[name] = 1.0 / torch.clamp(var, min=1e-10)
+                    state = state._replace(mass=masses)
+                    count = torch.zeros_like(count)
+                    mean, m2 = zeros(), zeros()
+        return state
+
+
+def warmup_schedule(n_warmup: int, init_buffer: int = 75,
+                    term_buffer: int = 50, base_window: int = 25):
+    """The host-side schedule of :meth:`HMC.warmup_run` (JAX
+    ``mcmc/hmc.py:1001-1021``): bool numpy arrays ``(accumulate, install,
+    reinit)`` of length ``n_warmup``. Positions accumulate over
+    ``[init_buffer, n_warmup - term_buffer)``; windows of
+    ``base_window``, then doubling, end at ``install`` (the last at the slow
+    phase's last iteration); ``reinit`` is ``install`` shifted by one."""
+    slow_lo, slow_hi = init_buffer, n_warmup - term_buffer
+    accumulate = np.zeros(n_warmup, dtype=bool)
+    accumulate[slow_lo:slow_hi] = True
+    install = np.zeros(n_warmup, dtype=bool)
+    w, pos = base_window, slow_lo
+    while pos + w < slow_hi:
+        pos += w
+        install[pos] = True
+        w *= 2
+    install[slow_hi - 1] = True
+    reinit = np.zeros(n_warmup, dtype=bool)
+    reinit[1:] = install[:-1]
+    return accumulate, install, reinit
 
 
 def mass_update(state: HMCState, gate, n_chain_dims: int, decay: float,

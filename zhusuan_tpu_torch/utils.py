@@ -2,18 +2,22 @@
 
 Capability parity with reference ``zhusuan/utils.py`` (log_sum_exp at
 utils.py:156, log_mean_exp at utils.py:177, merge_dicts at utils.py:220),
-on torch tensors, and two helpers for nested dict/list/tuple trees of
-tensors (``jax.tree.map`` and ``jax.tree.leaves`` in the JAX package).
+on torch tensors; the JAX module's small helpers (``split_by_names``,
+``add_name_scope``, ``docinherit``, ``if_raise``, ``cached_property``); and
+two helpers for nested dict/list/tuple trees of tensors (``jax.tree.map``
+and ``jax.tree.leaves`` in the JAX package).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 
-__all__ = ["log_sum_exp", "log_mean_exp", "merge_dicts", "tree_map",
-           "tree_leaves"]
+__all__ = ["log_sum_exp", "log_mean_exp", "merge_dicts", "split_by_names",
+           "add_name_scope", "docinherit", "if_raise", "cached_property",
+           "tree_map", "tree_leaves"]
 
 
 def _dims(x, axis):
@@ -57,6 +61,57 @@ def merge_dicts(*dict_list: Dict[str, Any]) -> Dict[str, Any]:
         if d:
             out.update(d)
     return out
+
+
+def split_by_names(d: Dict[str, Any], names) -> Dict[str, Any]:
+    """Return the sub-dict of ``d`` restricted to ``names`` present in ``d``."""
+    return {k: d[k] for k in names if k in d}
+
+
+def add_name_scope(fn):
+    """Decorator labelling ``fn``'s work with its name in profiler traces
+    (``torch.profiler.record_function``; reference ``zhusuan/utils.py:
+    211-217`` used ``tf.name_scope``, the JAX package ``jax.named_scope``).
+    """
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def docinherit(src):
+    """Decorator: copy the docstring from ``src`` if the target has none."""
+
+    def deco(fn):
+        if not fn.__doc__:
+            fn.__doc__ = src.__doc__
+        return fn
+
+    return deco
+
+
+def if_raise(cond: bool, exception: Exception):
+    """Raise ``exception`` if ``cond``. Parity: ``zhusuan/utils.py:234``."""
+    if cond:
+        raise exception
+
+
+def cached_property(fn):
+    """Per-instance cached property: ``fn(self)`` runs once, its value is
+    kept on the instance."""
+    attr = "_cached_" + fn.__name__
+
+    @property
+    @functools.wraps(fn)
+    def wrapper(self):
+        if not hasattr(self, attr):
+            setattr(self, attr, fn(self))
+        return getattr(self, attr)
+
+    return wrapper
 
 
 def tree_map(fn, tree):

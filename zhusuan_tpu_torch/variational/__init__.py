@@ -3,10 +3,11 @@
 Ported so far: the :class:`VariationalObjective` base, the ELBO
 (:func:`elbo`, ``sgvb`` and ``reinforce``), the importance-weighted
 objective (:func:`importance_weighted_objective`: IWAE ``sgvb``, ``dreg``
-and ``vimco``), the automatic guides (:class:`MeanFieldGuide`,
-:class:`FullRankGuide`) and one-call ADVI (:func:`advi`).
-``inclusive_kl.py``, ``renyi.py``, ``laplace.py``, ``pathfinder.py`` and
-``svgd.py`` come with later slices.
+and ``vimco``), the inclusive KL (:func:`klpq`), the Renyi and chi upper
+bounds (:func:`vr_objective`, :func:`cubo_objective`), the automatic guides
+(:class:`MeanFieldGuide`, :class:`FullRankGuide`) and one-call ADVI
+(:func:`advi`). ``laplace.py``, ``pathfinder.py`` and ``svgd.py`` come with
+later slices.
 """
 
 from zhusuan_tpu_torch.variational.advi import (
@@ -25,14 +26,26 @@ from zhusuan_tpu_torch.variational.exclusive_kl import (
     EvidenceLowerBoundObjective,
     elbo,
 )
+from zhusuan_tpu_torch.variational.inclusive_kl import (
+    InclusiveKLObjective,
+    klpq,
+)
 from zhusuan_tpu_torch.variational.monte_carlo import (
     ImportanceWeightedObjective,
     importance_weighted_objective,
     iw_objective,
 )
+from zhusuan_tpu_torch.variational.renyi import (
+    ChiSquareObjective,
+    RenyiDivergenceObjective,
+    cubo_objective,
+    vr_objective,
+)
 
-__all__ = ["ADVIResult", "EvidenceLowerBoundObjective", "FullRankGuide",
-           "ImportanceWeightedObjective", "MeanFieldGuide",
-           "VariationalObjective", "advi", "cosine_decay_schedule", "elbo",
-           "importance_weighted_objective", "iw_objective",
-           "params_from_numpy", "params_to_numpy"]
+__all__ = ["ADVIResult", "ChiSquareObjective", "EvidenceLowerBoundObjective",
+           "FullRankGuide", "ImportanceWeightedObjective",
+           "InclusiveKLObjective", "MeanFieldGuide",
+           "RenyiDivergenceObjective", "VariationalObjective", "advi",
+           "cosine_decay_schedule", "cubo_objective", "elbo",
+           "importance_weighted_objective", "iw_objective", "klpq",
+           "params_from_numpy", "params_to_numpy", "vr_objective"]
