@@ -75,11 +75,13 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    trajectory kernel), (b) ChEES (the ChEES kernel), (c) pilot ->
    ``fit_dense_preconditioner`` -> ``whiten_log_joint`` -> HMC (a plain
    callable: the plain path, 0 launches); (a) and (b) again on the plain
-   path (one timed run). Each reports min-coordinate and slow-projection
-   ESS and their rates; gated on finite samples, on acceptance (whitened
-   HMC in [0.6, 0.95]; fixed-L in [``FIXED_L_MIN_ACCEPTANCE``, 0.95], as
-   the JAX package samples it at ~0.58; ChEES's harmonic mean within 0.1
-   of 0.651) and on ChEES's slow-projection ESS above fixed-L's;
+   path (one timed run each and no untimed one; (b) adapts as on the
+   kernel, then samples ``MIX_PLAIN_CHEES_ITERS``, cut for time). Each
+   reports min-coordinate and slow-projection ESS and their rates; gated
+   on finite samples, on acceptance (whitened HMC in [0.6, 0.95]; fixed-L
+   in [``FIXED_L_MIN_ACCEPTANCE``, 0.95], as the JAX package samples it at
+   ~0.58; ChEES's harmonic mean within 0.1 of 0.651) and on ChEES's
+   slow-projection ESS above fixed-L's;
 12. SGMCMC kernels vs plain: the SGLD, PSGLD, SGHMC (first and second
    order, each on a plain and a momentum-resampling iteration) and SGNHT
    (vector thermostat, first and second order) kernels against their plain
@@ -280,6 +282,47 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ``vae_ssl_adaptive_is`` at full width, one epoch each (500, 200, 200
    steps of their 10 epochs): steps/s, the bound finite and rising (last
    ``EXAMPLE_TAIL`` steps over the first).
+29. Gaussian processes (budget 35 s): ``gaussian_process/
+   gp_regression_diabetes`` at its defaults (exact GP and SGPR m = 50 for
+   800 Adam steps, SVGP 1500) in float32 on the card, on
+   ``scripts/diabetes.npz`` (scikit-learn's diabetes arrays), each test
+   RMSE within ``GP_RMSE_RTOL`` and NLL within ``GP_NLL_ATOL`` of
+   RESULTS.md's JAX values (``GP_DIABETES_JAX``); ``gp.sgpr_elbo`` and its
+   gradient at Protein's size (45730 x 9, the synthetic fallback of
+   ``load_uci_protein_data``, 500 inducing inputs), ms an evaluation in
+   float32 and float64, the two values within ``SGPR_RTOL``;
+   ``gp_classification_ess`` at its defaults (64 chains, 2000 iterations,
+   burn-in 800): training accuracy above the majority class by
+   ``EXAMPLE_MARGIN``, mean shrinks and seconds. No hand-written kernel
+   (the JAX ``gp.py`` calls none either).
+30. flows and NeuTra (budget 110 s): ``normalizing_flows/toy2d_flow`` at its
+   defaults (final flow ELBO above ``FLOW_MIN_ELBO``); ``vae_nf`` at full
+   width (784-500-500-40, batch 128, 10 planar flows) cut to one epoch of
+   its 10 (390 steps): steps/s, the bound finite and rising (last
+   ``EXAMPLE_TAIL`` steps over the first); ``toy_examples/
+   neal_funnel_neutra`` at its defaults (512 chains, 2000 fit steps, 1000
+   HMC iterations of which 500 adapt, both runs): NeuTra's ``std(v)``
+   above plain HMC's by ``FUNNEL_MARGIN`` and within ``FUNNEL_TOL`` of 3.
+   The lifted density is a closure: its HMC takes the plain transition, K1
+   counted 0.
+31. SVGD and the toy samplers (budget 55 s): ``stein_variational/
+   blr_svgd`` at its defaults (100 particles, 2000 iterations): test
+   accuracy above the majority class by ``EXAMPLE_MARGIN``;
+   ``SVGD.update`` on its posterior at ``SVGD_TIMED`` (4096 particles x 25
+   dims) with the median bandwidth, timed, and its median alone on both of
+   the bisection's stopping tests (a host read a pass, which SVGD takes;
+   every pass on the device, kept here for the timing), with its passes;
+   ``toy_examples/gaussian_chees`` at its defaults (512 chains, 1000
+   iterations of which 500 adapt) on both routes, each pooled std within
+   ``CHEES_REL_STD`` of the target's, K7's launches counted from 0 around
+   each run (1000 on ``--fused``, 0 on the model); K7 against its plain
+   version at 512 x 16 on injected noise at the fused run's step size and
+   mean leapfrog count (0 chains taking the other MH decision; the rest as
+   in phase 10), timed back to back and in a CUDA graph beside its plain
+   version and its bound: an entry of its own in the kernels' record;
+   ``toy_examples/mixture_sgnht`` at 1000 chains cut to ``MIXTURE_ITERS``
+   iterations: the right mode's share in ``MIXTURE_RIGHT``, K6 counted 0
+   (the scalar thermostat and the closure keep it on the plain path).
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -315,6 +358,9 @@ NUTS_TIMED = ((6, 1.0), (8, 30.0), (10, 30.0))
 MIX_CHAINS = 4096
 MIX_RHO = 0.95
 MIX_ITERS = 300  # adaptive, then sampling iterations per run
+# The plain ChEES arm adapts as the kernel arm does, then samples this
+# many iterations (~0.1 s each on the card) in its one timed run.
+MIX_PLAIN_CHEES_ITERS = 100
 CHEES_MAX_LEAPFROGS = 1000  # ChEESHMC's default cap
 MAX_DIFFERING = 0.001  # share of chains (MH decision or finiteness)
 Q_TOL = 1e-4  # q', p' relative to 1 + |ref|
@@ -1211,12 +1257,15 @@ def _mixing_ess(torch, traj):
     return coord, float(slow.sum())
 
 
-def _timed_trials(torch, sample, trials, postmap=None, launch_fns=()):
-    """bench.py's timed_trials: an untimed sampling run, then ``trials``
-    timed runs from the same warm state with distinct keys; the trial with
-    the median slow-projection ESS/s is reported, with every trial's
-    numbers and the kernels' launches per run."""
-    sample(100)
+def _timed_trials(torch, sample, trials, postmap=None, launch_fns=(),
+                  untimed=True):
+    """bench.py's timed_trials: an untimed sampling run (unless
+    ``untimed`` is False: the plain arms, which have nothing to warm),
+    then ``trials`` timed runs from the same warm state with distinct
+    keys; the trial with the median slow-projection ESS/s is reported, with
+    every trial's numbers and the kernels' launches per run."""
+    if untimed:
+        sample(100)
     torch.cuda.synchronize()
     rows = []
     for trial in range(trials):
@@ -1252,7 +1301,7 @@ def _acceptance(out):
         (1.0 / (1.0 / acc.clamp(min=1e-10)).mean(dim=1)).mean())
 
 
-def _mixing_hmc(torch, dev, fused, leapfrog_kernel, trials):
+def _mixing_hmc(torch, dev, fused, leapfrog_kernel, trials, untimed=True):
     """Arm (a): fixed-L HMC with step-size and mass adaptation
     (bench.py:371-383). Returns the record, the warm state and the
     median trial's trajectory (the pilot of arm (c))."""
@@ -1276,7 +1325,7 @@ def _mixing_hmc(torch, dev, fused, leapfrog_kernel, trials):
         torch, lambda seed: hmc.run(
             dens, {}, st, torch.Generator().manual_seed(seed), MIX_ITERS,
             collect_fields=("samples", "acceptance_rate"))[1], trials,
-        launch_fns=fns)
+        launch_fns=fns, untimed=untimed)
     rec["mean_acceptance"] = _acceptance(out)[0]
     rec["step_size"] = float(st.step_size)
     rec["warmup_launches"] = warm
@@ -1284,8 +1333,10 @@ def _mixing_hmc(torch, dev, fused, leapfrog_kernel, trials):
     return rec, st, traj
 
 
-def _mixing_chees(torch, dev, fused, trials):
-    """Arm (b): ChEES-HMC (bench.py:386-394)."""
+def _mixing_chees(torch, dev, fused, trials, n_iters=MIX_ITERS,
+                  untimed=True):
+    """Arm (b): ChEES-HMC (bench.py:386-394): ``MIX_ITERS`` adaptive
+    iterations, then ``n_iters`` a timed run."""
     import zhusuan_tpu_torch as zt
     from zhusuan_tpu_torch.ops import fused_chees_step
 
@@ -1301,7 +1352,9 @@ def _mixing_chees(torch, dev, fused, trials):
     rec, out, _ = _timed_trials(
         torch, lambda seed: ch.run(
             dens, {}, st, torch.Generator().manual_seed(seed),
-            MIX_ITERS)[1], trials, launch_fns=(fused_chees_step,))
+            n_iters)[1], trials, launch_fns=(fused_chees_step,),
+        untimed=untimed)
+    rec["n_iters"] = n_iters
     rec["mean_acceptance"], rec["harmonic_acceptance"] = _acceptance(out)
     rec["step_size"] = float(st.step_size)
     rec["trajectory_length"] = float(torch.exp(st.log_traj))
@@ -1377,8 +1430,10 @@ def phase_mixing(torch, dev):
     check(arms["hmc_dense_precond"]["launches"] == 0,
           "the whitened arm launched a kernel")
     # (a) and (b) on the plain path: one timed run each.
-    arms["hmc_fixed_L_plain"], _, _ = _mixing_hmc(torch, dev, False, False, 1)
-    arms["chees_plain"] = _mixing_chees(torch, dev, False, 1)
+    arms["hmc_fixed_L_plain"], _, _ = _mixing_hmc(torch, dev, False, False, 1,
+                                                  untimed=False)
+    arms["chees_plain"] = _mixing_chees(torch, dev, False, 1,
+                                        MIX_PLAIN_CHEES_ITERS, untimed=False)
     print("phase11 mixing " + json.dumps({
         "target": "equicorrelated Gaussian rho={} dim={}".format(MIX_RHO,
                                                                  DIM),
@@ -3718,6 +3773,346 @@ def phase_checking_examples(torch, dev):
     return recs
 
 
+# Phases 29-31: Gaussian processes, flows and NeuTra, SVGD and the toy
+# samplers (budgets 35, 110 and 55 s: they ran to 32.5, 107.8 and 51.3 on
+# an H100 at 700 W, phase 30 mostly neal_funnel_neutra's two HMC runs on
+# the plain transition).
+GP_DIABETES_JAX = {"exact": (55.8, 5.441), "sgpr": (56.1, 5.445),
+                   "svgp": (55.8, 5.441)}  # RESULTS.md: test RMSE, NLL
+GP_RMSE_RTOL = 0.02
+GP_NLL_ATOL = 0.02
+DIABETES_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "scripts", "diabetes.npz")
+SGPR_ROWS, SGPR_DIM, SGPR_INDUCING = 45730, 9, 500  # Protein's shape
+SGPR_RTOL = 1e-3  # float32 against float64, both on the card
+SGPR_TIMED = 10
+EXAMPLE_MARGIN = 0.2  # accuracy above the majority class (ESS, SVGD)
+FLOW_MIN_ELBO = -0.15  # tests/test_examples.py:225
+FUNNEL_MARGIN, FUNNEL_TOL = 0.2, 0.45  # tests/test_examples.py:77-78
+SVGD_TIMED = (4096, 25)  # particles x dims of SVGD.update's timing
+CHEES_REL_STD = 0.15  # tests/test_examples.py:39
+MIXTURE_ITERS = 3000  # tests/test_examples.py:64's cut of 30000
+MIXTURE_RIGHT = (0.2, 0.8)
+
+
+def _wall(torch, fn):
+    """``(fn(), seconds)`` with the device synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sgpr_protein(torch, dev, dtype):
+    """``sgpr_elbo`` and its gradient in every hyperparameter and the
+    inducing inputs at Protein's size: ``(value, ms an evaluation)``."""
+    import numpy as np
+
+    from zhusuan_tpu_torch import gp
+    from zhusuan_tpu_torch.examples.utils.dataset import synthetic_regression
+
+    x, y = synthetic_regression(SGPR_ROWS, SGPR_DIM, seed=7)
+    x = (x - x.mean(0)) / x.std(0)
+    y = (y - y.mean()) / y.std()
+    z = x[np.random.RandomState(0).choice(SGPR_ROWS, SGPR_INDUCING,
+                                          replace=False)]
+    xt = torch.tensor(x, dtype=dtype, device=dev)
+    yt = torch.tensor(y, dtype=dtype, device=dev)
+    leaves = [torch.zeros(SGPR_DIM, dtype=dtype, device=dev),
+              torch.zeros((), dtype=dtype, device=dev),
+              torch.full((), math.log(0.1), dtype=dtype, device=dev),
+              torch.tensor(z, dtype=dtype, device=dev)]
+    for v in leaves:
+        v.requires_grad_(True)
+
+    def value_and_grad():
+        log_ell, log_var, log_noise, zz = leaves
+        val = gp.sgpr_elbo(gp.RBF(torch.exp(log_ell), torch.exp(log_var)),
+                           xt, yt, zz, torch.exp(log_noise))
+        return val.detach(), torch.autograd.grad(val, leaves)
+
+    val, grads = value_and_grad()
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "sgpr_elbo's gradient at {} x {}, m = {} is not finite".format(
+              SGPR_ROWS, SGPR_DIM, SGPR_INDUCING))
+    return float(val), _time_ms(torch, value_and_grad, SGPR_TIMED)
+
+
+def phase_gp(torch, dev):
+    """Phase 29 (budget 35 s): ``gp_regression_diabetes`` at its defaults,
+    ``sgpr_elbo`` with its gradient at Protein's size, and
+    ``gp_classification_ess`` at its defaults, on the card."""
+    from zhusuan_tpu_torch.examples.gaussian_process import (
+        gp_classification_ess, gp_regression_diabetes,
+    )
+
+    failures, recs = [], {}
+    results, seconds = _wall(torch, lambda: gp_regression_diabetes.run(
+        dev, data_path=DIABETES_NPZ, verbose=False))
+    recs["gp_regression_diabetes"] = rec = {"wall_sec": seconds}
+    for name, (rmse, nll) in zip(("exact", "sgpr", "svgp"), results):
+        j_rmse, j_nll = GP_DIABETES_JAX[name]
+        rec[name] = {"rmse": rmse, "nll": nll, "jax_rmse": j_rmse,
+                     "jax_nll": j_nll}
+        if not abs(rmse - j_rmse) <= GP_RMSE_RTOL * j_rmse:
+            failures.append("diabetes {}: test RMSE {} against JAX's {}"
+                            .format(name, rmse, j_rmse))
+        if not abs(nll - j_nll) <= GP_NLL_ATOL:
+            failures.append("diabetes {}: test NLL {} against JAX's {}"
+                            .format(name, nll, j_nll))
+
+    v32, ms32 = _sgpr_protein(torch, dev, torch.float32)
+    v64, ms64 = _sgpr_protein(torch, dev, torch.float64)
+    rel = abs(v32 - v64) / abs(v64)
+    recs["sgpr_protein"] = {"shape": [SGPR_ROWS, SGPR_DIM],
+                            "inducing": SGPR_INDUCING, "value_f32": v32,
+                            "value_f64": v64, "rel_diff": rel,
+                            "ms_value_and_grad_f32": ms32,
+                            "ms_value_and_grad_f64": ms64}
+    if not rel <= SGPR_RTOL:
+        failures.append("sgpr_elbo at Protein size: float32 {} against "
+                        "float64 {}".format(v32, v64))
+
+    (acc, base, out), seconds = _wall(
+        torch, lambda: gp_classification_ess.run(dev))
+    recs["gp_classification_ess"] = {
+        "wall_sec": seconds, "train_acc": acc, "baseline": base,
+        "mean_shrinks": float(out["n_shrinks"].double().mean()),
+        "max_shrinks": int(out["n_shrinks"].max())}
+    if not acc > base + EXAMPLE_MARGIN:
+        failures.append("gp_classification_ess: accuracy {} against the "
+                        "baseline {}".format(acc, base))
+    for name, r in recs.items():
+        print("phase29 {} {}".format(name, json.dumps(r)), flush=True)
+    check(not failures, "GP examples: " + "; ".join(failures))
+    return recs
+
+
+def phase_flows(torch, dev):
+    """Phase 30 (budget 110 s): ``toy2d_flow`` at its defaults, ``vae_nf``
+    at full width cut to one epoch, ``neal_funnel_neutra`` at its
+    defaults (its HMC on the plain transition: K1 not launched)."""
+    from zhusuan_tpu_torch.examples.normalizing_flows import toy2d_flow, vae_nf
+    from zhusuan_tpu_torch.examples.toy_examples import neal_funnel_neutra
+    from zhusuan_tpu_torch.examples.utils.dataset import load_binary_mnist
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+    from zhusuan_tpu_torch.utils import tree_leaves
+
+    failures, recs = [], {}
+    (flow_lb, _, bounds), seconds = _wall(
+        torch, lambda: toy2d_flow.run(dev, verbose=False))
+    recs["toy2d_flow"] = {"wall_sec": seconds, "final_elbo": flow_lb,
+                          "steps_per_sec": bounds.shape[0] / seconds}
+    if not flow_lb > FLOW_MIN_ELBO:
+        failures.append("toy2d_flow: final ELBO {}".format(flow_lb))
+
+    x_train = torch.as_tensor(load_binary_mnist()[0], device=dev)
+    params = vae_nf.init_params(
+        torch.Generator(device=dev).manual_seed(1234))
+    step = vae_nf.make_train_step(
+        torch.optim.Adam(tree_leaves(params), lr=1e-3), 40)
+    generator = torch.Generator().manual_seed(1234)
+    vae_nf.run_epoch(step, params, x_train, 0, generator, max_steps=2)
+    lbs, seconds = _wall(torch, lambda: vae_nf.run_epoch(
+        step, params, x_train, 1, generator))
+    lbs = lbs.cpu()
+    recs["vae_nf"] = {"steps": lbs.shape[0],
+                      "steps_per_sec": lbs.shape[0] / seconds,
+                      **_rises(torch, lbs, "vae_nf", failures)}
+
+    fused_hmc_step.launches = 0
+    (std_plain, std_neutra, fit), seconds = _wall(
+        torch, lambda: neal_funnel_neutra.run(dev, verbose=False))
+    losses = fit.losses.cpu()
+    recs["neal_funnel_neutra"] = {
+        "wall_sec": seconds, "std_plain": std_plain,
+        "std_neutra": std_neutra, "k1_launches": fused_hmc_step.launches,
+        "fit_loss_first100": float(losses[:100].mean()),
+        "fit_loss_last100": float(losses[-100:].mean())}
+    if not (std_neutra > std_plain + FUNNEL_MARGIN
+            and abs(std_neutra - 3.0) < FUNNEL_TOL):
+        failures.append("neal_funnel_neutra: std(v) plain {} NeuTra {}"
+                        .format(std_plain, std_neutra))
+    if fused_hmc_step.launches:
+        failures.append("neal_funnel_neutra launched K1")
+    for name, r in recs.items():
+        print("phase30 {} {}".format(name, json.dumps(r)), flush=True)
+    check(not failures, "flow examples: " + "; ".join(failures))
+    return recs
+
+
+def _median_frozen(torch, x, rel_tol=1e-4, max_iters=64):
+    """The other stopping route of ``svgd._median_bisect``, kept here to
+    time it against the library's: all ``max_iters`` passes on the device,
+    the bracket frozen once the relative test fails, no host read. Returns
+    the median and the passes that moved the bracket (a device int)."""
+    tiny = torch.tensor(torch.finfo(x.dtype).tiny, dtype=x.dtype,
+                        device=x.device)
+    lo = torch.zeros((), dtype=x.dtype, device=x.device)
+    hi = torch.max(x)
+    active = torch.ones((), dtype=torch.bool, device=x.device)
+    passes = torch.zeros((), dtype=torch.int32, device=x.device)
+    for _ in range(max_iters):
+        mid = 0.5 * (lo + hi)
+        active = active & ((hi - lo) > rel_tol * torch.maximum(mid, tiny))
+        below = torch.mean((x <= mid).to(x.dtype)) < 0.5
+        lo = torch.where(active & below, mid, lo)
+        hi = torch.where(active & ~below, mid, hi)
+        passes = passes + active.to(torch.int32)
+    return 0.5 * (lo + hi), passes
+
+
+def _svgd_update_ms(torch, dev):
+    """``SVGD.update`` on the BLR posterior at ``SVGD_TIMED`` particles x
+    dims with the median bandwidth (ms an update), and its median alone on
+    each of the bisection's stopping tests: the library's (a host read a
+    pass) and :func:`_median_frozen` (every pass on the device), which must
+    agree exactly; ms each and the passes."""
+    from zhusuan_tpu_torch.examples.stein_variational import blr_svgd
+    from zhusuan_tpu_torch.variational import SVGD, svgd
+
+    n, d = SVGD_TIMED
+    x_train, y_train, _, _, _ = blr_svgd.load_data()
+    check(x_train.shape[1] == d, "the BLR posterior has {} dims, not {}"
+          .format(x_train.shape[1], d))
+    lj = blr_svgd.make_log_joint(
+        torch.as_tensor(x_train, device=dev),
+        torch.as_tensor(y_train, dtype=torch.float32, device=dev))
+    w = 0.1 * torch.randn(n, d, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    s = SVGD(learning_rate=0.05)
+    st = s.init({"w": w})
+    _, info = s.update(lj, {}, st)
+    out = {"update_ms": _time_ms(torch, lambda: s.update(lj, {}, st), 20),
+           "bandwidth": float(info.bandwidth)}
+    x2 = torch.sum(w * w, dim=1)
+    sqdist = torch.clamp(x2[:, None] + x2[None, :] - 2.0 * (w @ w.T), min=0.0)
+    median = svgd._median_bisect(sqdist)
+    frozen, passes = _median_frozen(torch, sqdist)
+    check(torch.equal(median, frozen),
+          "the two bisection routes give different medians")
+    out["passes"] = int(passes)
+    out["median_host_ms"] = _time_ms(
+        torch, lambda: svgd._median_bisect(sqdist), 20)
+    out["median_device_ms"] = _time_ms(
+        torch, lambda: _median_frozen(torch, sqdist), 20)
+    return out
+
+
+def phase_svgd_toys(torch, dev):
+    """Phase 31 (budget 55 s): ``blr_svgd`` at its defaults and
+    ``SVGD.update`` timed at 4096 particles; ``gaussian_chees`` at its
+    defaults on both routes, K7 against its plain version at 512 x 16;
+    ``mixture_sgnht`` at 1000 chains cut to 3000 iterations."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.stein_variational import blr_svgd
+    from zhusuan_tpu_torch.examples.toy_examples import (
+        gaussian_chees, mixture_sgnht,
+    )
+    from zhusuan_tpu_torch.ops.chees_step import (
+        fused_chees_step, fused_chees_step_reference,
+    )
+    from zhusuan_tpu_torch.ops.sgnht_step import fused_sgnht_step
+
+    failures, recs = [], {}
+    (acc, base, _, diag), seconds = _wall(
+        torch, lambda: blr_svgd.run(dev, verbose=False))
+    recs["blr_svgd"] = {"wall_sec": seconds, "test_acc": acc,
+                        "baseline": base,
+                        "final_grad_norm": float(diag["grad_norm"][-1]),
+                        "update_4096x25": _svgd_update_ms(torch, dev)}
+    if not acc > base + EXAMPLE_MARGIN:
+        failures.append("blr_svgd: accuracy {} against the baseline {}"
+                        .format(acc, base))
+
+    routes = {}
+    for fused in (True, False):
+        fused_chees_step.launches = 0
+        (state, out, rel_err), seconds = _wall(
+            torch, lambda: gaussian_chees.run(dev, fused))
+        keep = slice(gaussian_chees.N_ADAPT, None)
+        routes["fused" if fused else "model"] = {
+            "wall_sec": seconds, "launches": fused_chees_step.launches,
+            "max_rel_std_err": float(rel_err.max()),
+            "acceptance": float(out["acceptance_rate"][keep].mean()),
+            "mean_leapfrogs": float(out["n_leapfrogs"][keep].double().mean()),
+            "trajectory_length": float(out["trajectory_length"][-1]),
+            "step_size": float(state.step_size)}
+    recs["gaussian_chees"] = routes
+    for name, r in routes.items():
+        if not r["max_rel_std_err"] < CHEES_REL_STD:
+            failures.append("gaussian_chees {}: std relative error {}"
+                            .format(name, r["max_rel_std_err"]))
+    if routes["fused"]["launches"] != gaussian_chees.N_ITERS:
+        failures.append("gaussian_chees --fused launched K7 {} times, not "
+                        "{}".format(routes["fused"]["launches"],
+                                    gaussian_chees.N_ITERS))
+    if routes["model"]["launches"]:
+        failures.append("gaussian_chees's model route launched K7")
+
+    # K7 against its plain version at the example's width, the fused run's
+    # adapted step size and mean leapfrog count, on injected noise.
+    c, d = gaussian_chees.N_CHAINS, gaussian_chees.N_X
+    n = int(round(routes["fused"]["mean_leapfrogs"]))
+    step = routes["fused"]["step_size"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    dens = gaussian_chees.log_joint(True, device=dev)
+    q = dens.scale * torch.randn(c, d, generator=g, device=dev)
+    ones = torch.ones(1, d, device=dev)
+    noise = (torch.randn(c, d, generator=g, device=dev),
+             torch.rand(c, generator=g, device=dev))
+    n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+    got = fused_chees_step(dens, q, ones, step, n_dev, (1, 2), 1, noise=noise)
+    torch.cuda.synchronize()
+    want = fused_chees_step_reference(dens, q, ones, step, n_dev, (1, 2), 1,
+                                      noise=noise)
+    k7 = _hold(torch, "chees_step diagonal {}x{} n={}".format(c, d, n),
+               noise[1], (got[3], want[3]), (got[1], want[1]),
+               {"q'": (got[0], want[0], True),
+                "prop_q": (got[1], want[1], True),
+                "prop_p": (got[2], want[2], True)},
+               {"acc": (got[3], want[3], True),
+                "old_lp": (got[4], want[4], False),
+                "sel_lp": (got[5], want[5], True)})
+    if k7["decisions_differing"]:
+        failures.append("K7 at {}x{}: {} chains take the other MH decision"
+                        .format(c, d, k7["decisions_differing"]))
+    step_dev = torch.full((), step, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k7.update({
+        "shape": [c, d], "n_leapfrogs": n, "step": step,
+        "kernel_ms": _time_ms(torch, lambda: fused_chees_step(
+            dens, q, ones, step_dev, n_dev, (3, 4), 1), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_chees_step(
+            dens, q, ones, step_dev, n_dev, (3, 4), 1), 20),
+        "plain_ms": _time_ms(torch, lambda: fused_chees_step_reference(
+            dens, q, ones, step_dev, n_dev, None, 1, noise=(
+                torch.randn(c, d, generator=gen, device=dev),
+                torch.rand(c, generator=gen, device=dev))), 20),
+        **_chees_step_bound(c, d, n, "diagonal")})
+    recs["k7_vs_plain"] = k7
+
+    fused_sgnht_step.launches = 0
+    (samples, state), seconds = _wall(torch, lambda: mixture_sgnht.run(
+        dev, 1000, MIXTURE_ITERS))
+    right = float((samples > 1.0).double().mean())
+    recs["mixture_sgnht"] = {
+        "wall_sec": seconds, "iterations": MIXTURE_ITERS,
+        "right_mode_fraction": right, "alpha": float(state.alpha["x"]),
+        "sample_mean": float(samples.double().mean()),
+        "k6_launches": fused_sgnht_step.launches}
+    if not MIXTURE_RIGHT[0] < right < MIXTURE_RIGHT[1]:
+        failures.append("mixture_sgnht: right-mode fraction {}".format(right))
+    if fused_sgnht_step.launches:
+        failures.append("mixture_sgnht launched K6")
+    for name, r in recs.items():
+        print("phase31 {} {}".format(name, json.dumps(r)), flush=True)
+    check(not failures, "SVGD and toy examples: " + "; ".join(failures))
+    return routes["fused"]["launches"], max(k7["max_abs_err"].values()), k7
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3774,6 +4169,10 @@ def main():
                                           dev)
     run_phase("phase27", phase_ais, torch, dev)
     run_phase("phase28", phase_checking_examples, torch, dev)
+    run_phase("phase29", phase_gp, torch, dev)
+    run_phase("phase30", phase_flows, torch, dev)
+    ex_launches, ex_err, ex_t = run_phase("phase31", phase_svgd_toys, torch,
+                                          dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -3955,6 +4354,19 @@ def main():
         "plain_ms": chees_t["plain_ms"],
         **bound(_chees_step_bound(MIX_CHAINS, DIM, 190, "equicorrelated")),
         "n_leapfrogs": 190,
+    }, {
+        "name": "fused_chees_step (gaussian_chees.py --fused, 512 x 16)",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/chees_step.py:177",
+        "launches": ex_launches,
+        "max_abs_err": ex_err,
+        "ms": ex_t["kernel_graph_ms"],
+        "ms_back_to_back": ex_t["kernel_ms"],
+        "plain_ms": ex_t["plain_ms"],
+        **bound(ex_t),
+        "shape": ex_t["shape"],
+        "n_leapfrogs": ex_t["n_leapfrogs"],
     }] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -480,4 +480,15 @@ def test_port_never_imports_jax():
             "examples/variational_autoencoders/vae_conv.py",
             "examples/bayesian_neural_nets/variational_dropout.py",
             "examples/acceptance.py"} <= scanned, scanned
+    # the GP / flow / SVGD / ESS slice and its eight examples
+    assert {"gp.py", "transform.py", "distributions/flow.py",
+            "mcmc/neutra.py", "mcmc/elliptical.py", "variational/svgd.py",
+            "examples/gaussian_process/gp_regression_diabetes.py",
+            "examples/gaussian_process/gp_classification_ess.py",
+            "examples/normalizing_flows/toy2d_flow.py",
+            "examples/normalizing_flows/vae_nf.py",
+            "examples/stein_variational/blr_svgd.py",
+            "examples/toy_examples/neal_funnel_neutra.py",
+            "examples/toy_examples/gaussian_chees.py",
+            "examples/toy_examples/mixture_sgnht.py"} <= scanned, scanned
     assert not offenders, offenders

@@ -29,7 +29,12 @@ step-size search options, split / rank-normalized / nested R-hat,
 AIS, WAIC, PSIS-LOO and ``compare`` (:mod:`.evaluation`), the inclusive KL
 and the Renyi / chi upper bounds (:mod:`.variational`), driven by the
 evidence-sandwich, LOO-comparison, adaptive-IS SBN and semi-supervised VAE
-examples.
+examples; Gaussian processes (:mod:`.gp`: the kernel zoo, exact regression,
+SGPR and the whitened SVGP bound), normalizing flows (:mod:`.transform`:
+planar, IAF and affine couplings; ``FlowDistribution``), NeuTra transport
+(:func:`.mcmc.fit_neutra`), SVGD (:class:`.variational.SVGD`) and elliptical
+slice sampling (:class:`.mcmc.EllipticalSlice`), driven by the GP
+regression and classification, flow, SVGD and toy sampler examples.
 """
 
 from zhusuan_tpu_torch import (
@@ -39,8 +44,10 @@ from zhusuan_tpu_torch import (
     evaluation,
     fit,
     framework,
+    gp,
     mcmc,
     ops,
+    transform,
     utils,
     variational,
 )
@@ -131,8 +138,10 @@ __all__ = [
     "evaluation",
     "fit",
     "framework",
+    "gp",
     "mcmc",
     "ops",
+    "transform",
     "utils",
     "variational",
 ]

@@ -2,8 +2,8 @@
 
 The port's own copies of what its examples need from
 ``examples/utils/dataset.py`` (the file-or-synthetic MNIST and UCI loaders,
-the semi-supervised MNIST split, the scikit-learn diabetes set,
-``standardize``) and from
+the semi-supervised MNIST split, the scikit-learn diabetes set, German
+credits, ``standardize``) and from
 ``baseline_ref/configs_protocol.py:56-93`` (the synthetic splits of the
 measured SVGP recipe). Everything is numpy; nothing is downloaded: the UCI
 files are read from ``ZS_DATA_DIR`` when present, else replaced by
@@ -20,8 +20,8 @@ import numpy as np
 
 __all__ = [
     "synthetic_regression", "standardize", "regression_splits",
-    "load_uci_boston_housing", "load_uci_diabetes", "save_uci_diabetes",
-    "load_uci_protein_data", "load_mnist_realval", "load_binary_mnist",
+    "load_uci_boston_housing", "load_uci_diabetes", "diabetes_arrays",
+    "save_uci_diabetes", "load_uci_protein_data", "load_uci_german_credits", "load_mnist_realval", "load_binary_mnist",
     "to_one_hot", "load_mnist_semi_supervised", "epoch_batches",
 ]
 
@@ -108,14 +108,21 @@ def load_uci_diabetes(path=None, seed=0):
     ``synthetic`` is always False. Raises ``ImportError`` with the reason
     where neither is there.
     """
+    data, target = diabetes_arrays(path)
+    return (*_split(data, target, seed), False)
+
+
+def diabetes_arrays(path=None):
+    """The raw diabetes arrays ``(data [442, 10], target [442])`` in
+    float64: from ``path`` or ``diabetes.npz`` under ``ZS_DATA_DIR`` when
+    present, else from scikit-learn (see :func:`load_uci_diabetes`)."""
     base = path or os.path.join(_data_dir(), "diabetes.npz")
     if os.path.exists(base):
         with np.load(base) as f:
             data, target = f["data"], f["target"]
     else:
         data, target = _sklearn_diabetes()
-    return (*_split(data.astype(np.float64), target.astype(np.float64),
-                    seed), False)
+    return data.astype(np.float64), target.astype(np.float64)
 
 
 def save_uci_diabetes(path):
@@ -151,6 +158,30 @@ def load_uci_protein_data(path=None, seed=0):
         x, y = synthetic_regression(45730, 9, seed=7)
         synthetic = True
     return (*_split(x, y, seed), synthetic)
+
+
+def load_uci_german_credits(path=None, n_train=700, seed=0):
+    """German credits binary classification (1000 x 24; reference
+    ``dataset.py:301``, ``examples/utils/dataset.py:322-341``) from
+    ``german.data-numeric`` under ``ZS_DATA_DIR`` when present, else the
+    deterministic synthetic logistic data of the same shape.
+
+    :return: ``(x_train, y_train, x_test, y_test, synthetic)``.
+    """
+    base = path or os.path.join(_data_dir(), "german.data-numeric")
+    if os.path.exists(base):
+        data = np.loadtxt(base)
+        x, y = data[:, :-1], data[:, -1] - 1
+        synthetic = False
+    else:
+        rng = np.random.RandomState(seed)
+        x = rng.randn(1000, 24)
+        w = rng.randn(24)
+        y = (1 / (1 + np.exp(-(x @ w))) > rng.rand(1000)).astype(np.float64)
+        synthetic = True
+    x = x.astype(np.float32)
+    y = y.astype(np.int32)
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:], synthetic
 
 
 def _read_idx_images(path):

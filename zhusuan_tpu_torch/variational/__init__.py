@@ -5,9 +5,9 @@ Ported so far: the :class:`VariationalObjective` base, the ELBO
 objective (:func:`importance_weighted_objective`: IWAE ``sgvb``, ``dreg``
 and ``vimco``), the inclusive KL (:func:`klpq`), the Renyi and chi upper
 bounds (:func:`vr_objective`, :func:`cubo_objective`), the automatic guides
-(:class:`MeanFieldGuide`, :class:`FullRankGuide`) and one-call ADVI
-(:func:`advi`). ``laplace.py``, ``pathfinder.py`` and ``svgd.py`` come with
-later slices.
+(:class:`MeanFieldGuide`, :class:`FullRankGuide`), one-call ADVI
+(:func:`advi`) and Stein variational gradient descent (:class:`SVGD`).
+Only ``laplace.py`` and ``pathfinder.py`` remain.
 """
 
 from zhusuan_tpu_torch.variational.advi import (
@@ -35,6 +35,7 @@ from zhusuan_tpu_torch.variational.monte_carlo import (
     importance_weighted_objective,
     iw_objective,
 )
+from zhusuan_tpu_torch.variational.svgd import SVGD, SVGDInfo, SVGDState
 from zhusuan_tpu_torch.variational.renyi import (
     ChiSquareObjective,
     RenyiDivergenceObjective,
@@ -45,7 +46,8 @@ from zhusuan_tpu_torch.variational.renyi import (
 __all__ = ["ADVIResult", "ChiSquareObjective", "EvidenceLowerBoundObjective",
            "FullRankGuide", "ImportanceWeightedObjective",
            "InclusiveKLObjective", "MeanFieldGuide",
-           "RenyiDivergenceObjective", "VariationalObjective", "advi",
+           "RenyiDivergenceObjective", "SVGD", "SVGDInfo", "SVGDState",
+           "VariationalObjective", "advi",
            "cosine_decay_schedule", "cubo_objective", "elbo",
            "importance_weighted_objective", "iw_objective", "klpq",
            "params_from_numpy", "params_to_numpy", "vr_objective"]
