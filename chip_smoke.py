@@ -323,6 +323,49 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ``toy_examples/mixture_sgnht`` at 1000 chains cut to ``MIXTURE_ITERS``
    iterations: the right mode's share in ``MIXTURE_RIGHT``, K6 counted 0
    (the scalar thermostat and the closure keep it on the plain path).
+32. Laplace and Pathfinder (budget 15 s): ``laplace_approximation`` on
+   ``bench.py``'s target (``DiagonalGaussianLogJoint``, loc 0, std
+   ``linspace(0.1, 1.0, 100)``) in float64 from a dispersed start, gated
+   on the closed forms (mode = loc, ``chol_precision`` = diag(1/std), log
+   evidence = 50 log 2 pi + sum log std, each within ``LAPLACE_RTOL``
+   relative, a positive-definite Hessian), and on a Bayesian linear
+   regression of ``scripts/diabetes.npz`` (z-scored, noise ``BLR_NOISE``)
+   against its closed-form evidence; the port's L-BFGS on one path
+   (iterations per second, host reads per iteration); ``multipath_
+   pathfinder`` on the same target (``PF_PATHS`` paths from dispersed
+   starts, ``PF_PER_PATH`` draws a path, ``PF_DRAWS`` resampled,
+   ``PF_ITERS`` iterations), its pooled means within ``PF_MEAN_TOL`` stds
+   and its Pareto-k and largest std error within the range of the JAX
+   package's CPU runs (``PF_REFERENCE``, from
+   ``scripts/pathfinder_jax_reference.py``: the approximation is poor on
+   this target in both packages); ``pathfinder_mcmc_init`` ->
+   ``HMC.init(...)._replace(mass=mass)`` in float32 -> ``HMC.run(
+   experimental_fused_step=True)`` for ``PF_HMC_ITERS`` iterations at
+   32768 x 100, K1 counted from 0 (one launch an iteration), the pooled
+   std of the second half within ``PF_HMC_STD_TOL``; then K1 against its
+   plain version on one step from that state (0 chains taking the other MH
+   decision, outputs within ``Q_TOL``), timed back to back and in a CUDA
+   graph beside its plain version and its bound: an entry of its own in
+   the kernels' record;
+33. the samplers and the change-point example (budget 55 s): RWM and MALA
+   at 32768 x 100 on ``bench.py``'s target from the typical set,
+   ``MH_ADAPT`` adapting then ``MH_ITERS`` sampling iterations, each mean
+   acceptance within ``MH_ACC_TOL`` of its target (0.234, 0.574); the
+   slice sampler at 4096 x 10 (std ``linspace(0.1, 1.0, 10)``) for
+   ``SLICE_SWEEPS`` sweeps, its means and variances within ``SLICE_SES``
+   standard errors (from the per-chain values), no stuck chain, and its
+   two loop routes (stop when no chain is active, the library's; run
+   every chain to the cap) timed in turns on one key and giving the same
+   draws; replica exchange on ``tests/test_remc.py``'s two-mode target
+   (``REMC_TEMPS`` rungs down to ``REMC_MIN_BETA``, 4096 chains from one
+   mode, ``REMC_ITERS`` iterations of which ``REMC_ADAPT`` adapt), the cold
+   rung's share in the other mode within ``REMC_SHARE_TOL`` of 0.5 and
+   every adjacent pair swapping; ``state_space/changepoint.run`` at its
+   defaults on the JAX example's counts (``CHANGEPOINT_REFERENCE``, from
+   ``scripts/changepoint_jax_reference.py``): the same ``tau`` mode and
+   both rates' posterior means within ``CHANGEPOINT_LAM_TOL``. No
+   hand-written kernel: these samplers and the example's closure take the
+   plain path (neither package has a kernel for them).
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -4113,6 +4156,374 @@ def phase_svgd_toys(torch, dev):
     return routes["fused"]["launches"], max(k7["max_abs_err"].values()), k7
 
 
+# Phases 32-33: Laplace and Pathfinder, then RWM, MALA, the slice
+# sampler, replica exchange and the change-point example (budgets 15 and
+# 55 s, 70 together: they ran to 9.2 and 51.4 s from `git archive` on an
+# H100 at 700 W, the first Laplace warm from earlier phases, phase 33
+# mostly the host-bound change-point run and slice sweeps).
+LAPLACE_RTOL = 1e-8
+BLR_NOISE = 0.75  # the diabetes regression's fixed noise scale (z-scored y)
+PF_PATHS, PF_PER_PATH, PF_DRAWS, PF_ITERS = 8, 8192, 32768, 100
+PF_INIT_SCALE = 2.0  # the paths start from N(0, PF_INIT_SCALE^2 I)
+PF_SEED = 32
+PF_MEAN_TOL = 0.05  # pooled means within this many target stds
+PF_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "scripts", "pathfinder_jax_reference.json")
+PF_HMC_ITERS, PF_HMC_STEP, PF_HMC_THIN = 200, 0.5, 10
+PF_HMC_STD_TOL = 0.05  # over the last half of the warm-started run
+MH_CHAINS, MH_ADAPT, MH_ITERS = 32768, 300, 300
+MH_ACC_TOL = 0.05
+SLICE_CHAINS, SLICE_DIM, SLICE_SWEEPS = 4096, 10, 300
+SLICE_SES = 4.0
+SLICE_TIMED = 5  # sweeps per timing of a loop route
+REMC_MU, REMC_TEMPS, REMC_MIN_BETA, REMC_CHAINS = 4.0, 8, 0.02, 4096
+REMC_ITERS, REMC_ADAPT = 600, 200
+REMC_SHARE_TOL = 0.1
+CHANGEPOINT_REFERENCE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "scripts",
+    "changepoint_jax_reference.json")
+CHANGEPOINT_LAM_TOL = 0.15
+
+
+def _blr_laplace(torch, dev):
+    """Laplace on a Bayesian linear regression of the diabetes data
+    (z-scored columns and target; ``w ~ N(0, I_10)``, ``b ~ N(0, 1)``, noise
+    ``BLR_NOISE``) against the closed-form evidence ``log N(y; 0, s^2 I +
+    X X^T + 1 1^T)``, float64 on the card."""
+    import numpy as np
+
+    data = np.load(DIABETES_NPZ)
+    x = (data["data"] - data["data"].mean(0)) / data["data"].std(0)
+    y = (data["target"] - data["target"].mean()) / data["target"].std()
+    x = torch.tensor(x, dtype=torch.float64, device=dev)
+    y = torch.tensor(y, dtype=torch.float64, device=dev)
+    n, d = x.shape
+    log_2pi = math.log(2.0 * math.pi)
+
+    def log_joint(obs):
+        w, b = obs["w"], obs["b"]
+        prior = (-0.5 * torch.sum(w * w, -1) - 0.5 * b * b
+                 - 0.5 * (d + 1) * log_2pi)
+        resid = y - x @ w - b
+        return (prior - 0.5 * torch.sum(resid * resid, -1) / BLR_NOISE ** 2
+                - n * math.log(BLR_NOISE) - 0.5 * n * log_2pi)
+
+    from zhusuan_tpu_torch.variational import laplace_approximation
+
+    res, seconds = _wall(torch, lambda: laplace_approximation(
+        log_joint, {}, {"w": torch.zeros(d, dtype=torch.float64, device=dev),
+                        "b": torch.zeros((), dtype=torch.float64,
+                                         device=dev)}))
+    cov = (BLR_NOISE ** 2 * torch.eye(n, dtype=torch.float64, device=dev)
+           + x @ x.T + 1.0)
+    chol = torch.linalg.cholesky(cov)
+    alpha = torch.cholesky_solve(y[:, None], chol)[:, 0]
+    exact = float(-0.5 * torch.dot(y, alpha)
+                  - torch.sum(torch.log(torch.diagonal(chol)))
+                  - 0.5 * n * log_2pi)
+    got = float(res.log_evidence)
+    return {"wall_sec": seconds, "rows": n, "dims": d + 1,
+            "log_evidence": got, "exact": exact,
+            "rel_err": abs(got - exact) / abs(exact),
+            "pd_hessian": bool(res.pd_hessian),
+            "grad_norm": float(res.grad_norm)}
+
+
+def phase_laplace_pathfinder(torch, dev):
+    """Phase 32 (budget 15 s): Laplace on bench.py's target in float64
+    (closed forms) and on the diabetes regression (closed-form evidence);
+    the port's L-BFGS timed; multi-path Pathfinder on bench.py's target,
+    gated on its pooled means and on the JAX package's Pareto-k and std
+    errors for the recipe; its warm start through
+    ``pathfinder_mcmc_init`` -> ``HMC.init(...)._replace(mass=...)`` ->
+    ``HMC.run(experimental_fused_step=True)`` at 32768 x 100 in float32, K1
+    every iteration; K1 against its plain version from that state."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.ops.hmc_step import (
+        fused_hmc_step, fused_hmc_step_reference,
+    )
+    from zhusuan_tpu_torch.variational import (
+        laplace_approximation, multipath_pathfinder, pathfinder_mcmc_init,
+    )
+    from zhusuan_tpu_torch.variational.pathfinder import _lbfgs_trajectory
+
+    f64 = torch.float64
+    failures, recs = [], {}
+    std = torch.linspace(0.1, 1.0, DIM, dtype=f64, device=dev)
+    dens = zt.DiagonalGaussianLogJoint(
+        "x", torch.zeros(DIM, dtype=f64, device=dev), std)
+    g = torch.Generator(device=dev).manual_seed(PF_SEED)
+    inits = PF_INIT_SCALE * torch.randn(PF_PATHS, DIM, generator=g,
+                                        dtype=f64, device=dev)
+
+    # (a) Laplace on the Gaussian: mode, precision and evidence in closed
+    # form (the density omits its normaliser: log Z = 50 log 2 pi + sum
+    # log std).
+    res, seconds = _wall(torch, lambda: laplace_approximation(
+        dens, {}, {"x": inits[0]}))
+    want_log_z = 0.5 * DIM * math.log(2.0 * math.pi) + float(
+        torch.log(std).sum())
+    prec = torch.diag(1.0 / std)
+    errs = {"mode": float(res.mode["x"].abs().max()),
+            "chol_precision": float((res.chol_precision - prec).abs().max()
+                                    / prec.abs().max()),
+            "log_evidence": abs(float(res.log_evidence) - want_log_z)
+            / abs(want_log_z)}
+    recs["laplace_gaussian"] = {"wall_sec": seconds, "rel_errs": errs,
+                                "pd_hessian": bool(res.pd_hessian),
+                                "grad_norm": float(res.grad_norm)}
+    if not (max(errs.values()) <= LAPLACE_RTOL and bool(res.pd_hessian)):
+        failures.append("Laplace on the Gaussian: {}".format(
+            recs["laplace_gaussian"]))
+    # (b) Laplace on the diabetes regression, exact for linear-Gaussian.
+    recs["laplace_blr"] = _blr_laplace(torch, dev)
+    if not (recs["laplace_blr"]["rel_err"] <= LAPLACE_RTOL
+            and recs["laplace_blr"]["pd_hessian"]):
+        failures.append("Laplace on the regression: {}".format(
+            recs["laplace_blr"]))
+
+    # (c) The L-BFGS path alone, then multi-path Pathfinder.
+    (_, gs, reads), seconds = _wall(torch, lambda: _lbfgs_trajectory(
+        lambda x: -dens({"x": x}), inits[0], PF_ITERS))
+    recs["lbfgs"] = {"iterations": PF_ITERS, "wall_sec": seconds,
+                     "iterations_per_sec": PF_ITERS / seconds,
+                     "host_reads_per_iteration": reads / PF_ITERS,
+                     "final_grad_norm": float(gs[-1].norm())}
+    res, seconds = _wall(torch, lambda: multipath_pathfinder(
+        dens, {}, {"x": inits}, torch.Generator().manual_seed(PF_SEED),
+        n_draws=PF_DRAWS, n_draws_per_path=PF_PER_PATH,
+        max_iters=PF_ITERS))
+    x = res.draws["x"]
+    pf = {"wall_sec": seconds, "khat": res.khat,
+          "max_abs_mean_over_std": float((x.mean(0) / std).abs().max()),
+          "max_rel_std_err": float((x.std(0) / std - 1.0).abs().max()),
+          "path_elbos": [float(v) for v in res.path_elbos]}
+    recs["pathfinder"] = pf
+    with open(PF_REFERENCE) as f:
+        ref = json.load(f)
+    if not pf["max_abs_mean_over_std"] <= PF_MEAN_TOL:
+        failures.append("Pathfinder's pooled means: {}".format(
+            pf["max_abs_mean_over_std"]))
+    # Pathfinder's covariance is poor on this 100-dim target in both
+    # packages (Pareto-k ~2.3, stds off by up to ~80% in the JAX
+    # package's CPU runs): hold the port to the JAX package's range.
+    for f in ("khat", "max_rel_std_err"):
+        lo, hi = ref[f]["min"], ref[f]["max"]
+        if not lo - (hi - lo) <= pf[f] <= hi + (hi - lo):
+            failures.append("Pathfinder's {} {} outside the JAX package's "
+                            "{}".format(f, pf[f], ref[f]))
+
+    # The warm start feeds K1.
+    init, mass = pathfinder_mcmc_init(res, N_CHAINS)
+    dens32 = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev),
+                                         std.float())
+    hmc = zt.HMC(step_size=PF_HMC_STEP, n_leapfrogs=5,
+                 experimental_fused_step=True)
+    state = hmc.init({"x": init["x"].float()}, n_chain_dims=1)._replace(
+        mass={"x": mass["x"].float()})
+    fused_hmc_step.launches = 0
+    (state, out), seconds = _wall(torch, lambda: hmc.run(
+        dens32, {}, state, torch.Generator().manual_seed(PF_SEED + 1),
+        PF_HMC_ITERS, collect_fields=("samples", "acceptance_rate"),
+        thinning=PF_HMC_THIN))
+    launches = fused_hmc_step.launches
+    kept = out["samples"]["x"][out["samples"]["x"].shape[0] // 2:]
+    sd = _pooled_std(torch, kept)
+    recs["warm_hmc"] = {
+        "wall_sec": seconds, "launches": launches,
+        "acceptance": float(out["acceptance_rate"].mean()),
+        "max_rel_std_err": float((sd / std - 1.0).abs().max()),
+        "mass_over_precision": [float(v) for v in (
+            state.mass["x"][0] * std.float() ** 2).aminmax()]}
+    if launches != PF_HMC_ITERS:
+        failures.append("the warm-started HMC launched K1 {} times, not "
+                        "{}".format(launches, PF_HMC_ITERS))
+    if not recs["warm_hmc"]["max_rel_std_err"] <= PF_HMC_STD_TOL:
+        failures.append("warm-started HMC: pooled std off by {}".format(
+            recs["warm_hmc"]["max_rel_std_err"]))
+
+    # K1 against its plain version on one step from that state.
+    q, m, step = state.q["x"], state.mass["x"], state.step_size
+    gk = torch.Generator(device=dev).manual_seed(PF_SEED + 2)
+    noise = (torch.randn(N_CHAINS, DIM, generator=gk, device=dev),
+             torch.rand(N_CHAINS, generator=gk, device=dev))
+    got = fused_hmc_step(dens32, q, m, step, 5, (1, 2), PF_HMC_ITERS + 1,
+                         noise=noise)
+    torch.cuda.synchronize()
+    want = fused_hmc_step_reference(dens32, q, m, step, 5, (1, 2),
+                                    PF_HMC_ITERS + 1, noise=noise)
+    u = noise[1]
+    differing = int(((u < got[2]) != (u < want[2])).sum())
+    names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
+    errs = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(names, got, want)}
+    worst = max(errs[n] / (1.0 + float(w.float().abs().max()))
+                for n, w in zip(names, want))
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def plain():
+        return fused_hmc_step_reference(
+            dens32, q, m, step, 5, None, 1,
+            noise=(torch.randn(N_CHAINS, DIM, generator=gen, device=dev),
+                   torch.rand(N_CHAINS, generator=gen, device=dev)))
+
+    timing = {
+        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
+            dens32, q, m, step, 5, (3, 4), 1), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
+            dens32, q, m, step, 5, (3, 4), 1), 20),
+        "plain_ms": _time_ms(torch, plain, 20),
+        **_hmc_step_bound(N_CHAINS, DIM, 5, "diagonal"),
+        "decisions_differing": differing, "max_abs_err": errs}
+    recs["k1_vs_plain"] = timing
+    if differing:
+        failures.append("K1 from the warm start: {} chains take the other "
+                        "MH decision".format(differing))
+    if not worst <= Q_TOL:
+        failures.append("K1 from the warm start: outputs differ by {} of "
+                        "1 + |ref|".format(worst))
+    for name, rec in recs.items():
+        print("phase32 {} {}".format(name, json.dumps(rec)), flush=True)
+    check(not failures, "Laplace and Pathfinder: " + "; ".join(failures))
+    return launches, max(errs.values()), timing
+
+
+class _SliceToTheCap:
+    """A mixin for ``SliceSampler`` whose loops run every chain to the cap
+    (no host read; a finished chain is frozen): the other loop route, kept
+    here for phase 33's timing only."""
+
+    @staticmethod
+    def _any(flags):
+        return True
+
+
+def _slice_moments(torch, samples, std):
+    """The largest z-scores of the per-dimension means and variances of
+    ``samples [S, C, D]`` (loc 0) against ``std``, each standard error from
+    the spread of the per-chain values over the chains."""
+    x = samples.double()
+    n = x.shape[1]
+    m_c = x.mean(0)
+    v_c = (x * x).mean(0)
+    mean_z = (m_c.mean(0) / (m_c.std(0) / math.sqrt(n))).abs().max()
+    var_z = ((v_c.mean(0) - std.double() ** 2)
+             / (v_c.std(0) / math.sqrt(n))).abs().max()
+    return float(mean_z), float(var_z)
+
+
+def phase_samplers_changepoint(torch, dev):
+    """Phase 33 (budget 55 s): RWM and MALA at 32768 x 100 on bench.py's
+    target (300 adapting, 300 sampling iterations), the slice sampler at
+    4096 x 10 (300 sweeps; both loop routes timed), replica exchange on
+    tests/test_remc.py's two-mode target (8 rungs, 4096 chains) and
+    ``state_space/changepoint.run`` at its defaults on the JAX example's
+    counts."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.examples.state_space import changepoint
+
+    failures, recs = [], {}
+    std = torch.linspace(0.1, 1.0, DIM, device=dev)
+    dens = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev), std)
+    g = torch.Generator(device=dev).manual_seed(33)
+    for i, cls in enumerate((zt.RandomWalkMetropolis, zt.MALA)):
+        sampler = cls(step_size=0.05, adapt_step_size=True)
+        state = sampler.init({"x": std * torch.randn(
+            MH_CHAINS, DIM, generator=g, device=dev)}, 1)
+        (state, _), adapt_sec = _wall(torch, lambda: sampler.run(
+            dens, {}, state, (33, i), MH_ADAPT, n_adapt=MH_ADAPT,
+            collect=False))
+        (state, out), seconds = _wall(torch, lambda: sampler.run(
+            dens, {}, state, (34, i), MH_ITERS,
+            collect_fields=("acceptance_rate",)))
+        rec = {"chains": MH_CHAINS, "dims": DIM,
+               "adapt_ms_per_iteration": adapt_sec / MH_ADAPT * 1e3,
+               "ms_per_iteration": seconds / MH_ITERS * 1e3,
+               "step_size": float(state.step_size),
+               "acceptance": float(out["acceptance_rate"].mean()),
+               "target": sampler._target}
+        recs[cls.__name__] = rec
+        if not abs(rec["acceptance"] - rec["target"]) <= MH_ACC_TOL:
+            failures.append("{}: acceptance {} against {}".format(
+                cls.__name__, rec["acceptance"], rec["target"]))
+
+    sstd = torch.linspace(0.1, 1.0, SLICE_DIM, device=dev)
+    sdens = zt.DiagonalGaussianLogJoint(
+        "x", torch.zeros(SLICE_DIM, device=dev), sstd)
+    slice_ = zt.SliceSampler()
+    state = slice_.init({"x": sstd * torch.randn(
+        SLICE_CHAINS, SLICE_DIM, generator=g, device=dev)}, 1)
+    (state, out), seconds = _wall(torch, lambda: slice_.run(
+        sdens, {}, state, (35, 0), SLICE_SWEEPS,
+        collect_fields=("samples", "stuck_fraction")))
+    mean_z, var_z = _slice_moments(torch, out["samples"]["x"], sstd)
+    rec = {"chains": SLICE_CHAINS, "dims": SLICE_DIM, "sweeps": SLICE_SWEEPS,
+           "wall_sec": seconds, "ms_per_sweep": seconds / SLICE_SWEEPS * 1e3,
+           "max_mean_z": mean_z, "max_var_z": var_z,
+           "max_stuck_fraction": float(out["stuck_fraction"].max())}
+    # The two loop routes in turns from the final state, on one key: the
+    # early exit (the library's) and every chain to the cap.
+    to_cap = type("ToTheCap", (_SliceToTheCap, zt.SliceSampler), {})()
+    routes = {"early_exit": [], "to_the_cap": []}
+    draws = {}
+    for name in ("early_exit", "to_the_cap", "to_the_cap", "early_exit"):
+        sampler = slice_ if name == "early_exit" else to_cap
+        (_, o), sec = _wall(torch, lambda: sampler.run(
+            sdens, {}, state, (36, 0), SLICE_TIMED))
+        routes[name].append(sec / SLICE_TIMED * 1e3)
+        draws[name] = o["samples"]["x"]
+    rec["ms_per_sweep_routes"] = routes
+    rec["routes_agree"] = bool(torch.equal(draws["early_exit"],
+                                           draws["to_the_cap"]))
+    recs["SliceSampler"] = rec
+    if not (mean_z <= SLICE_SES and var_z <= SLICE_SES
+            and rec["max_stuck_fraction"] == 0.0 and rec["routes_agree"]):
+        failures.append("SliceSampler: {}".format(rec))
+
+    def bimodal(obs):
+        z = obs["z"]
+        return torch.logaddexp(-0.5 * torch.sum((z - REMC_MU) ** 2, -1),
+                               -0.5 * torch.sum((z + REMC_MU) ** 2, -1))
+
+    remc = zt.ReplicaExchangeHMC(step_size=0.2, n_leapfrogs=10,
+                                 n_temps=REMC_TEMPS, min_beta=REMC_MIN_BETA)
+    state = remc.init({"z": torch.full((REMC_CHAINS, 2), REMC_MU,
+                                       device=dev)}, bimodal)
+    (state, out), seconds = _wall(torch, lambda: remc.run(
+        bimodal, {}, state, (37, 0), REMC_ITERS, n_adapt=REMC_ADAPT))
+    z = out["samples"]["z"][REMC_ADAPT:]
+    swap = torch.nanmean(out["swap_rate"], dim=0)
+    rec = {"chains": REMC_CHAINS, "rungs": REMC_TEMPS,
+           "iterations": REMC_ITERS, "wall_sec": seconds,
+           "ms_per_iteration": seconds / REMC_ITERS * 1e3,
+           "cold_negative_share": float((z[..., 0] < 0).double().mean()),
+           "swap_rates": [float(v) for v in swap],
+           "acceptance": [float(v) for v in
+                          out["acceptance_rate"][REMC_ADAPT:].mean(0)]}
+    recs["ReplicaExchangeHMC"] = rec
+    if not (abs(rec["cold_negative_share"] - 0.5) <= REMC_SHARE_TOL
+            and min(rec["swap_rates"]) > 0.0):
+        failures.append("ReplicaExchangeHMC: {}".format(rec))
+
+    with open(CHANGEPOINT_REFERENCE) as f:
+        ref = json.load(f)
+    res, seconds = _wall(torch, lambda: changepoint.run(
+        y=torch.tensor(ref["y"], dtype=torch.float64, device=dev)))
+    rec = {"wall_sec": seconds, "ms_per_sweep": seconds / 2000 * 1e3,
+           "tau_mode": res["tau_mode"], "tau_mean": res["tau_mean"],
+           "lam_mean": [float(v) for v in res["lam_mean"]],
+           "jax": {k: ref[k] for k in ("tau_mode", "tau_mean", "lam_mean")}}
+    recs["changepoint"] = rec
+    if not (rec["tau_mode"] == ref["tau_mode"] and max(
+            abs(a - b) for a, b in zip(rec["lam_mean"], ref["lam_mean"]))
+            <= CHANGEPOINT_LAM_TOL):
+        failures.append("changepoint: {}".format(rec))
+    for name, rec in recs.items():
+        print("phase33 {} {}".format(name, json.dumps(rec)), flush=True)
+    check(not failures, "samplers and changepoint: " + "; ".join(failures))
+    return recs
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4173,6 +4584,9 @@ def main():
     run_phase("phase30", phase_flows, torch, dev)
     ex_launches, ex_err, ex_t = run_phase("phase31", phase_svgd_toys, torch,
                                           dev)
+    pf_launches, pf_err, pf_t = run_phase("phase32", phase_laplace_pathfinder,
+                                          torch, dev)
+    run_phase("phase33", phase_samplers_changepoint, torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -4297,6 +4711,18 @@ def main():
         "ms_back_to_back": wf_t["kernel_ms"],
         "plain_ms": wf_t["plain_ms"],
         **bound(wf_t),
+    }, {
+        "name": "fused_hmc_step (Pathfinder warm start, 32768 x 100)",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/hmc_step.py:206",
+        "launches": pf_launches,
+        "max_abs_err": pf_err,
+        "ms": pf_t["kernel_graph_ms"],
+        "ms_back_to_back": pf_t["kernel_ms"],
+        "plain_ms": pf_t["plain_ms"],
+        **bound(pf_t),
+        "decisions_differing": pf_t["decisions_differing"],
     }, {
         "name": "fused_nuts_transition",
         "route": "cuda",

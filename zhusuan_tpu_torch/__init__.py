@@ -34,7 +34,11 @@ SGPR and the whitened SVGP bound), normalizing flows (:mod:`.transform`:
 planar, IAF and affine couplings; ``FlowDistribution``), NeuTra transport
 (:func:`.mcmc.fit_neutra`), SVGD (:class:`.variational.SVGD`) and elliptical
 slice sampling (:class:`.mcmc.EllipticalSlice`), driven by the GP
-regression and classification, flow, SVGD and toy sampler examples.
+regression and classification, flow, SVGD and toy sampler examples; the
+Laplace approximation and Pathfinder (:mod:`.variational`, on the port's
+copy of ``optax.lbfgs()``), random-walk Metropolis, MALA, slice sampling,
+exact discrete Gibbs, block-wise Gibbs and replica exchange (:mod:`.mcmc`),
+driven by the change-point example.
 """
 
 from zhusuan_tpu_torch import (
@@ -62,19 +66,35 @@ from zhusuan_tpu_torch.framework import (
 )
 from zhusuan_tpu_torch.mcmc import (
     HMC,
+    MALA,
     NUTS,
     ChEESHMC,
     ChEESInfo,
     ChEESState,
+    DiscreteGibbs,
+    DiscreteGibbsInfo,
+    DiscreteGibbsState,
+    Gibbs,
+    GibbsInfo,
+    GibbsState,
     HMCInfo,
     HMCState,
+    MHInfo,
+    MHState,
     NUTSInfo,
     PSGLD,
+    REMCInfo,
+    REMCState,
+    RandomWalkMetropolis,
+    ReplicaExchangeHMC,
     SGHMC,
     SGLD,
     SGNHT,
     SGMCMCInfo,
     SGMCMCState,
+    SliceInfo,
+    SliceSampler,
+    SliceState,
     fit_dense_preconditioner,
     whiten_log_joint,
 )
@@ -106,17 +126,33 @@ __all__ = [
     "ChEESHMC",
     "ChEESInfo",
     "ChEESState",
+    "DiscreteGibbs",
+    "DiscreteGibbsInfo",
+    "DiscreteGibbsState",
+    "Gibbs",
+    "GibbsInfo",
+    "GibbsState",
     "HMC",
     "HMCInfo",
     "HMCState",
+    "MALA",
+    "MHInfo",
+    "MHState",
     "NUTS",
     "NUTSInfo",
     "PSGLD",
+    "REMCInfo",
+    "REMCState",
+    "RandomWalkMetropolis",
+    "ReplicaExchangeHMC",
     "SGHMC",
     "SGLD",
     "SGMCMCInfo",
     "SGMCMCState",
     "SGNHT",
+    "SliceInfo",
+    "SliceSampler",
+    "SliceState",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
     "FullRankGuide",

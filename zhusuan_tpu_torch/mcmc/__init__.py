@@ -6,16 +6,25 @@ Ported so far: :class:`HMC` with its shared machinery (:mod:`.base`),
 stochastic-gradient samplers :class:`SGLD`, :class:`PSGLD`, :class:`SGHMC`
 and :class:`SGNHT` (:mod:`.sgmcmc`), NeuTra transport
 (:func:`fit_neutra`, :func:`neutra_log_joint`) and elliptical slice
-sampling (:class:`EllipticalSlice`). ``rwm.py``, ``slice_sampler.py``,
-``gibbs.py``, ``discrete.py`` and ``remc.py`` are not ported yet.
+sampling (:class:`EllipticalSlice`), random-walk Metropolis and MALA
+(:mod:`.rwm`), coordinate-wise slice sampling (:class:`SliceSampler`),
+exact discrete Gibbs (:class:`DiscreteGibbs`), block-wise Gibbs
+(:class:`Gibbs`) and replica exchange (:class:`ReplicaExchangeHMC`): every
+module of the JAX package's ``mcmc``.
 """
 
 from zhusuan_tpu_torch.mcmc.chees import ChEESHMC, ChEESInfo, ChEESState
+from zhusuan_tpu_torch.mcmc.discrete import (
+    DiscreteGibbs,
+    DiscreteGibbsInfo,
+    DiscreteGibbsState,
+)
 from zhusuan_tpu_torch.mcmc.elliptical import (
     EllipticalSlice,
     EllipticalSliceInfo,
     EllipticalSliceState,
 )
+from zhusuan_tpu_torch.mcmc.gibbs import Gibbs, GibbsInfo, GibbsState
 from zhusuan_tpu_torch.mcmc.hmc import (
     HMC,
     HMCInfo,
@@ -33,6 +42,17 @@ from zhusuan_tpu_torch.mcmc.precondition import (
     fit_dense_preconditioner,
     whiten_log_joint,
 )
+from zhusuan_tpu_torch.mcmc.remc import (
+    REMCInfo,
+    REMCState,
+    ReplicaExchangeHMC,
+)
+from zhusuan_tpu_torch.mcmc.rwm import (
+    MALA,
+    MHInfo,
+    MHState,
+    RandomWalkMetropolis,
+)
 from zhusuan_tpu_torch.mcmc.sgmcmc import (
     PSGLD,
     SGHMC,
@@ -42,10 +62,19 @@ from zhusuan_tpu_torch.mcmc.sgmcmc import (
     SGMCMCInfo,
     SGMCMCState,
 )
+from zhusuan_tpu_torch.mcmc.slice_sampler import (
+    SliceInfo,
+    SliceSampler,
+    SliceState,
+)
 
-__all__ = ["ChEESHMC", "ChEESInfo", "ChEESState", "EllipticalSlice",
-           "EllipticalSliceInfo", "EllipticalSliceState", "HMC", "HMCInfo",
-           "HMCState", "NUTS", "NUTSInfo", "NeuTraResult", "PSGLD", "SGHMC",
-           "SGLD", "SGMCMC", "SGMCMCInfo", "SGMCMCState", "SGNHT",
+__all__ = ["ChEESHMC", "ChEESInfo", "ChEESState", "DiscreteGibbs",
+           "DiscreteGibbsInfo", "DiscreteGibbsState", "EllipticalSlice",
+           "EllipticalSliceInfo", "EllipticalSliceState", "Gibbs",
+           "GibbsInfo", "GibbsState", "HMC", "HMCInfo", "HMCState", "MALA",
+           "MHInfo", "MHState", "NUTS", "NUTSInfo", "NeuTraResult", "PSGLD",
+           "REMCInfo", "REMCState", "RandomWalkMetropolis",
+           "ReplicaExchangeHMC", "SGHMC", "SGLD", "SGMCMC", "SGMCMCInfo",
+           "SGMCMCState", "SGNHT", "SliceInfo", "SliceSampler", "SliceState",
            "fit_dense_preconditioner", "fit_neutra", "neutra_log_joint",
            "state_from_numpy", "state_to_numpy", "whiten_log_joint"]

@@ -37,6 +37,7 @@ __all__ = [
     "hmc_transition",
     "dual_averaging_update",
     "ewmv_update",
+    "run_driver",
 ]
 
 Latent = Dict[str, torch.Tensor]
@@ -166,6 +167,48 @@ def ewmv_update(q, ewmv_t, ewmv_mean, ewmv_var, gate, n_chain_dims, decay):
         new_mean[k] = _select(gate, mean_k, ewmv_mean[k])
         new_var[k] = _select(gate, var_k, ewmv_var[k])
     return new_t, new_mean, new_var
+
+
+def run_driver(one, pick, state, n_iters: int, collect: bool,
+               thinning: int):
+    """Run loop shared by the Metropolis-family, slice, discrete-Gibbs and
+    Gibbs samplers (the port of ``scan_run_driver``, JAX
+    ``mcmc/base.py:244``): ``n_iters`` calls of ``one(state, i) -> (state,
+    info)`` in a Python loop, stacking ``pick(info)`` (a dict of tensors or
+    of dicts of tensors) every ``thinning``-th iteration into preallocated
+    iteration-major buffers. The draws of an iteration depend on the key
+    and the iteration only, so the output IS the full trajectory sliced
+    ``thinning-1::thinning`` and the final state is the unthinned run's.
+
+    :return: ``(final_state, outs or None)``; ``outs`` has ``n_iters //
+        thinning`` rows.
+    """
+    if int(thinning) < 1:
+        raise ValueError("thinning must be >= 1.")
+    thinning, n_iters = int(thinning), int(n_iters)
+    n_out = n_iters // thinning if collect else 0
+    outs = {} if collect else None
+
+    def store(row, picked):
+        for f, v in picked.items():
+            if isinstance(v, dict):
+                buf = outs.setdefault(f, {})
+                for n, x in v.items():
+                    if n not in buf:
+                        buf[n] = x.new_empty((n_out,) + tuple(x.shape))
+                    buf[n][row].copy_(x)
+            else:
+                v = torch.as_tensor(v)
+                if f not in outs:
+                    outs[f] = v.new_empty((n_out,) + tuple(v.shape))
+                outs[f][row].copy_(v)
+
+    for i in range(n_iters):
+        state, info = one(state, i)
+        row, hit = divmod(i + 1, thinning)
+        if collect and hit == 0 and row <= n_out:
+            store(row - 1, pick(info))
+    return state, outs
 
 
 def _mean(x, axes):

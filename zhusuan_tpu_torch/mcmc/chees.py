@@ -37,17 +37,17 @@ from zhusuan_tpu_torch.mcmc.base import (
     hmc_transition,
     make_grad_fn,
     make_log_joint_fn,
+    run_driver,
     tree_random_momentum,
     tree_velocity,
 )
 from zhusuan_tpu_torch.mcmc.hmc import (
-    _as_key,
     _to_tensor,
     builtin_density_ineligible,
     use_kernel,
 )
 from zhusuan_tpu_torch.ops import chees_step
-from zhusuan_tpu_torch.ops._random import iteration_generator
+from zhusuan_tpu_torch.ops._random import as_key, iteration_generator
 from zhusuan_tpu_torch.ops.chees_step import (
     MAX_DIM,
     chees_step_supported,
@@ -290,7 +290,7 @@ class ChEESHMC:
                 (name,) = q
                 eps_in = {name: eps_in}
         # With injected noise and no key, the kernel's Philox is unused.
-        key = (0, 0) if noise is not None and key is None else _as_key(key)
+        key = (0, 0) if noise is not None and key is None else as_key(key)
         new_t = state.t + 1
 
         if self._use_fused_step(meta_bn, observed, q, mass):
@@ -399,37 +399,28 @@ class ChEESHMC:
             ``trajectory_length`` and ``n_leapfrogs``, written into
             preallocated buffers, when ``collect`` else None.
         """
-        key = _as_key(key)
+        key = as_key(key)
         log_post = make_log_joint_fn(meta_bn, observed)
         kernel = self._use_fused_step(
             meta_bn, observed, state.q,
             self._unit_mass(state.q, state.step_size.dtype))
         cache = None if kernel else (log_post(state.q), None)
-        n_iters = int(n_iters)
-        outputs = {} if collect else None
 
-        def store(row, info):
-            picked = {"acceptance_rate": info.acceptance_rate,
-                      "trajectory_length": info.trajectory_length,
-                      "n_leapfrogs": info.n_leapfrogs}
-            buf = outputs.setdefault("samples", {})
-            for n, x in info.samples.items():
-                if n not in buf:
-                    buf[n] = x.new_empty((n_iters,) + tuple(x.shape))
-                buf[n][row].copy_(x)
-            for f, x in picked.items():
-                if f not in outputs:
-                    outputs[f] = x.new_empty((n_iters,) + tuple(x.shape))
-                outputs[f][row].copy_(x)
-
-        for i in range(n_iters):
-            gate = n_adapt > 0 and state.t < n_adapt
-            state, info, *rest = self.sample(meta_bn, observed, state, key,
-                                             adapt=gate, cache=cache)
+        def one(st, i):
+            nonlocal cache
+            st, info, *rest = self.sample(
+                meta_bn, observed, st, key,
+                adapt=n_adapt > 0 and st.t < n_adapt, cache=cache)
             cache = rest[0] if rest else None
-            if collect:
-                store(i, info)
-        return state, outputs
+            return st, info
+
+        def pick(info):
+            return {"samples": info.samples,
+                    "acceptance_rate": info.acceptance_rate,
+                    "trajectory_length": info.trajectory_length,
+                    "n_leapfrogs": info.n_leapfrogs}
+
+        return run_driver(one, pick, state, n_iters, collect, 1)
 
 
 # ---------------------------------------------------------------------- #

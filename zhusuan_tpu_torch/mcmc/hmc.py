@@ -47,10 +47,11 @@ from zhusuan_tpu_torch.mcmc.base import (
     leapfrog_trajectory_cached,
     make_grad_fn,
     make_log_joint_fn,
+    run_driver,
     tree_random_momentum,
 )
 from zhusuan_tpu_torch.ops import hmc_step, leapfrog
-from zhusuan_tpu_torch.ops._random import iteration_generator, philox_key
+from zhusuan_tpu_torch.ops._random import as_key, iteration_generator
 from zhusuan_tpu_torch.ops.checks import check_numerics as _check_numerics
 from zhusuan_tpu_torch.ops.densities import BuiltinDensity
 from zhusuan_tpu_torch.ops.hmc_step import (
@@ -94,15 +95,6 @@ class HMCInfo(NamedTuple):
     hamiltonian: torch.Tensor
     orig_log_prob: torch.Tensor
     log_prob: torch.Tensor
-
-
-def _as_key(key):
-    """A key ``(k0, k1)`` from a ``torch.Generator``, a ``(k0, k1)``
-    pair, or None (the default CPU generator)."""
-    if key is None or isinstance(key, torch.Generator):
-        return philox_key(key)
-    k0, k1 = key
-    return int(k0), int(k1)
 
 
 class HMC:
@@ -374,7 +366,7 @@ class HMC:
                 (name,) = q
                 eps = {name: eps}
         else:
-            key = _as_key(key)
+            key = as_key(key)
 
         old_lp_pre = None
         if cache is not None:
@@ -580,10 +572,7 @@ class HMC:
             raise ValueError(
                 "Unknown collect_fields {}; valid names are {}.".format(
                     bad, valid_fields))
-        if int(thinning) < 1:
-            raise ValueError("thinning must be >= 1.")
-        thinning = int(thinning)
-        key = _as_key(key)
+        key = as_key(key)
         adapt_enabled = self.adapt_step_size is not None
         # Carry (log_prob, grad) at the current position on the plain
         # path; the kernels re-evaluate in registers and ignore it, and
@@ -595,49 +584,29 @@ class HMC:
                  or self._use_fused_step(meta_bn, observed, state.q,
                                          state.mass, 1)
                  else self.make_cache(meta_bn, observed, state))
-        n_out = n_iters // thinning if collect else 0
-        outputs = {} if collect else None
+
+        def one(st, i):
+            nonlocal cache
+            gate = (n_adapt > 0 and st.t < n_adapt) if adapt_enabled \
+                else None
+            st, info, *rest = self.sample(
+                meta_bn, observed, st, key, adapt_step_size=gate,
+                adapt_mass=gate if self.adapt_mass is not None else None,
+                cache=cache)
+            cache = rest[0] if rest else None
+            return st, info
 
         def pick(info):
-            return {
+            full = {
                 "samples": {n: (v.to(collect_dtype) if collect_dtype
                                 else v) for n, v in info.samples.items()},
                 "acceptance_rate": info.acceptance_rate,
                 "step_size": info.updated_step_size,
                 "log_prob": info.log_prob,
             }
+            return {f: full[f] for f in collect_fields}
 
-        def store(row, info):
-            picked = pick(info)
-            for f in collect_fields:
-                if f == "samples":
-                    buf = outputs.setdefault(f, {})
-                    for n, v in picked[f].items():
-                        if n not in buf:
-                            buf[n] = v.new_empty((n_out,) + tuple(v.shape))
-                        buf[n][row].copy_(v)
-                else:
-                    v = picked[f]
-                    if f not in outputs:
-                        outputs[f] = v.new_empty((n_out,) + tuple(v.shape))
-                    outputs[f][row].copy_(v)
-
-        for i in range(int(n_iters)):
-            if not adapt_enabled:
-                gate = None
-            else:
-                gate = n_adapt > 0 and state.t < n_adapt
-            state, info, *rest = self.sample(
-                meta_bn, observed, state, key,
-                adapt_step_size=gate,
-                adapt_mass=gate if self.adapt_mass is not None else None,
-                cache=cache,
-            )
-            cache = rest[0] if rest else None
-            row, hit = divmod(i + 1, thinning)
-            if collect and hit == 0 and row <= n_out:
-                store(row - 1, info)
-        return state, outputs
+        return run_driver(one, pick, state, n_iters, collect, thinning)
 
     # ------------------------------------------------------------------ #
     def warmup_run(self, meta_bn, observed, state: HMCState, key,
@@ -697,7 +666,7 @@ class HMC:
         accumulate, install, reinit = warmup_schedule(
             n_warmup, init_buffer, term_buffer, base_window)
         if noise is None:
-            key = _as_key(key)
+            key = as_key(key)
         dtype = state.step_size.dtype
 
         def zeros():

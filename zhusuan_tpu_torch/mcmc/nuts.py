@@ -41,16 +41,16 @@ import torch
 from zhusuan_tpu_torch.mcmc.base import (
     dual_averaging_update,
     make_log_joint_fn,
+    run_driver,
 )
 from zhusuan_tpu_torch.mcmc.hmc import (
     HMCState,
-    _as_key,
     builtin_density_ineligible,
     init_state,
     mass_update,
     use_kernel,
 )
-from zhusuan_tpu_torch.ops._random import iteration_generator
+from zhusuan_tpu_torch.ops._random import as_key, iteration_generator
 from zhusuan_tpu_torch.ops.densities import BuiltinDensity
 from zhusuan_tpu_torch.ops.nuts_step import (
     DENSITIES,
@@ -506,7 +506,7 @@ class NUTS:
             ((name, x),) = state.q.items()
             outs = fused_nuts_transition(
                 meta_bn, x, inv_mass[None, :], eps, D,
-                self.max_delta_energy, _as_key(key), new_t, noise=noise)
+                self.max_delta_energy, as_key(key), new_t, noise=noise)
         else:
             q_flat = flat.ravel(q, (n_chains,))
 
@@ -516,7 +516,7 @@ class NUTS:
                 return log_post(latent).reshape(n_chains)
 
             if noise is None:
-                gen = iteration_generator(_as_key(key), new_t, q_flat.device)
+                gen = iteration_generator(as_key(key), new_t, q_flat.device)
                 noise = draw_noise(gen, n_chains, flat.dim, D, flat.dtype,
                                    q_flat.device)
             outs = nuts_transition(value_and_grad(log_prob), q_flat,
@@ -600,15 +600,15 @@ class NUTS:
             if f not in self._VALID_FIELDS:
                 raise ValueError("Unknown collect field {!r}; valid: {}."
                                  .format(f, self._VALID_FIELDS))
-        if int(thinning) < 1:
-            raise ValueError("thinning must be >= 1.")
-        thinning = int(thinning)
-        key = _as_key(key)
+        key = as_key(key)
         adapt_on = self.adapt_step_size is not None and n_adapt > 0
-        n_out = n_iters // thinning if collect else 0
-        outputs = {} if collect else None
 
-        def store(row, info):
+        def one(st, i):
+            gate = st.t < n_adapt if adapt_on else False
+            return self.sample(meta_bn, observed, st, key,
+                               adapt_step_size=gate, adapt_mass=gate)
+
+        def pick(info):
             full = {
                 "samples": info.samples,
                 "acceptance_rate": info.acceptance_rate,
@@ -620,24 +620,6 @@ class NUTS:
                 "turning": info.turning,
                 "energy": info.energy,
             }
-            for f in collect_fields:
-                if f == "samples":
-                    buf = outputs.setdefault(f, {})
-                    for n, v in full[f].items():
-                        if n not in buf:
-                            buf[n] = v.new_empty((n_out,) + tuple(v.shape))
-                        buf[n][row].copy_(v)
-                else:
-                    v = full[f]
-                    if f not in outputs:
-                        outputs[f] = v.new_empty((n_out,) + tuple(v.shape))
-                    outputs[f][row].copy_(v)
+            return {f: full[f] for f in collect_fields}
 
-        for i in range(int(n_iters)):
-            gate = state.t < n_adapt if adapt_on else False
-            state, info = self.sample(meta_bn, observed, state, key,
-                                      adapt_step_size=gate, adapt_mass=gate)
-            row, hit = divmod(i + 1, thinning)
-            if collect and hit == 0 and row <= n_out:
-                store(row - 1, info)
-        return state, outputs
+        return run_driver(one, pick, state, n_iters, collect, thinning)

@@ -37,11 +37,10 @@ from zhusuan_tpu_torch.mcmc.base import (
     tree_normal_like,
 )
 from zhusuan_tpu_torch.mcmc.hmc import (
-    _as_key,
     builtin_density_ineligible,
     use_kernel,
 )
-from zhusuan_tpu_torch.ops._random import iteration_generator
+from zhusuan_tpu_torch.ops._random import as_key, iteration_generator
 from zhusuan_tpu_torch.ops.hmc_step import MAX_DIM
 from zhusuan_tpu_torch.ops.psgld_step import fused_psgld_step
 from zhusuan_tpu_torch.ops.sghmc_step import fused_sghmc_step
@@ -270,7 +269,7 @@ class SGMCMC:
                              .format(type(self).__name__))
         x0 = q[next(iter(q))]
         gen = (None if noise is not None
-               else iteration_generator(_as_key(key), 0, x0.device))
+               else iteration_generator(as_key(key), 0, x0.device))
         lr0 = learning_rate_tensor(self._lr(0), dtype, x0.device)
         return resample_momentum(lr0, tree_normal_like(gen, q, noise), q)
 
@@ -309,7 +308,7 @@ class SGMCMC:
         :return: ``(new_state, SGMCMCInfo)``.
         """
         # With injected noise and no key, the kernel's Philox is unused.
-        key = None if noise is not None and key is None else _as_key(key)
+        key = None if noise is not None and key is None else as_key(key)
         step = _Step(self, meta_bn, observed, state, key, noise)
         return self._update(step)
 
@@ -336,7 +335,7 @@ class SGMCMC:
         """
         if int(thinning) < 1:
             raise ValueError("thinning must be >= 1.")
-        key = _as_key(key)
+        key = as_key(key)
         n_iters = int(n_iters)
         thin = int(thinning) if collect else 1
         keep = collect or collect_info

@@ -50,6 +50,7 @@ __all__ = [
     "STREAM_RANDOM_NORMAL",
     "STREAM_RANDOM_UNIFORM",
     "philox_key",
+    "as_key",
     "iteration_generator",
     "philox4x32_10",
     "uniform_from_bits",
@@ -89,6 +90,15 @@ def philox_key(generator: Optional[torch.Generator] = None) -> Key:
     k = torch.randint(0, 1 << 32, (2,), generator=generator,
                       dtype=torch.int64, device=device)
     k0, k1 = k.tolist()
+    return int(k0), int(k1)
+
+
+def as_key(key) -> Key:
+    """A key ``(k0, k1)`` from a ``torch.Generator`` (one draw), a
+    ``(k0, k1)`` pair, or None (the default CPU generator)."""
+    if key is None or isinstance(key, torch.Generator):
+        return philox_key(key)
+    k0, k1 = key
     return int(k0), int(k1)
 
 

@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from zhusuan_tpu_torch.ops._random import iteration_generator, philox_key
+from zhusuan_tpu_torch.ops._random import as_key, iteration_generator
 from zhusuan_tpu_torch.variational.autoguide import (
     FullRankGuide,
     MeanFieldGuide,
@@ -63,15 +63,6 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
         return init_value * ((1.0 - alpha) * cosine + alpha)
 
     return schedule
-
-
-def _as_key(key):
-    """A Philox key ``(k0, k1)`` from a ``torch.Generator``, a pair, or
-    None (the default CPU generator)."""
-    if key is None or isinstance(key, torch.Generator):
-        return philox_key(key)
-    k0, k1 = key
-    return int(k0), int(k1)
 
 
 def _leaves(params):
@@ -164,7 +155,7 @@ def advi(
     if lr_schedule is None:
         lr_schedule = cosine_decay_schedule(learning_rate, max(n_iters, 1),
                                             0.1)
-    key = None if noise is not None and key is None else _as_key(key)
+    key = None if noise is not None and key is None else as_key(key)
     if experimental_fused is not False and optimizer is None:
         fused = _maybe_fused_fit(
             g, meta_bn, observed, key, n_iters, n_samples, lr_schedule,
