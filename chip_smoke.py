@@ -367,6 +367,36 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    hand-written kernel: these samplers and the example's closure take the
    plain path (neither package has a kernel for them).
 
+34. SMC and state-space models (budget 90 s): ``AnnealedSMC`` on
+   ``bench.py``'s target at 32768 particles x 100 dims (proposal N(0, I); HMC
+   rejuvenation, ``SMC_HMC_STEP`` x ``SMC_HMC_LEAPFROGS``, a fixed step the
+   std-0.1 coordinate allows; ``SMC_TEMPS`` temperatures x 2 moves), and
+   ``run_adaptive`` with MALA (``SMC_MALA_STEP``, ``SMC_MALA_MOVES`` moves) at
+   the same width, each: log Z within ``SMC_LOGZ_TOL`` of the closed form, the
+   pooled stds within ``SMC_STD_TOL`` a dimension (both set from
+   ``scripts/smc_seed_spread.py``'s seeds); the HMC run is given the
+   proposal as a built-in (``prior_density=``), so its moves take K1 on the
+   tempered bridge (``TemperedLogJoint``, beta a device scalar), counted
+   from 0 and launched once a move; the MALA run takes none; K1 on the
+   bridge against its plain version from the HMC run's particles at beta
+   0.5 (a chain's MH decision may differ only at a near-tie, ``|u - acc| <
+   TOL``, as phase 3 holds K1), timed (its row in the kernels' record);
+   ``bayes_factor_smc.main()`` at its defaults, both evidences within 0.3 of
+   the closed form; the bootstrap ``ParticleFilter`` on
+   ``tests/test_ssm.py``'s linear-Gaussian model at ``FILTER_PARTICLES``
+   particles and T = ``FILTER_STEPS``, log Z and the filter means against the
+   port's exact ``kalman_filter`` at that test's bounds scaled to the particle
+   count and length, FFBS ``smooth`` (``FFBS_PATHS`` paths) against
+   ``kalman_smoother``'s means; ``stochastic_volatility``'s filter at its
+   defaults (RMSE(h) < 0.9) and PMMH at 8 chains x 512 particles for
+   ``SV_ITERS`` iterations (``SV_BURNIN`` burn-in; cut from 1500 for time),
+   the gates of ``tests/test_examples.py:940-950``, beside the JAX package's
+   CPU numbers (``SSM_REFERENCE``, from ``scripts/ssm_jax_reference.py``);
+   ``hmm_filter`` / ``hmm_smoother`` at K = 64, T = 16384 and
+   ``kalman_filter`` / ``kalman_smoother`` at d = 4, T = 16384, sequential
+   against ``parallel=True`` within ``SCAN_*_TOL``, both timed. No other
+   hand-written kernel: neither package has one for these.
+
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
 over 67 TFLOP/s, counted from the sources by the ``_*_bound`` helpers at
@@ -1512,8 +1542,10 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # density's gradient and log-density. Integer and float64 operations (the
 # equicorrelated row sums) are counted at the float32 rate.
 OPS_NORMAL = 50
-OPS_GRAD = {"diagonal": 3, "equicorrelated": 5}
-OPS_LOG_PROB = {"diagonal": 5, "equicorrelated": 7}
+# The tempered bridge between two diagonal densities: both, then the
+# weighted sum (3 an element).
+OPS_GRAD = {"diagonal": 3, "equicorrelated": 5, "tempered_diagonal": 9}
+OPS_LOG_PROB = {"diagonal": 5, "equicorrelated": 7, "tempered_diagonal": 10}
 
 
 def _bound(n_bytes, n_ops):
@@ -3420,6 +3452,59 @@ def ais_log_z():
                      for v in x))
 
 
+def _k1_against_plain(torch, dens, q, mass, step, n_leapfrogs, t, gen,
+                      kind):
+    """K1 against its plain version on one step from ``q`` with noise drawn
+    from the device generator ``gen``, and both timed: ``(record, worst)``,
+    ``worst`` the largest output error over ``1 + |ref|``, taken for q'
+    and new_lp over the chains whose MH decisions agree. The record counts
+    the chains whose decisions differ, and of them those off a near-tie
+    (``|u - acc| >= TOL``, as phase 3 holds K1). ``kind`` names the density
+    in ``OPS_GRAD`` for the bound."""
+    from zhusuan_tpu_torch.ops.hmc_step import (
+        fused_hmc_step, fused_hmc_step_reference,
+    )
+
+    dev = q.device
+    c, d = q.shape
+    noise = (torch.randn(c, d, generator=gen, device=dev),
+             torch.rand(c, generator=gen, device=dev))
+    got = fused_hmc_step(dens, q, mass, step, n_leapfrogs, (1, 2), t,
+                         noise=noise)
+    torch.cuda.synchronize()
+    want = fused_hmc_step_reference(dens, q, mass, step, n_leapfrogs,
+                                    (1, 2), t, noise=noise)
+    u = noise[1]
+    agree = (u < got[2]) == (u < want[2])
+    near = (u - want[2]).abs() < TOL
+    names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
+    errs, worst = {}, 0.0
+    for n, a, b in zip(names, got, want):
+        if n in ("q'", "new_lp"):
+            a, b = a[agree], b[agree]
+        errs[n] = float((a.float() - b.float()).abs().max())
+        worst = max(worst, errs[n] / (1.0 + float(b.float().abs().max())))
+    plain_gen = torch.Generator(device=dev).manual_seed(5)
+
+    def plain():
+        return fused_hmc_step_reference(
+            dens, q, mass, step, n_leapfrogs, None, 1,
+            noise=(torch.randn(c, d, generator=plain_gen, device=dev),
+                   torch.rand(c, generator=plain_gen, device=dev)))
+
+    return {
+        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, n_leapfrogs, (3, 4), 1), 200),
+        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
+            dens, q, mass, step, n_leapfrogs, (3, 4), 1), 20),
+        "plain_ms": _time_ms(torch, plain, 20),
+        **_hmc_step_bound(c, d, n_leapfrogs, kind),
+        "decisions_differing": int((~agree).sum()),
+        "decisions_differing_off_ties": int((~agree & ~near).sum()),
+        "max_abs_err": errs,
+        "accept_rate": float((u < want[2]).float().mean())}, worst
+
+
 def phase_workflow(torch, dev):
     """Phase 26 (budget 30 s): bench.py's HMC target at 32768 x 100 through
     the checking workflow: ``warmup_run`` with a jittered step (K1 every
@@ -3434,9 +3519,7 @@ def phase_workflow(torch, dev):
     from zhusuan_tpu_torch.diagnostics import (
         kernel_stein_discrepancy, potential_scale_reduction, summary,
     )
-    from zhusuan_tpu_torch.ops.hmc_step import (
-        fused_hmc_step, fused_hmc_step_reference,
-    )
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
 
     target_std = torch.linspace(0.1, 1.0, DIM, device=dev)
     dens = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev),
@@ -3529,37 +3612,10 @@ def phase_workflow(torch, dev):
     q, mass = state.q["x"], state.mass["x"]
     step = state.step_size * torch.empty((), device=dev).uniform_(
         1.0 - WF_JITTER, 1.0 + WF_JITTER, generator=g)
-    noise = (torch.randn(N_CHAINS, DIM, generator=g, device=dev),
-             torch.rand(N_CHAINS, generator=g, device=dev))
-    got = fused_hmc_step(dens, q, mass, step, 5, (1, 2), WF_WARMUP + 1,
-                         noise=noise)
-    torch.cuda.synchronize()
-    want = fused_hmc_step_reference(dens, q, mass, step, 5, (1, 2),
-                                    WF_WARMUP + 1, noise=noise)
-    u = noise[1]
-    differing = int(((u < got[2]) != (u < want[2])).sum())
-    names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
-    errs = {n: float((a.float() - b.float()).abs().max())
-            for n, a, b in zip(names, got, want)}
-    worst = max(errs[n] / (1.0 + float(w.float().abs().max()))
-                for n, w in zip(names, want))
-    gen = torch.Generator(device=dev).manual_seed(5)
-
-    def plain():
-        return fused_hmc_step_reference(
-            dens, q, mass, step, 5, None, 1,
-            noise=(torch.randn(N_CHAINS, DIM, generator=gen, device=dev),
-                   torch.rand(N_CHAINS, generator=gen, device=dev)))
-
-    timing = {
-        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
-            dens, q, mass, step, 5, (3, 4), 1), 200),
-        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
-            dens, q, mass, step, 5, (3, 4), 1), 20),
-        "plain_ms": _time_ms(torch, plain, 20),
-        **_hmc_step_bound(N_CHAINS, DIM, 5, "diagonal"),
-        "decisions_differing": differing, "max_abs_err": errs,
-        "accept_rate": float((u < want[2]).float().mean())}
+    timing, worst = _k1_against_plain(torch, dens, q, mass, step, 5,
+                                      WF_WARMUP + 1, g, "diagonal")
+    differing = timing["decisions_differing"]
+    errs = timing["max_abs_err"]
 
     _, plain_out, plain_rec = route(False)
     plain_sd = _pooled_std(torch, plain_out["samples"]["x"])
@@ -4239,9 +4295,7 @@ def phase_laplace_pathfinder(torch, dev):
     ``HMC.run(experimental_fused_step=True)`` at 32768 x 100 in float32, K1
     every iteration; K1 against its plain version from that state."""
     import zhusuan_tpu_torch as zt
-    from zhusuan_tpu_torch.ops.hmc_step import (
-        fused_hmc_step, fused_hmc_step_reference,
-    )
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
     from zhusuan_tpu_torch.variational import (
         laplace_approximation, multipath_pathfinder, pathfinder_mcmc_init,
     )
@@ -4344,37 +4398,12 @@ def phase_laplace_pathfinder(torch, dev):
 
     # K1 against its plain version on one step from that state.
     q, m, step = state.q["x"], state.mass["x"], state.step_size
-    gk = torch.Generator(device=dev).manual_seed(PF_SEED + 2)
-    noise = (torch.randn(N_CHAINS, DIM, generator=gk, device=dev),
-             torch.rand(N_CHAINS, generator=gk, device=dev))
-    got = fused_hmc_step(dens32, q, m, step, 5, (1, 2), PF_HMC_ITERS + 1,
-                         noise=noise)
-    torch.cuda.synchronize()
-    want = fused_hmc_step_reference(dens32, q, m, step, 5, (1, 2),
-                                    PF_HMC_ITERS + 1, noise=noise)
-    u = noise[1]
-    differing = int(((u < got[2]) != (u < want[2])).sum())
-    names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
-    errs = {n: float((a.float() - b.float()).abs().max())
-            for n, a, b in zip(names, got, want)}
-    worst = max(errs[n] / (1.0 + float(w.float().abs().max()))
-                for n, w in zip(names, want))
-    gen = torch.Generator(device=dev).manual_seed(5)
-
-    def plain():
-        return fused_hmc_step_reference(
-            dens32, q, m, step, 5, None, 1,
-            noise=(torch.randn(N_CHAINS, DIM, generator=gen, device=dev),
-                   torch.rand(N_CHAINS, generator=gen, device=dev)))
-
-    timing = {
-        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
-            dens32, q, m, step, 5, (3, 4), 1), 200),
-        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
-            dens32, q, m, step, 5, (3, 4), 1), 20),
-        "plain_ms": _time_ms(torch, plain, 20),
-        **_hmc_step_bound(N_CHAINS, DIM, 5, "diagonal"),
-        "decisions_differing": differing, "max_abs_err": errs}
+    timing, worst = _k1_against_plain(
+        torch, dens32, q, m, step, 5, PF_HMC_ITERS + 1,
+        torch.Generator(device=dev).manual_seed(PF_SEED + 2), "diagonal")
+    timing.pop("accept_rate")
+    differing = timing["decisions_differing"]
+    errs = timing["max_abs_err"]
     recs["k1_vs_plain"] = timing
     if differing:
         failures.append("K1 from the warm start: {} chains take the other "
@@ -4524,6 +4553,321 @@ def phase_samplers_changepoint(torch, dev):
     return recs
 
 
+SMC_PARTICLES = 32768
+SMC_TEMPS = 100
+SMC_HMC_STEP = 0.05  # well inside the std-0.1 coordinate's limit of 0.2
+SMC_HMC_LEAPFROGS = 5
+SMC_MALA_STEP = 0.15  # with SMC_MALA_MOVES: step 0.05, 2 moves degenerate
+SMC_MALA_MOVES = 5  # (both packages; log Z off by ~25 nats at 2048 x 100)
+# Set on an H100 from scripts/smc_seed_spread.py's 8 seeds a run and three
+# phase-34 runs: log Z's error has sd 0.027 (HMC) and 0.054 nats (MALA
+# adaptive), largest 0.058 / 0.130; the largest std error 0.016 / 0.028.
+# About 4.6 MALA sds, and 1.8x the largest std error.
+SMC_LOGZ_TOL = 0.25  # nats, of log Z = 50 log 2 pi + sum log std = 17.06
+SMC_STD_TOL = 0.05
+SMC_SEED = 34
+BF_TOL = 0.3  # tests/test_examples.py:795
+FILTER_PARTICLES, FILTER_STEPS, FFBS_PATHS = 65536, 1000, 256
+# tests/test_ssm.py:138-139 holds log Z within 1.0 and the means within
+# 0.15 at 4000 particles and T = 50; the errors scale as 1 / sqrt(n), and
+# log Z's as sqrt(T). FFBS's path means: 0.15 at 512 paths (:217).
+FILTER_LOGZ_TOL = 1.0 * math.sqrt((FILTER_STEPS / 50)
+                                  * (4000 / FILTER_PARTICLES))
+FILTER_MEAN_TOL = 0.15 * math.sqrt(4000 / FILTER_PARTICLES)
+FFBS_MEAN_TOL = 0.15 * math.sqrt(512 / FFBS_PATHS)
+SV_CHAINS, SV_PARTICLES = 8, 512
+# Cut from 1500 / 300 for the phase's time: at 157.7 and 176.1 ms an
+# iteration (two calls on an H100), 300 iterations would take the phase
+# to ~78 and ~91 s of its 90.
+SV_ITERS, SV_BURNIN = 200, 40
+SSM_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "scripts", "ssm_jax_reference.json")
+SCAN_T, SCAN_K, SCAN_D = 16384, 64, 4
+SCAN_LOGP_TOL = 1e-8  # normalized log-marginals, float64
+SCAN_LOGZ_RTOL = 1e-10
+SCAN_KALMAN_TOL = 1e-8  # means and covariances, float64
+
+
+def _lgssm(torch, dev, T, seed):
+    """``tests/test_ssm.py``'s linear-Gaussian model and a series of length
+    ``T`` drawn from it (float64 on ``dev``)."""
+    import numpy as np
+
+    A = np.array([[0.9, 0.1], [0.0, 0.8]])
+    Q = 0.1 * np.eye(2)
+    H = np.array([[1.0, 0.5]])
+    R = np.array([[0.5]])
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(2)
+    ys = np.empty((T, 1))
+    for t in range(T):
+        if t > 0:
+            x = A @ x + rng.multivariate_normal(np.zeros(2), Q)
+        ys[t] = H @ x + rng.multivariate_normal(np.zeros(1), R)
+    return tuple(torch.tensor(a, dtype=torch.float64, device=dev)
+                 for a in (ys, A, Q, H, R, np.zeros(2), np.eye(2)))
+
+
+def _smc_target(torch, dev):
+    """Phase 34 (a)'s recipe: ``(std, target, prior, proposal, log Z)``:
+    ``bench.py``'s diagonal Gaussian (std ``linspace(0.1, 1.0)``) as the
+    target, the N(0, I) proposal over ``SMC_PARTICLES`` particles as a
+    MetaBayesianNet and as a built-in density, and the target's log
+    normalizer (``50 log 2 pi + sum log std``)."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
+
+    std = torch.linspace(0.1, 1.0, DIM, device=dev)
+    dens = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev),
+                                       std)
+    prior = zt.DiagonalGaussianLogJoint("x", torch.zeros(DIM, device=dev),
+                                        torch.ones(DIM, device=dev))
+
+    @meta_bayesian_net()
+    def proposal():
+        bn = BayesianNet()
+        bn.normal("x", torch.zeros(SMC_PARTICLES, DIM, device=dev),
+                  std=torch.ones((), device=dev), group_ndims=1)
+        return bn
+
+    log_z_true = float(0.5 * DIM * math.log(2 * math.pi)
+                       + torch.log(std.double()).sum())
+    return std, dens, prior, proposal, log_z_true
+
+
+def phase_smc_ssm(torch, dev):
+    """Phase 34 (budget 90 s): SMC and the state-space models, parts
+    (a)-(e) of the module docstring's item 34."""
+    import numpy as np
+
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.examples.model_comparison import bayes_factor_smc
+    from zhusuan_tpu_torch.examples.state_space import stochastic_volatility
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+    with open(SSM_REFERENCE) as f:
+        reference = json.load(f)
+    want = {"sv": {"t": 200, "n_particles": SV_PARTICLES,
+                   "n_chains": SV_CHAINS, "n_iters": SV_ITERS,
+                   "burnin": SV_BURNIN}}
+    check(reference["recipe"] == want, "{} was made for another recipe; "
+          "rerun scripts/ssm_jax_reference.py".format(SSM_REFERENCE))
+    failures, recs = [], {}
+
+    # (a) annealed SMC on bench.py's target. HMC's moves get the built-in
+    # bridge from N(0, I) (K1 every move); MALA's the closure (no kernel).
+    std, dens, prior, proposal, log_z_true = _smc_target(torch, dev)
+    runs = {
+        "hmc_fixed": (zt.HMC(step_size=SMC_HMC_STEP,
+                             n_leapfrogs=SMC_HMC_LEAPFROGS), "run", 2,
+                      prior),
+        "mala_adaptive": (zt.MALA(step_size=SMC_MALA_STEP), "run_adaptive",
+                          SMC_MALA_MOVES, None),
+    }
+    for name, (kernel, method, moves, prior_density) in runs.items():
+        smc = zt.AnnealedSMC(dens, proposal(), kernel, observed={},
+                             latent=["x"], n_temperatures=SMC_TEMPS,
+                             n_moves=moves, prior_density=prior_density)
+        fused_hmc_step.launches = 0
+        res, seconds = _wall(torch, lambda: getattr(smc, method)(
+            (SMC_SEED, len(recs))))
+        launches = fused_hmc_step.launches
+        x = res.particles["x"].double()
+        rel = (x.std(0) / std.double() - 1.0).abs()
+        k1_want = res.n_steps * moves if prior_density is not None else 0
+        rec = {"particles": SMC_PARTICLES, "dims": DIM, "kernel": name,
+               "moves": moves, "temperatures": res.n_steps,
+               "log_z": float(res.log_z),
+               "log_z_true": log_z_true,
+               "log_z_tol": SMC_LOGZ_TOL, "std_tol": SMC_STD_TOL,
+               "n_resamples": int(res.n_resamples),
+               "max_std_rel_err": float(rel.max()),
+               "max_abs_mean": float(x.mean(0).abs().max()),
+               "mean_acceptance": float(torch.nanmean(res.acceptance_rate)),
+               "wall_sec": seconds,
+               "ms_per_temperature": seconds / res.n_steps * 1e3,
+               "k1_launches": launches, "k1_launches_expected": k1_want}
+        recs["smc_" + name] = rec
+        if not (abs(rec["log_z"] - log_z_true) <= SMC_LOGZ_TOL
+                and rec["max_std_rel_err"] <= SMC_STD_TOL
+                and launches == k1_want):
+            failures.append("AnnealedSMC {}: {}".format(name, rec))
+        if prior_density is not None:
+            particles = res.particles["x"]
+
+    # K1 on the bridge against its plain version at the path's shape: the
+    # HMC run's particles at beta 0.5, the sigmoid ladder's midpoint.
+    bridge = zt.TemperedLogJoint(prior, dens,
+                                 torch.tensor(0.5, device=dev))
+    k1_t, k1_worst = _k1_against_plain(
+        torch, bridge, particles, torch.ones(1, DIM, device=dev),
+        SMC_HMC_STEP, SMC_HMC_LEAPFROGS, 1,
+        torch.Generator(device=dev).manual_seed(SMC_SEED + 1),
+        "tempered_diagonal")
+    recs["k1_tempered_vs_plain"] = k1_t
+    if k1_t["decisions_differing_off_ties"]:
+        failures.append("K1 on the bridge: {} chains take the other MH "
+                        "decision away from |u - acc| < {}".format(
+                            k1_t["decisions_differing_off_ties"], TOL))
+    if not k1_worst <= Q_TOL:
+        failures.append("K1 on the bridge: outputs differ by {} of "
+                        "1 + |ref|".format(k1_worst))
+
+    # (b) bayes_factor_smc at its defaults.
+    out, seconds = _wall(torch, lambda: bayes_factor_smc.main(device=dev))
+    rec = {"wall_sec": seconds, "jax": reference["bayes_factor"]}
+    for degree, (est, truth) in out.items():
+        rec["degree{}".format(degree)] = {"estimate": est, "truth": truth}
+        if not abs(est - truth) < BF_TOL:
+            failures.append("bayes_factor_smc degree {}: {} vs {}".format(
+                degree, est, truth))
+    recs["bayes_factor_smc"] = rec
+
+    # (c) the bootstrap filter against the exact Kalman filter.
+    ys, A, Q, H, R, m0, P0 = _lgssm(torch, dev, FILTER_STEPS, 34)
+    chol_q = torch.linalg.cholesky(Q)
+
+    def init_fn(gen, n):
+        return torch.randn(n, 2, generator=gen, dtype=torch.float64,
+                           device=dev)
+
+    def transition_fn(gen, x, t):
+        return x @ A.T + torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                                     device=dev) @ chol_q.T
+
+    def emission(x, y, t):
+        return torch.sum(-0.5 * (y - x @ H.T) ** 2 / 0.5
+                         - 0.5 * math.log(2.0 * math.pi * 0.5), -1)
+
+    def transition_log_prob(x_new, x_old, t):
+        diff = x_new - x_old @ A.T
+        return (-0.5 * torch.sum(diff ** 2, -1) / 0.1
+                - math.log(2.0 * math.pi * 0.1))
+
+    pf = zt.ParticleFilter(init_fn, transition_fn, emission,
+                           n_particles=FILTER_PARTICLES,
+                           transition_log_prob=transition_log_prob)
+    exact, kf_sec = _wall(torch, lambda: zt.kalman_filter(
+        ys, A, Q, H, R, m0, P0))
+    smooth_exact = zt.kalman_smoother(ys, A, Q, H, R, m0, P0, parallel=True)
+    res, seconds = _wall(torch, lambda: pf.run((34, 3), ys,
+                                               store_history=True))
+    paths, smooth_sec = _wall(torch, lambda: pf.smooth((34, 4), res,
+                                                       FFBS_PATHS))
+    rec = {"particles": FILTER_PARTICLES, "steps": FILTER_STEPS,
+           "log_z": float(res.log_z),
+           "log_z_exact": float(exact.log_likelihood),
+           "log_z_tol": FILTER_LOGZ_TOL,
+           "max_mean_err": float((res.filter_means - exact.means).abs()
+                                 .max()),
+           "mean_tol": FILTER_MEAN_TOL,
+           "n_resamples": int(res.n_resamples),
+           "min_ess": float(res.ess.min()),
+           "wall_sec": seconds,
+           "ms_per_step": seconds / FILTER_STEPS * 1e3,
+           "kalman_sec": kf_sec,
+           "smooth_paths": FFBS_PATHS, "smooth_sec": smooth_sec,
+           "smooth_max_mean_err": float((paths.mean(0)
+                                         - smooth_exact.means).abs().max()),
+           "smooth_tol": FFBS_MEAN_TOL}
+    recs["particle_filter"] = rec
+    if not (abs(rec["log_z"] - rec["log_z_exact"]) <= FILTER_LOGZ_TOL
+            and rec["max_mean_err"] <= FILTER_MEAN_TOL
+            and rec["smooth_max_mean_err"] <= FFBS_MEAN_TOL
+            and 0 < rec["n_resamples"] < FILTER_STEPS):
+        failures.append("ParticleFilter: {}".format(rec))
+
+    # (d) stochastic volatility: the filter at its defaults, then PMMH.
+    sv = stochastic_volatility
+    hs_true, ys_np, _ = sv.simulate(200)
+    ys = torch.tensor(ys_np, dtype=torch.float64, device=dev)
+    theta_true = {k: torch.tensor(v, dtype=torch.float64, device=dev)
+                  for k, v in (("mu", sv.TRUE["mu"]),
+                               ("phi_u", np.arctanh(sv.TRUE["phi"])),
+                               ("log_sigma", np.log(sv.TRUE["sigma"])))}
+    res, seconds = _wall(torch, lambda: sv.make_filter(
+        theta_true, ys, SV_PARTICLES).run((1, 0), ys))
+    rmse = float(torch.sqrt(torch.mean(
+        (res.filter_means - torch.tensor(hs_true, device=dev)) ** 2)))
+    (_, out), pm_sec = _wall(torch, lambda: sv.run_pmmh(
+        ys, SV_PARTICLES, SV_CHAINS, SV_ITERS, seed=0))
+    draws = {k: v[SV_BURNIN:].cpu().numpy()
+             for k, v in out["samples"].items()}
+    rec = {"filter_rmse": rmse, "filter_log_z": float(res.log_z),
+           "filter_ms_per_step": seconds / 200 * 1e3,
+           "chains": SV_CHAINS, "particles": SV_PARTICLES,
+           "iterations": SV_ITERS, "burnin": SV_BURNIN,
+           "pmmh_wall_sec": pm_sec,
+           "pmmh_ms_per_iteration": pm_sec / SV_ITERS * 1e3,
+           "acceptance": float(out["acceptance_rate"].mean()),
+           "mu": float(draws["mu"].mean()),
+           "phi": float(np.tanh(draws["phi_u"]).mean()),
+           "sigma": float(np.exp(draws["log_sigma"]).mean()),
+           "jax": reference["sv"]}
+    recs["stochastic_volatility"] = rec
+    if not (rmse < 0.9 and 0.1 < rec["acceptance"] < 0.95
+            and -2.2 < rec["mu"] < 0.2 and 0.85 < rec["phi"] < 0.995
+            and 0.12 < rec["sigma"] < 0.45):
+        failures.append("stochastic_volatility: {}".format(rec))
+
+    # (e) sequential against parallel=True.
+    g = torch.Generator(device=dev).manual_seed(35)
+    log_pi0 = torch.log_softmax(torch.randn(SCAN_K, generator=g, device=dev,
+                                            dtype=torch.float64), 0)
+    log_trans = torch.log_softmax(3.0 * torch.randn(
+        SCAN_K, SCAN_K, generator=g, device=dev, dtype=torch.float64), 1)
+    log_obs = torch.randn(SCAN_T, SCAN_K, generator=g, device=dev,
+                          dtype=torch.float64)
+    rec = {"hmm": {"k": SCAN_K, "t": SCAN_T},
+           "kalman": {"d": SCAN_D, "t": SCAN_T}}
+    # The parallel path twice around the sequential one (~1000x slower).
+    order = (True, False, True)
+    for fn in (zt.hmm_filter, zt.hmm_smoother):
+        times = {}
+        outs = {}
+        for parallel in order:
+            outs[parallel], sec = _wall(torch, lambda: fn(
+                log_pi0, log_trans, log_obs, parallel=parallel))
+            times.setdefault(parallel, []).append(sec * 1e3)
+        err = float((outs[False][0] - outs[True][0]).abs().max())
+        lz_rel = float(abs(outs[False][1] - outs[True][1])
+                       / abs(outs[False][1]))
+        rec["hmm"][fn.__name__] = {
+            "sequential_ms": times[False], "parallel_ms": times[True],
+            "max_logp_err": err, "log_z_rel_err": lz_rel}
+        if not (err <= SCAN_LOGP_TOL and lz_rel <= SCAN_LOGZ_RTOL):
+            failures.append("{}: {}".format(fn.__name__, rec["hmm"]))
+    rng = np.random.default_rng(36)
+    Ak = 0.9 * np.linalg.qr(rng.standard_normal((SCAN_D, SCAN_D)))[0]
+    kargs = [torch.tensor(a, dtype=torch.float64, device=dev) for a in (
+        rng.standard_normal((SCAN_T, 2)), Ak, 0.1 * np.eye(SCAN_D),
+        rng.standard_normal((2, SCAN_D)), 0.5 * np.eye(2),
+        np.zeros(SCAN_D), np.eye(SCAN_D))]
+    for fn in (zt.kalman_filter, zt.kalman_smoother):
+        times = {}
+        outs = {}
+        for parallel in order:
+            outs[parallel], sec = _wall(torch, lambda: fn(
+                *kargs, parallel=parallel))
+            times.setdefault(parallel, []).append(sec * 1e3)
+        s, p = outs[False], outs[True]
+        err = max(float((s.means - p.means).abs().max()),
+                  float((s.covs - p.covs).abs().max()))
+        ll_rel = float(abs(s.log_likelihood - p.log_likelihood)
+                       / abs(s.log_likelihood))
+        rec["kalman"][fn.__name__] = {
+            "sequential_ms": times[False], "parallel_ms": times[True],
+            "max_err": err, "log_likelihood_rel_err": ll_rel}
+        if not (err <= SCAN_KALMAN_TOL and ll_rel <= SCAN_LOGZ_RTOL):
+            failures.append("{}: {}".format(fn.__name__, rec["kalman"]))
+    recs["scans"] = rec
+    for name, r in recs.items():
+        print("phase34 {} {}".format(name, json.dumps(r)), flush=True)
+    check(not failures, "SMC and state-space models: " + "; ".join(failures))
+    return (recs["smc_hmc_fixed"]["k1_launches"],
+            max(k1_t["max_abs_err"].values()), k1_t)
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4587,6 +4931,8 @@ def main():
     pf_launches, pf_err, pf_t = run_phase("phase32", phase_laplace_pathfinder,
                                           torch, dev)
     run_phase("phase33", phase_samplers_changepoint, torch, dev)
+    smc_launches, smc_err, smc_t = run_phase("phase34", phase_smc_ssm,
+                                             torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -4723,6 +5069,20 @@ def main():
         "plain_ms": pf_t["plain_ms"],
         **bound(pf_t),
         "decisions_differing": pf_t["decisions_differing"],
+    }, {
+        "name": "fused_hmc_step (tempered bridge, AnnealedSMC, 32768 x 100)",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/hmc_step.py:206",
+        "launches": smc_launches,
+        "max_abs_err": smc_err,
+        "ms": smc_t["kernel_graph_ms"],
+        "ms_back_to_back": smc_t["kernel_ms"],
+        "plain_ms": smc_t["plain_ms"],
+        **bound(smc_t),
+        "decisions_differing": smc_t["decisions_differing"],
+        "decisions_differing_off_ties": smc_t[
+            "decisions_differing_off_ties"],
     }, {
         "name": "fused_nuts_transition",
         "route": "cuda",

@@ -22,10 +22,12 @@ from zhusuan_tpu_torch.mcmc import base as tbase
 from zhusuan_tpu_torch.mcmc.hmc import HMC as THMC
 from zhusuan_tpu_torch.mcmc.nuts import NUTS as TNUTS
 from zhusuan_tpu_torch.ops import _random
+from zhusuan_tpu_torch.ops.densities import Toy2DLogJoint
 from zhusuan_tpu_torch.ops.hmc_step import (
     MAX_DIM,
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    TemperedLogJoint,
     fused_hmc_step,
     fused_hmc_step_reference,
     hmc_step_supported,
@@ -363,6 +365,112 @@ def test_kernel_gates_take_their_builtins():
 
 
 # --------------------------------------------------------------------- #
+# (i) the tempered bridge (annealed SMC's HMC moves)
+# --------------------------------------------------------------------- #
+def _bridge_parts(x, pair):
+    """The two built-ins of a bridge (``"diagonal"`` is ``_density(x)``,
+    ``"standard"`` N(0, I), ``"equicorrelated"`` rho 0.9) and JAX closures
+    of them."""
+    inv_var = 1.0 / np.square(x["scale"])
+    parts = {
+        "diagonal": (_density(x), lambda obs: jnp.sum(
+            -0.5 * jnp.square(obs["x"] - x["loc"]) * inv_var, -1)),
+        "standard": (DiagonalGaussianLogJoint(
+            "x", torch.zeros(D, dtype=torch.float64),
+            torch.ones(D, dtype=torch.float64)),
+            lambda obs: jnp.sum(-0.5 * jnp.square(obs["x"]), -1)),
+        "equicorrelated": (EquicorrelatedGaussianLogJoint("x", D, 0.9),
+                           _equi_closure(D, 0.9)),
+    }
+    return [parts[name] for name in pair]
+
+
+BRIDGE_PAIRS = [("standard", "diagonal"), ("diagonal", "equicorrelated"),
+                ("equicorrelated", "standard")]
+
+
+@pytest.mark.parametrize("pair", BRIDGE_PAIRS)
+@pytest.mark.parametrize("beta", [0.0, 0.37, 1.0])
+def test_tempered_reference_matches_jax_closure(pair, beta):
+    """K1's plain version on the bridge against JAX's composition on the
+    tempered closure ``(1 - beta) log p0 + beta log p1``."""
+    x = _inputs(10)
+    x["q"] = x["q"] * 0.5
+    x["step"] = 0.6  # both MH decisions occur at beta 0.37
+    (p0, j0), (p1, j1) = _bridge_parts(x, pair)
+    b = jnp.float64(beta)
+    want = _jax_step(x, False, lambda obs: (1.0 - b) * j0(obs)
+                     + b * j1(obs))
+    got = fused_hmc_step_reference(
+        TemperedLogJoint(p0, p1, torch.tensor(beta, dtype=torch.float64)),
+        _torch(x, "q"), _torch(x, "mass"),
+        torch.tensor(x["step"], dtype=torch.float64), L, None, 1,
+        noise=(_torch(x, "eps"), _torch(x, "u")))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12, atol=1e-12)
+    if beta == 0.37:
+        assert 0 < np.mean(x["u"] < want[2]) < 1
+
+
+@pytest.mark.parametrize("pair", BRIDGE_PAIRS)
+def test_tempered_value_and_grad(pair):
+    """``value_and_grad`` (the kernel's arithmetic) against ``log_prob``
+    and its autograd gradient, and the weights at the ladder's ends."""
+    x = _inputs(11)
+    (p0, _), (p1, _) = _bridge_parts(x, pair)
+    q = _torch(x, "q").requires_grad_(True)
+    for beta in (0.0, 0.25, 1.0):
+        dens = TemperedLogJoint(p0, p1, torch.tensor(beta,
+                                                     dtype=torch.float64))
+        lp = dens.log_prob(q)
+        (g,) = torch.autograd.grad(lp.sum(), q)
+        v, g2 = dens.value_and_grad(q.detach())
+        torch.testing.assert_close(v, lp.detach(), rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(g2, g, rtol=1e-12, atol=1e-12)
+        end = {0.0: p0, 1.0: p1}.get(beta)
+        if end is not None:
+            torch.testing.assert_close(lp.detach(), end.log_prob(q.detach()),
+                                       rtol=0, atol=0)
+
+
+def test_tempered_rejects_bad_parts():
+    x = _inputs(12)
+    diag = _density(x)
+    with pytest.raises(TypeError, match="prior must be one of"):
+        TemperedLogJoint(Toy2DLogJoint("x"), diag, 0.5)
+    with pytest.raises(TypeError, match="target must be one of"):
+        TemperedLogJoint(diag, lambda obs: obs["x"].sum(-1), 0.5)
+    with pytest.raises(ValueError, match="one latent of one dim"):
+        TemperedLogJoint(diag, EquicorrelatedGaussianLogJoint("x", D + 1,
+                                                              0.5), 0.5)
+    with pytest.raises(ValueError, match="one latent of one dim"):
+        TemperedLogJoint(diag, EquicorrelatedGaussianLogJoint("y", D, 0.5),
+                         0.5)
+
+
+def test_tempered_takes_only_the_hmc_step_kernel():
+    """HMC's whole-step kernel takes the bridge; NUTS's, ChEES's and the
+    trajectory kernel's do not."""
+    from zhusuan_tpu_torch.mcmc.chees import ChEESHMC
+    from zhusuan_tpu_torch.ops.chees_step import fused_chees_step
+    from zhusuan_tpu_torch.ops.leapfrog import fused_leapfrog
+
+    q = {"x": torch.zeros(8, 4)}
+    m = {"x": torch.ones(1, 4)}
+    bridge = TemperedLogJoint(
+        DiagonalGaussianLogJoint("x", torch.zeros(4), torch.ones(4)),
+        EquicorrelatedGaussianLogJoint("x", 4, 0.9), 0.5)
+    assert THMC._fused_ineligible(bridge, {}, q, m, 1) is None
+    assert TNUTS(max_tree_depth=5)._fused_ineligible(bridge, {}, q, m,
+                                                     1) is not None
+    assert ChEESHMC._fused_ineligible(bridge, {}, q, m, 1) is not None
+    with pytest.raises(TypeError):
+        fused_leapfrog(bridge, q["x"], q["x"], 0.1, 3, m["x"])
+    with pytest.raises(TypeError):
+        fused_chees_step(bridge, q["x"], m["x"], 0.1, 3, (1, 2), 1)
+
+
+# --------------------------------------------------------------------- #
 # random numbers
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("ctr,key,want", [
@@ -456,6 +564,36 @@ def test_kernel_matches_reference_on_card(dtype, density):
     torch.cuda.synchronize()
     assert fused_hmc_step.launches == before + 1
     want = fused_hmc_step_reference(dens, q, mass, 0.2, L, (1, 2), 1,
+                                    noise=noise)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", BRIDGE_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tempered_kernel_matches_reference_on_card(dtype, pair):
+    _need_cuda()
+    dev = torch.device("cuda")
+    x = _inputs(13)
+    q = (0.5 * _torch(x, "q")).to(dev, dtype)
+    mass = _torch(x, "mass").to(dev, torch.float32)
+    (p0, _), (p1, _) = _bridge_parts(x, pair)
+
+    def on_card(d):
+        if isinstance(d, EquicorrelatedGaussianLogJoint):
+            return d
+        return DiagonalGaussianLogJoint("x", d.loc.float().to(dev),
+                                        d.scale.float().to(dev))
+
+    dens = TemperedLogJoint(on_card(p0), on_card(p1),
+                            torch.tensor(0.37, device=dev))
+    noise = (_torch(x, "eps").float().to(dev), _torch(x, "u").float().to(dev))
+    before = fused_hmc_step.launches
+    got = fused_hmc_step(dens, q, mass, 0.3, L, (1, 2), 1, noise=noise)
+    torch.cuda.synchronize()
+    assert fused_hmc_step.launches == before + 1
+    want = fused_hmc_step_reference(dens, q, mass, 0.3, L, (1, 2), 1,
                                     noise=noise)
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

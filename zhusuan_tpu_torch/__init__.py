@@ -38,7 +38,11 @@ regression and classification, flow, SVGD and toy sampler examples; the
 Laplace approximation and Pathfinder (:mod:`.variational`, on the port's
 copy of ``optax.lbfgs()``), random-walk Metropolis, MALA, slice sampling,
 exact discrete Gibbs, block-wise Gibbs and replica exchange (:mod:`.mcmc`),
-driven by the change-point example.
+driven by the change-point example; annealed SMC (:mod:`.smc`) and the
+state-space family (:mod:`.ssm`: the particle filter, FFBS, conditional
+SMC, particle Gibbs, PMMH, exact HMMs and Kalman filtering with their
+log-depth scans), driven by the SMC Bayes-factor and stochastic-volatility
+examples.
 """
 
 from zhusuan_tpu_torch import (
@@ -51,6 +55,8 @@ from zhusuan_tpu_torch import (
     gp,
     mcmc,
     ops,
+    smc,
+    ssm,
     transform,
     utils,
     variational,
@@ -101,6 +107,7 @@ from zhusuan_tpu_torch.mcmc import (
 from zhusuan_tpu_torch.ops import (
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    TemperedLogJoint,
     Toy2DLogJoint,
     fused_chees_step,
     fused_leapfrog,
@@ -108,6 +115,8 @@ from zhusuan_tpu_torch.ops import (
     gpu_normal,
     gpu_uniform,
 )
+from zhusuan_tpu_torch.smc import *  # noqa: F401,F403
+from zhusuan_tpu_torch.ssm import *  # noqa: F401,F403
 from zhusuan_tpu_torch.variational import (
     ADVIResult,
     FullRankGuide,
@@ -157,6 +166,7 @@ __all__ = [
     "EquicorrelatedGaussianLogJoint",
     "FullRankGuide",
     "MeanFieldGuide",
+    "TemperedLogJoint",
     "Toy2DLogJoint",
     "advi",
     "fit_dense_preconditioner",
@@ -168,6 +178,7 @@ __all__ = [
     "gpu_uniform",
     "make_fit_epoch",
     "whiten_log_joint",
+] + smc.__all__ + ssm.__all__ + [
     "bijectors",
     "diagnostics",
     "distributions",
@@ -177,6 +188,8 @@ __all__ = [
     "gp",
     "mcmc",
     "ops",
+    "smc",
+    "ssm",
     "transform",
     "utils",
     "variational",

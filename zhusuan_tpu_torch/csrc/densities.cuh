@@ -202,4 +202,40 @@ struct Toy2D {
   }
 };
 
+// The tempered bridge log f = (1 - beta) log p0 + beta log p1 between two
+// built-ins over one row (annealed SMC's rejuvenation target; K1 alone takes
+// it). beta is read from a device scalar, so a ladder of temperatures never
+// waits on the host. In the plain version's order: w0 = 1 - beta, then
+// w0 lp0 + beta lp1 and, element by element, w0 g0 + beta g1. Padding
+// columns have g0 = g1 = 0, so their gradient stays 0.
+template <int K, template <int> class D0, template <int> class D1>
+struct Tempered {
+  static constexpr int E = 4 * K;
+  D0<K> prior;
+  D1<K> target;
+  float beta, w0;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       const float* t0, const float* t1,
+                                       const float* b, int lane, int dim) {
+    prior.load(p0, p1, lane, dim);
+    target.load(t0, t1, lane, dim);
+    beta = *b;
+    w0 = 1.0f - beta;
+  }
+
+  __device__ __forceinline__ void grad(const float (&x)[E],
+                                       float (&g)[E]) const {
+    float g1[E];
+    prior.grad(x, g);
+    target.grad(x, g1);
+#pragma unroll
+    for (int e = 0; e < E; ++e) g[e] = w0 * g[e] + beta * g1[e];
+  }
+
+  __device__ __forceinline__ float log_prob(const float (&x)[E]) const {
+    return w0 * prior.log_prob(x) + beta * target.log_prob(x);
+  }
+};
+
 }  // namespace zs

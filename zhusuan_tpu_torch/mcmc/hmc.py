@@ -21,7 +21,8 @@ its loop syncs only where a window's re-search runs.
 
 On a CUDA device, a single ``[n_chains, dim]`` float32/bfloat16 latent
 under a built-in density (:mod:`~zhusuan_tpu_torch.ops.densities`: the
-diagonal or the equicorrelated Gaussian) takes the hand-written CUDA
+diagonal or the equicorrelated Gaussian, or the tempered bridge between
+two of them) takes the hand-written CUDA
 kernel (:func:`~zhusuan_tpu_torch.ops.hmc_step.fused_hmc_step`) for the
 whole transition. With ``experimental_fused_leapfrog=True``, a transition
 that does not take it runs its trajectory through the trajectory kernel
@@ -196,7 +197,7 @@ class HMC:
         can)."""
         return builtin_density_ineligible(
             meta_bn, observed, q, mass, n_chain_dims, hmc_step_supported,
-            hmc_step.DENSITIES,
+            hmc_step.STEP_DENSITIES,
             "float32/bfloat16 with dim <= {}".format(MAX_DIM))
 
     def _use_fused_step(self, meta_bn, observed, q, mass, n_chain_dims):

@@ -40,6 +40,7 @@ from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    TemperedLogJoint,
     Toy2DLogJoint,
 )
 from zhusuan_tpu_torch.ops.hmc_step import (
@@ -96,6 +97,7 @@ __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "TemperedLogJoint",
     "Toy2DLogJoint",
     "advi_layout",
     "advi_step_supported",

@@ -52,6 +52,7 @@ __all__ = [
     "philox_key",
     "as_key",
     "iteration_generator",
+    "child_key",
     "philox4x32_10",
     "uniform_from_bits",
     "split_boxmuller_normal",
@@ -102,18 +103,33 @@ def as_key(key) -> Key:
     return int(k0), int(k1)
 
 
+def _splitmix(key: Key, t: int, salt: int = -1) -> int:
+    """The splitmix64 hash of ``(key, t)`` (and ``salt`` when >= 0)."""
+    z = (((int(key[0]) & _MASK32) << 32) | (int(key[1]) & _MASK32))
+    z = (z + (int(t) + 1) * 0x9E3779B97F4A7C15
+         + (int(salt) + 1) * 0xD1B54A32D192ED03) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 def iteration_generator(key: Key, t: int, device=None) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` for iteration ``t`` of the run
     keyed by ``key``: seeded with a splitmix64 hash of ``(key, t)`` on the
     host, so one key serves a whole run with no host sync and no state
     carried between iterations."""
-    z = (((int(key[0]) & _MASK32) << 32) | (int(key[1]) & _MASK32))
-    z = (z + (int(t) + 1) * 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     g = torch.Generator(device=device if device is not None else "cpu")
-    g.manual_seed(z ^ (z >> 31))
+    g.manual_seed(_splitmix(key, t))
     return g
+
+
+def child_key(key: Key, t: int, salt: int = 0) -> Key:
+    """A key derived from ``(key, t, salt)`` on the host (the counterpart of
+    ``jax.random.fold_in``): a run hands one to each of its sub-runs (an
+    SMC temperature's moves, a PMMH iteration's filters) with no device
+    draw."""
+    z = _splitmix(key, t, salt)
+    return z >> 32, z & _MASK32
 
 
 def _mulhilo(a, m: int):

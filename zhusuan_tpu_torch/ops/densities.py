@@ -14,6 +14,9 @@ kernel takes (``DENSITIES``); any other log-joint takes the plain path.
 - :class:`Toy2DLogJoint`: the funnel-like posterior of
   ``examples/toy_examples/toy2d_intractable.py`` over one latent
   ``[z1, z2]``; the ADVI trainer (:mod:`.advi_step`) alone takes it.
+- :class:`TemperedLogJoint`: the tempered bridge ``(1 - beta) log p0 +
+  beta log p1`` between two of the Gaussians above, ``beta`` a device
+  scalar; annealed SMC's HMC moves take it, and K1 alone evaluates it.
 
 Beside ``log_prob`` (plain torch ops, differentiable by autograd) each has
 ``value_and_grad``: the log-density and its gradient written out in the
@@ -32,6 +35,7 @@ __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "TemperedLogJoint",
     "Toy2DLogJoint",
 ]
 
@@ -234,6 +238,51 @@ class Toy2DLogJoint(BuiltinDensity):
     def _params(self):
         return torch.tensor([self.const, self.half_inv_var, self.inv_var],
                             dtype=torch.float64), None
+
+
+class TemperedLogJoint(BuiltinDensity):
+    """The tempered bridge ``log f = (1 - beta) log p0 + beta log p1``
+    between two built-in Gaussians over one latent: the target that
+    annealed SMC's rejuvenation moves leave invariant at temperature
+    ``beta`` (:class:`~zhusuan_tpu_torch.smc.AnnealedSMC`). ``beta`` may be
+    a device scalar: the HMC kernel reads it on the card, so a ladder of
+    temperatures never waits on the host. Only the HMC transition's kernel
+    (:func:`.hmc_step.fused_hmc_step`) evaluates it.
+
+    :param prior: the density at ``beta = 0``, a
+        :class:`DiagonalGaussianLogJoint` or
+        :class:`EquicorrelatedGaussianLogJoint`.
+    :param target: the density at ``beta = 1``, one of the same two, over
+        the same latent and dim.
+    :param beta: the temperature, a scalar tensor or a float.
+    """
+
+    def __init__(self, prior: BuiltinDensity, target: BuiltinDensity, beta):
+        parts = (DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint)
+        for role, d in (("prior", prior), ("target", target)):
+            if not isinstance(d, parts):
+                raise TypeError(
+                    "the {} must be one of {}; got {!r}.".format(
+                        role, [c.__name__ for c in parts], type(d)))
+        if prior.name != target.name or prior.dim != target.dim:
+            raise ValueError(
+                "prior and target must be over one latent of one dim; got "
+                "{!r} [{}] and {!r} [{}].".format(prior.name, prior.dim,
+                                                  target.name, target.dim))
+        super().__init__(target.name, target.dim)
+        self.prior = prior
+        self.target = target
+        self.beta = beta
+
+    def log_prob(self, x):
+        return ((1.0 - self.beta) * self.prior.log_prob(x)
+                + self.beta * self.target.log_prob(x))
+
+    def value_and_grad(self, x):
+        v0, g0 = self.prior.value_and_grad(x)
+        v1, g1 = self.target.value_and_grad(x)
+        w0 = 1.0 - self.beta
+        return w0 * v0 + self.beta * v1, w0 * g0 + self.beta * g1
 
 
 def _row_sum(x):

@@ -17,7 +17,10 @@ alone (:mod:`.leapfrog`), instantiations of one kernel body.
 The Pallas kernel traces any user density into its body. A CUDA kernel
 cannot, so the kernel computes the built-in densities of
 :mod:`.densities` named in :data:`DENSITIES`, whose parameters it reads
-through pointers; any other log-joint takes the sampler's plain path.
+through pointers, and the tempered bridge between two of them
+(:class:`~.densities.TemperedLogJoint`, the temperature a device scalar;
+``csrc/hmc_step.cu``'s ``zs_fused_tempered_hmc_step``): annealed SMC's
+HMC moves. Any other log-joint takes the sampler's plain path.
 
 Random numbers: Philox4x32-10 written into the kernel, keyed by a pair of
 ints drawn once from a ``torch.Generator`` and counted by (iteration,
@@ -48,12 +51,15 @@ from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    TemperedLogJoint,
 )
 
 __all__ = [
     "DENSITIES",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "STEP_DENSITIES",
+    "TemperedLogJoint",
     "fused_hmc_step",
     "fused_hmc_step_reference",
     "hmc_step_supported",
@@ -65,6 +71,9 @@ MAX_DIM = 512
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: The built-in densities the HMC-family kernels evaluate.
 DENSITIES = (DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint)
+#: What the whole-step kernel (K1) takes: those and the tempered bridge
+#: between two of them.
+STEP_DENSITIES = DENSITIES + (TemperedLogJoint,)
 
 
 def hmc_step_supported(q_shape, dtype: Optional[torch.dtype] = None) -> bool:
@@ -90,14 +99,17 @@ def kernel_library():
         lib.zs_fused_hmc_step.argtypes = (
             [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
              u32, u32, u32] + [ptr] * 8)
+        lib.zs_fused_tempered_hmc_step.argtypes = (
+            [ptr, i32, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+             i32, i32, i32, u32, u32, u32] + [ptr] * 8)
         lib.zs_fused_chees_step.argtypes = (
             [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, u32, u32,
              u32] + [ptr] * 7)
         lib.zs_fused_leapfrog.argtypes = (
             [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32]
             + [ptr] * 3)
-        for fn in (lib.zs_fused_hmc_step, lib.zs_fused_chees_step,
-                   lib.zs_fused_leapfrog):
+        for fn in (lib.zs_fused_hmc_step, lib.zs_fused_tempered_hmc_step,
+                   lib.zs_fused_chees_step, lib.zs_fused_leapfrog):
             fn.restype = i32
         lib.zs_cuda_error_string.argtypes = [i32]
         lib.zs_cuda_error_string.restype = ctypes.c_char_p
@@ -149,7 +161,7 @@ def _check_inputs(density, q, mass, noise):
         raise ValueError(
             "q must be [n_chains, dim]; got shape {}.".format(tuple(q.shape)))
     c, d = q.shape
-    check_density("fused_hmc_step", density, DENSITIES, d)
+    check_density("fused_hmc_step", density, STEP_DENSITIES, d)
     if tuple(mass.shape) != (1, d):
         raise ValueError("mass must be [1, {}]; got {}.".format(
             d, tuple(mass.shape)))
@@ -188,7 +200,9 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
     On a CUDA tensor this launches the CUDA kernel (or raises); on a CPU
     tensor it runs :func:`fused_hmc_step_reference`.
 
-    :param density: a built-in density of :data:`DENSITIES` over ``q``.
+    :param density: a built-in density of :data:`STEP_DENSITIES` over
+        ``q`` (a :class:`~.densities.TemperedLogJoint`'s ``beta`` a float
+        or a scalar tensor on q's device).
     :param q: ``[n_chains, dim]`` positions, float32 or bfloat16 on the
         card (bfloat16 is read and written as such; all compute is f32).
     :param mass: ``[1, dim]`` diagonal mass (float32 on the card).
@@ -226,10 +240,18 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
     vecs = [torch.empty((c,), dtype=torch.float32, device=dev)
             for _ in range(5)]
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
+    if isinstance(density, TemperedLogJoint):
+        beta = device_scalar(density.beta, dev)
+        entry = "zs_fused_tempered_hmc_step"
+        dens = (*density_pointers(density.prior, dev),
+                *density_pointers(density.target, dev), beta.data_ptr())
+    else:
+        entry = "zs_fused_hmc_step"
+        dens = density_pointers(density, dev)
     launch_kernel(
-        fused_hmc_step, kernel_library, "zs_fused_hmc_step", dev,
+        fused_hmc_step, kernel_library, entry, dev,
         q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
-        *density_pointers(density, dev), ss.data_ptr(), eps_ptr, u_ptr,
+        *dens, ss.data_ptr(), eps_ptr, u_ptr,
         c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
         out_q.data_ptr(), out_p.data_ptr(),
         *[v.data_ptr() for v in vecs])

@@ -114,13 +114,17 @@ def cached_property(fn):
     return wrapper
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict/list/tuple tree."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a nested dict/list/tuple tree (with
+    the matching leaves of the trees in ``rest``, of the same structure, as
+    further arguments)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):
