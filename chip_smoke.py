@@ -397,6 +397,27 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    against ``parallel=True`` within ``SCAN_*_TOL``, both timed. No other
    hand-written kernel: neither package has one for these.
 
+35. robust models, eight schools and mixtures (budget about 90 s): the
+   NUTS kernel against its plain version on its built-ins over several
+   latents (``EightSchoolsLogJoint`` centred and non-centred,
+   ``OrderedLogisticRegressionLogJoint``, ``WeibullAFTLogJoint``; the JAX
+   examples' data from ``ROBUST_REFERENCE``, written by
+   ``scripts/robust_jax_reference.py``) at the examples' chains (steps 0.2
+   and 0.6) and at ``ROBUST_WIDE_CHAINS``, held as phase 6 holds it, and
+   timed (back to back, CUDA graph, plain) beside its bound: three entries
+   of the kernels' record; ``experimental_fused_step=True`` on each
+   built-in (one launch an iteration, no error); the 13 classes of
+   ``extra.py`` and ``Mixture`` on the card (``log_prob`` against the CPU's
+   float64, ``ROBUST_ZOO_DRAWS`` draws' moments against closed forms); the
+   five examples (``ROBUST_EXAMPLES``: the NUTS ones at the JAX defaults,
+   the HMC ones cut for time) with the gates of ``tests/test_examples.py``
+   and the JAX numbers (at the defaults) beside:
+   ``robust_regression`` and ``eight_schools.main`` and ``gmm`` by HMC's
+   plain transition (several latents, as in the JAX package),
+   ``eight_schools.funnel_diagnosis``, ``ordinal_regression`` and
+   ``survival_regression`` by NUTS on the kernel, counted from 0: one
+   launch an iteration.
+
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
 over 67 TFLOP/s, counted from the sources by the ``_*_bound`` helpers at
@@ -4868,6 +4889,505 @@ def phase_smc_ssm(torch, dev):
             max(k1_t["max_abs_err"].values()), k1_t)
 
 
+ROBUST_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts", "robust_jax_reference.json")
+# Phase 35's budget is about 90 s (``ROBUST_*`` names only: the module is
+# one namespace). The NUTS examples run at the JAX examples' defaults. The
+# three HMC examples take HMC's plain transition (several latents, as in
+# the JAX package), whose host-bound iterations cost 35-73 ms on the H100's
+# host (38.7 / 34.8 / 72.7 ms an iteration at the defaults, measured on one
+# H100: 58 / 104 / 167 s): they are cut, with the chains kept, from
+# 1500 / 700, 3000 / 1500 and 800 + 1500 iterations to those below (gmm's
+# warmup of 200 missed its location gate on one of four CPU seeds; 300 and
+# 400 held it on four).
+ROBUST_EXAMPLES = {
+    "robust_regression": {"n_chains": 64, "n_iters": 300, "n_adapt": 150},
+    "eight_schools": {"n_chains": 64, "n_iters": 800, "n_adapt": 400},
+    "funnel": {"n_chains": 32, "n_iters": 1000, "n_adapt": 500},
+    "gmm": {"n_chains": 16, "n_iters": 200, "n_adapt": 400},
+    "ordinal": {"n_chains": 32, "n_iters": 1200, "burnin": 400},
+    "survival": {"n_chains": 16, "n_iters": 1200, "burnin": 400},
+}
+ROBUST_WIDE_CHAINS = 4096  # kernel vs plain also across the whole card
+ROBUST_WARM = 150  # adaptive NUTS iterations to the states compared
+ROBUST_TRUE_ITERS = 5  # experimental_fused_step=True iterations a built-in
+# Operations one data row costs a leaf (value and gradient), counted from
+# csrc/densities.cuh: the linear predictor, the row's transcendental
+# functions and products, the double additions of its partial sums.
+ROBUST_OPS_ROW = {"eight_schools": 16, "eight_schools_centred": 18,
+                  "ordinal": 55, "survival": 30}
+ROBUST_ZOO_DRAWS = 1000000
+
+
+def _robust_reference():
+    with open(ROBUST_REFERENCE) as f:
+        return json.load(f)
+
+
+def _robust_builtins(torch, dev, ref):
+    """``(name, kind, density, to_u, init latent, depth, n_chains)`` of the
+    four built-ins, at their examples' shapes and data (the JAX examples'
+    data for ordinal and survival, ``ROBUST_REFERENCE``)."""
+    from zhusuan_tpu_torch.examples.hierarchical import eight_schools as es
+    from zhusuan_tpu_torch.examples.robust_models import (
+        ordinal_regression as orx, survival_regression as sr,
+    )
+
+    o, s = ref["ordinal"], ref["survival"]
+    out = []
+    for centred in (False, True):
+        dens, to_u, _ = es.funnel_density(centred)
+        c = ROBUST_EXAMPLES["funnel"]["n_chains"]
+        out.append(("eight_schools_" + ("centred" if centred
+                                        else "noncentred"),
+                    "eight_schools_centred" if centred else "eight_schools",
+                    dens, to_u, es.funnel_init(centred, c, dev), 8, c))
+    dens, to_u, _ = orx.build_density(torch.tensor(o["x"]),
+                                      torch.tensor(o["y"]))
+    c = ROBUST_EXAMPLES["ordinal"]["n_chains"]
+    out.append(("ordinal_regression", "ordinal", dens, to_u,
+                orx.init_latent(c, dev), 6, c))
+    dens, to_u, _ = sr.build_density(torch.tensor(s["x"]),
+                                     torch.tensor(s["y"]),
+                                     torch.tensor(s["c"]))
+    c = ROBUST_EXAMPLES["survival"]["n_chains"]
+    out.append(("survival_regression", "survival", dens, to_u,
+                sr.init_latent(c, dev), 6, c))
+    return out
+
+
+def _robust_warm(torch, dev, density, to_u, init, depth):
+    """``(q [c, dim] float32, step)``: the example's chains after
+    ``ROBUST_WARM`` adaptive NUTS iterations from its initial point (on the
+    kernel), raveled, and the adapted step size."""
+    from zhusuan_tpu_torch.mcmc import NUTS
+
+    nuts = NUTS(step_size=0.1, max_tree_depth=depth, adapt_step_size=True)
+    st = nuts.init(to_u(init), n_chain_dims=1)
+    st, _ = nuts.run(density, dict(density.held), st, (3, 4), ROBUST_WARM,
+                     n_adapt=ROBUST_WARM, collect=False)
+    return density.ravel(st.q).float().contiguous(), float(st.step_size)
+
+
+def _robust_bound(kind, density, c, leapfrogs):
+    """The NUTS kernel on a data density: reads q, its data table and
+    constants, writes q' and eight values a chain; a normal an element,
+    and a leaf's density sweep (``ROBUST_OPS_ROW`` a row) and element work
+    (about 20) for each leapfrog the run's trees took."""
+    d, n = density.dim, density.n_rows
+    table = 4 * n * int(density._params()[0].shape[1])
+    return _bound(4 * (2 * c * d + 8 * c + 2 * d) + table,
+                  c * d * OPS_NORMAL
+                  + leapfrogs * (n * ROBUST_OPS_ROW[kind] + d * 20))
+
+
+def _robust_kernel_vs_plain(torch, dev, ref):
+    """Phase 35 (a): the NUTS kernel against its plain version on each
+    built-in, and their times."""
+    from zhusuan_tpu_torch.mcmc.nuts import draw_noise
+    from zhusuan_tpu_torch.ops.nuts_step import (
+        fused_nuts_transition, fused_nuts_transition_reference,
+        nuts_data_lanes,
+    )
+
+    cases, timing, max_err = [], {}, 0.0
+    for name, kind, dens, to_u, init, depth, c in _robust_builtins(
+            torch, dev, ref):
+        ones = torch.ones(1, dens.dim, device=dev)
+        q, step = _robust_warm(torch, dev, dens, to_u, init, depth)
+        g = torch.Generator(device=dev).manual_seed(c)
+        wide = (q[torch.arange(ROBUST_WIDE_CHAINS, device=dev) % c]
+                + 0.05 * torch.randn(ROBUST_WIDE_CHAINS, dens.dim,
+                                     generator=g, device=dev)).contiguous()
+        # The adapted step, three times it (more divergences), and the
+        # whole card's worth of chains.
+        for qq, st in ((q, step), (q, 3.0 * step), (wide, step)):
+            chains = qq.shape[0]
+            noise = draw_noise(torch.Generator(device=dev).manual_seed(
+                chains + 3), chains, dens.dim, depth, torch.float32, dev)
+            got = fused_nuts_transition(dens, qq, ones, st, depth, 1000.0,
+                                        (5, 6), 1, noise=noise)
+            torch.cuda.synchronize()
+            want = fused_nuts_transition_reference(
+                dens, qq, ones, st, depth, 1000.0, (5, 6), 1, noise=noise)
+            rec = _compare_nuts(torch, got, want)
+            rec.update({"density": name, "shape": [chains, dens.dim],
+                        "depth": depth, "step": st,
+                        "mean_depth": float(want[4].float().mean()),
+                        "divergent": float(want[7].float().mean())})
+            max_err = max([max_err] + list(rec["max_abs_err"].values()))
+            cases.append(rec)
+
+        def kernel(q=q, dens=dens, ones=ones, depth=depth, step=step):
+            return fused_nuts_transition(dens, q, ones, step, depth, 1000.0,
+                                         (7, 8), 1)
+
+        gen = torch.Generator(device=dev).manual_seed(9)
+
+        def plain(q=q, dens=dens, ones=ones, depth=depth, c=c, step=step):
+            noise = draw_noise(gen, c, dens.dim, depth, torch.float32, dev)
+            return fused_nuts_transition_reference(
+                dens, q, ones, step, depth, 1000.0, None, 1, noise=noise)
+
+        leapfrogs = int(kernel()[5].sum())
+        timing[name] = {
+            "shape": [c, dens.dim], "n_rows": dens.n_rows, "depth": depth,
+            "step": step, "lanes": nuts_data_lanes(dens.n_rows),
+            "kernel_ms": _time_ms(torch, kernel, 20),
+            "kernel_graph_ms": _graph_ms(torch, kernel, 20),
+            "plain_ms": _time_ms(torch, plain, 2),
+            "leapfrogs_total": leapfrogs,
+            **_robust_bound(kind, dens, c, leapfrogs)}
+    return cases, timing, max_err
+
+
+def _robust_run_examples(torch, dev, ref):
+    """Phase 35 (b): the five examples at the JAX defaults, with their
+    JAX tests' gates; the NUTS runs counted on the kernel."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.hierarchical import eight_schools as es
+    from zhusuan_tpu_torch.examples.mixture_models import gmm
+    from zhusuan_tpu_torch.examples.robust_models import (
+        ordinal_regression as orx, robust_regression as rr,
+        survival_regression as sr,
+    )
+    from zhusuan_tpu_torch.ops.nuts_step import fused_nuts_transition
+
+    failures, recs, launches = [], {}, {}
+
+    def gate(ok, msg):
+        if not ok:
+            failures.append(msg)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        recs[name] = {"wall_s": time.perf_counter() - t0}
+        return out
+
+    e = ROBUST_EXAMPLES["robust_regression"]
+    fused_nuts_transition.launches = 0
+    slope, ols = timed("robust_regression", lambda: rr.main(
+        e["n_chains"], e["n_iters"], e["n_adapt"], device=dev,
+        verbose=False))
+    recs["robust_regression"].update({"slope": slope, "ols": ols,
+                                      "jax": ref["robust_regression"]})
+    gate(abs(slope - 2.0) < abs(ols - 2.0) and abs(slope - 2.0) < 0.3,
+         "robust_regression: slope {} (OLS {})".format(slope, ols))
+
+    e = ROBUST_EXAMPLES["eight_schools"]
+    stats, theta = timed("eight_schools", lambda: es.main(
+        e["n_chains"], e["n_iters"], e["n_adapt"], verbose=False,
+        device=dev))
+    quad = ref["eight_schools"]["quadrature"]
+    mu_m, tau_m = float(stats["mu"]["mean"]), float(stats["tau"]["mean"])
+    post = theta.reshape(-1, 8).mean(0)
+    rhat = float(torch.as_tensor(stats["mu"]["r_hat"]).max())
+    recs["eight_schools"].update({
+        "mu_mean": mu_m, "tau_mean": tau_m, "mu_r_hat": rhat,
+        "quadrature": quad, "theta_mean": post.tolist(),
+        "jax": {k: ref["eight_schools"][k] for k in ("mu_mean",
+                                                     "tau_mean")}})
+    gate(abs(mu_m - quad["mu"]) < 0.3 and abs(tau_m - quad["tau"]) < 0.4,
+         "eight_schools: E[mu] {} E[tau] {} vs quadrature {}".format(
+             mu_m, tau_m, quad))
+    gate(rhat < 1.05, "eight_schools: R-hat(mu) {}".format(rhat))
+    gate(bool(np.all(np.abs(post - quad["mu"])
+                     <= np.abs(es.Y - quad["mu"]) + 0.5)),
+         "eight_schools: no shrinkage {}".format(post))
+    gate(fused_nuts_transition.launches == 0,
+         "an HMC example launched the NUTS kernel")
+
+    e = ROBUST_EXAMPLES["funnel"]
+    fused_nuts_transition.launches = 0
+    c_rate, nc_rate, small = timed("funnel", lambda: es.funnel_diagnosis(
+        e["n_chains"], e["n_iters"], e["n_adapt"], verbose=False,
+        device=dev))
+    launches["eight_schools"] = fused_nuts_transition.launches
+    recs["funnel"].update({"c_rate": c_rate, "nc_rate": nc_rate,
+                           "small_frac": small,
+                           "launches": launches["eight_schools"],
+                           "jax": {k: ref["eight_schools"][k] for k in
+                                   ("c_rate", "nc_rate", "small_frac")}})
+    gate(c_rate > 0.01 and nc_rate < c_rate / 3 and small > 0.8,
+         "funnel: rates {} {} small_frac {}".format(c_rate, nc_rate, small))
+    gate(launches["eight_schools"] == 2 * e["n_iters"],
+         "funnel: {} NUTS kernel launches for 2 x {} iterations".format(
+             launches["eight_schools"], e["n_iters"]))
+
+    e = ROBUST_EXAMPLES["gmm"]
+    (w, mu, sd), acc, _ = timed("gmm", lambda: gmm.main(
+        e["n_chains"], e["n_iters"], e["n_adapt"], verbose=False,
+        device=dev))
+    recs["gmm"].update({"w": w.tolist(), "mu": mu.tolist(),
+                        "sd": sd.tolist(), "accuracy": acc,
+                        "jax": ref["gmm"]})
+    gate(bool(np.all(np.abs(mu - gmm.TRUE_MU) <= 0.3)
+              and np.all(np.abs(w - gmm.TRUE_W) <= 0.07)
+              and np.all(np.abs(sd - gmm.TRUE_SD) <= 0.25)) and acc > 0.95,
+         "gmm: w {} mu {} sd {} accuracy {}".format(w, mu, sd, acc))
+
+    e = dict(ROBUST_EXAMPLES["ordinal"])
+    o = ref["ordinal"]
+    fused_nuts_transition.launches = 0
+    res = timed("ordinal", lambda: orx.run(
+        len(o["y"]), e["n_chains"], e["n_iters"], e["burnin"],
+        data=(torch.tensor(o["x"]), torch.tensor(o["y"])), device=dev))
+    launches["ordinal"] = fused_nuts_transition.launches
+    recs["ordinal"].update({
+        k: np.asarray(res[k]).tolist() for k in ("beta_mean", "beta_sd",
+                                                 "cuts_mean", "cuts_sd")})
+    recs["ordinal"].update({"launches": launches["ordinal"],
+                            "jax": {k: o[k] for k in ("beta_mean",
+                                                      "cuts_mean")}})
+    gate(bool((np.diff(res["cuts_draws"], axis=-1) > 0).all()),
+         "ordinal: unordered cutpoints in a draw")
+    gate(bool(np.all(np.abs(res["beta_mean"] - orx.TRUE_BETA)
+                     <= 4 * res["beta_sd"].max())
+              and np.all(np.abs(res["cuts_mean"] - orx.TRUE_CUTS)
+                         <= 4 * res["cuts_sd"].max())),
+         "ordinal: beta {} cuts {}".format(res["beta_mean"],
+                                           res["cuts_mean"]))
+    gate(launches["ordinal"] == e["n_iters"],
+         "ordinal: {} NUTS kernel launches for {} iterations".format(
+             launches["ordinal"], e["n_iters"]))
+
+    e = ROBUST_EXAMPLES["survival"]
+    s = ref["survival"]
+    fused_nuts_transition.launches = 0
+    res = timed("survival", lambda: sr.run(
+        len(s["y"]), e["n_chains"], e["n_iters"], e["burnin"],
+        data=(s["x"], s["y"], s["c"]), device=dev))
+    launches["survival"] = fused_nuts_transition.launches
+    recs["survival"].update({
+        "frac_censored": res["frac_censored"], "k_mean": res["k_mean"],
+        "k_sd": res["k_sd"], "beta_mean": res["beta_mean"].tolist(),
+        "beta_sd": res["beta_sd"].tolist(), "launches": launches["survival"],
+        "jax": {k: s[k] for k in ("k_mean", "beta_mean", "frac_censored")}})
+    gate(0.2 < res["frac_censored"] < 0.6
+         and abs(res["k_mean"] - sr.TRUE_K) < 4 * res["k_sd"]
+         and bool(np.all(np.abs(res["beta_mean"] - sr.TRUE_BETA)
+                         <= 4 * res["beta_sd"].max())),
+         "survival: {}".format(recs["survival"]))
+    gate(launches["survival"] == e["n_iters"],
+         "survival: {} NUTS kernel launches for {} iterations".format(
+             launches["survival"], e["n_iters"]))
+    return recs, launches, failures
+
+
+def _robust_fused_true(torch, dev, ref):
+    """Phase 35 (c): ``experimental_fused_step=True`` takes each built-in
+    (one launch an iteration) and does not raise."""
+    from zhusuan_tpu_torch.mcmc import NUTS
+    from zhusuan_tpu_torch.ops.nuts_step import fused_nuts_transition
+
+    out = {}
+    for name, _, dens, to_u, init, depth, _ in _robust_builtins(torch, dev,
+                                                                ref):
+        nuts = NUTS(step_size=0.1, max_tree_depth=depth,
+                    adapt_step_size=True, experimental_fused_step=True)
+        st = nuts.init(to_u(init), n_chain_dims=1)
+        fused_nuts_transition.launches = 0
+        observed = {k: v for k, v in dens.held.items()}
+        nuts.run(dens, observed, st, (1, 2), ROBUST_TRUE_ITERS,
+                 n_adapt=ROBUST_TRUE_ITERS)
+        out[name] = fused_nuts_transition.launches
+    return out
+
+
+def _robust_zoo(torch, dev):
+    """Phase 35 (d): the 13 classes of ``extra.py`` and ``Mixture`` on the
+    card: ``log_prob`` in float32 against the CPU's float64 within
+    ``ZOO_TOL`` of ``1 + |ref|`` (the same non-finite entries), and
+    ``ROBUST_ZOO_DRAWS`` samples' mean and variance (or those of a
+    transform with known moments) within ``ZOO_SES`` standard errors of
+    the closed forms."""
+    import numpy as np
+
+    from zhusuan_tpu_torch import distributions as zd
+
+    rng = np.random.RandomState(35)
+    b = (64, 8)
+
+    def pos(*shape):
+        return 0.5 + 2.0 * rng.rand(*shape)
+
+    x, p1, p2 = rng.randn(*b), pos(*b), pos(*b)
+    cuts = np.sort(rng.randn(64, 8, 3), -1) + np.array([0.0, 0.2, 0.4])
+    upper = 2.0 * rng.rand(*b)
+    logits3, mu3, sd3 = rng.randn(64, 3), 3.0 * rng.randn(64, 3), pos(64, 3)
+
+    def build(name, *args):
+        def make(dtype, device):
+            def conv(a):
+                if isinstance(a, tuple):
+                    return build(*a)(dtype, device)
+                return (torch.tensor(a, dtype=dtype, device=device)
+                        if isinstance(a, np.ndarray) else a)
+            if name == "Mixture":
+                return zd.Mixture(conv(args[0]), zd.Normal(
+                    conv(args[1]), std=conv(args[2])))
+            return getattr(zd, name)(*[conv(a) for a in args])
+        return make
+
+    lp_cases = [
+        ("StudentT", build("StudentT", p1 + 2.0, x, p2), 3.0 * rng.randn(*b)),
+        ("Exponential", build("Exponential", p1), 2.0 * rng.rand(*b)),
+        ("Cauchy", build("Cauchy", x, p1), 4.0 * rng.randn(*b)),
+        ("HalfCauchy", build("HalfCauchy", p1), 3.0 * rng.rand(*b)),
+        ("LogNormal", build("LogNormal", x, p1), 3.0 * rng.rand(*b) + 0.01),
+        ("NegativeBinomial", build("NegativeBinomial", x, 3.0 * p1),
+         rng.randint(0, 15, size=b)),
+        ("TruncatedNormal", build("TruncatedNormal", x, p1, x - 1.0,
+                                  x + 2.0), x + 3.0 * rng.rand(*b) - 1.0),
+        ("OrderedLogistic", build("OrderedLogistic", x, cuts),
+         rng.randint(0, 4, size=b)),
+        ("ZeroInflated", build("ZeroInflated", ("Poisson", 4.0 * p1), x),
+         rng.randint(0, 12, size=b)),
+        ("Weibull", build("Weibull", p1, p2), 3.0 * rng.rand(*b) + 0.01),
+        ("RightCensored", build("RightCensored", ("Weibull", p1, p2), upper),
+         np.minimum(3.0 * rng.rand(*b), upper)),
+        ("BetaBinomial", build("BetaBinomial", 12, p1, p2),
+         rng.randint(0, 13, size=b)),
+        ("VonMises", build("VonMises", x, 4.0 * p1),
+         np.pi * (2.0 * rng.rand(*b) - 1.0)),
+        ("Mixture", build("Mixture", logits3, mu3, sd3),
+         4.0 * rng.randn(64)),
+    ]
+    errs, failures = {}, []
+    for name, make, v in lp_cases:
+        want = make(torch.float64, "cpu").log_prob(
+            torch.tensor(v) if v.dtype.kind == "f"
+            else torch.tensor(v, dtype=torch.int32)).double()
+        g = (torch.tensor(v, dtype=torch.float32, device=dev)
+             if v.dtype.kind == "f"
+             else torch.tensor(v, dtype=torch.int32, device=dev))
+        got = make(torch.float32, dev).log_prob(g).double().cpu()
+        fin = torch.isfinite(want)
+        err = float(((got - want).abs() / (1.0 + want.abs()))[fin].max())
+        errs[name] = err
+        if err > ZOO_TOL or not torch.equal(torch.isfinite(got), fin):
+            failures.append("{} log_prob off by {}".format(name, err))
+
+    # (name, distribution of scalars on the card, transform, mean, var) of
+    # the transform's draws.
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def t(v):
+        return torch.tensor(v, **f32)
+
+    def uniform_of(cdf):
+        return cdf, 0.5, 1.0 / 12.0
+
+    lam, k, rate, r, lg = 1.7, 1.6, 2.5, 4.0, 0.3
+    pnb = 1.0 / (1.0 + math.exp(-lg))
+    a_, b_ = -0.7, 1.3  # TruncatedNormal's standardized bounds
+    phi = [math.exp(-0.5 * z * z) / math.sqrt(2 * math.pi) for z in (a_, b_)]
+    z_tn = 0.5 * (math.erf(b_ / math.sqrt(2)) - math.erf(a_ / math.sqrt(2)))
+    m_tn = (phi[0] - phi[1]) / z_tn
+    ol_cuts, ol_eta = [-1.0, 0.3, 1.5], 0.4
+    cdf = [1.0 / (1.0 + math.exp(-(cc - ol_eta))) for cc in ol_cuts] + [1.0]
+    pmf = [cdf[0]] + [cdf[i] - cdf[i - 1] for i in range(1, 4)]
+    ol_mean = sum(i * q for i, q in enumerate(pmf))
+    pi_z = 1.0 / (1.0 + math.exp(0.4))
+    g1, g2 = math.gamma(1 + 1 / k), math.gamma(1 + 2 / k)
+    c_up = 1.2
+    p_cens = math.exp(-(c_up / lam) ** k)
+    nb, ab, bb = 9, 2.0, 3.0
+    kappa = 3.0
+    i0, i1 = (float(torch.special.modified_bessel_i0(torch.tensor(
+        kappa, dtype=torch.float64))), float(
+        torch.special.modified_bessel_i1(torch.tensor(
+            kappa, dtype=torch.float64))))
+    r1 = i1 / i0
+    r2 = 0.5 * (1.0 + (i0 - 2.0 * i1 / kappa) / i0)
+    mw, mm, ms = [0.2, 0.5, 0.3], [-3.0, 0.5, 4.0], [0.6, 1.0, 2.0]
+    mix_mean = sum(w * m for w, m in zip(mw, mm))
+    ident = (lambda v: v)
+    moment_cases = [
+        ("StudentT", zd.StudentT(t(10.0), t(0.5), t(1.5)), ident, 0.5,
+         1.5 ** 2 * 10.0 / 8.0),
+        ("Exponential", zd.Exponential(t(rate)), ident, 1 / rate,
+         1 / rate ** 2),
+        ("Cauchy", zd.Cauchy(t(0.5), t(2.0)),
+         *uniform_of(lambda v: torch.atan((v - 0.5) / 2.0) / math.pi
+                     + 0.5)),
+        ("HalfCauchy", zd.HalfCauchy(t(2.0)),
+         *uniform_of(lambda v: 2.0 / math.pi * torch.atan(v / 2.0))),
+        ("LogNormal", zd.LogNormal(t(0.3), t(0.7)), torch.log, 0.3, 0.49),
+        ("NegativeBinomial", zd.NegativeBinomial(t(lg), t(r)), ident,
+         r * pnb / (1 - pnb), r * pnb / (1 - pnb) ** 2),
+        ("TruncatedNormal", zd.TruncatedNormal(t(1.0), t(2.0),
+                                               t(1.0 + 2.0 * a_),
+                                               t(1.0 + 2.0 * b_)), ident,
+         1.0 + 2.0 * m_tn,
+         4.0 * (1.0 + (a_ * phi[0] - b_ * phi[1]) / z_tn - m_tn ** 2)),
+        ("OrderedLogistic", zd.OrderedLogistic(t(ol_eta), t(ol_cuts)),
+         ident, ol_mean,
+         sum(i * i * q for i, q in enumerate(pmf)) - ol_mean ** 2),
+        ("ZeroInflated", zd.ZeroInflated(zd.Poisson(t(rate)), t(0.4)
+                                         * -1.0), ident,
+         (1 - pi_z) * rate, (1 - pi_z) * rate * (1 + pi_z * rate)),
+        ("Weibull", zd.Weibull(t(k), t(lam)), ident, lam * g1,
+         lam ** 2 * (g2 - g1 ** 2)),
+        ("RightCensored", zd.RightCensored(zd.Weibull(t(k), t(lam)),
+                                           t(c_up)),
+         lambda v: (v >= c_up).float(), p_cens, p_cens * (1 - p_cens)),
+        ("BetaBinomial", zd.BetaBinomial(nb, t(ab), t(bb)), ident,
+         nb * ab / (ab + bb),
+         nb * ab * bb * (ab + bb + nb) / ((ab + bb) ** 2 * (ab + bb + 1))),
+        ("VonMises", zd.VonMises(t(0.4), t(kappa)),
+         lambda v: torch.cos(v - 0.4), r1, r2 - r1 ** 2),
+        ("Mixture", zd.Mixture(torch.log(t(mw)), zd.Normal(t(mm),
+                                                           std=t(ms))),
+         ident, mix_mean,
+         sum(w * (s * s + m * m) for w, m, s in zip(mw, mm, ms))
+         - mix_mean ** 2),
+    ]
+    worst = {}
+    gen = torch.Generator(device=dev).manual_seed(35)
+    for name, dist, fn, mean, var in moment_cases:
+        draws = dist.sample(gen, ROBUST_ZOO_DRAWS)
+        ok, worst[name] = _moments_ok(torch, fn(draws.double()), mean, var)
+        if not ok:
+            failures.append("{} moments off by {:.2f} standard errors".format(
+                name, worst[name]))
+    return {"log_prob_rel_err": errs, "moments_worst_ses": worst}, failures
+
+
+def phase_robust_models(torch, dev):
+    """Phase 35 (budget about 90 s): the NUTS kernel on the built-ins over
+    several latents, the five examples of ``extra.py`` and ``mixture.py``
+    at the JAX defaults, and the new classes on the card."""
+    ref = _robust_reference()
+    t0 = time.perf_counter()
+    cases, timing, max_err = _robust_kernel_vs_plain(torch, dev, ref)
+    print("phase35 kernel_vs_plain " + json.dumps({
+        "cases": cases, "timing": timing,
+        "seconds": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    true_launches = _robust_fused_true(torch, dev, ref)
+    print("phase35 fused_true " + json.dumps({
+        "launches": true_launches, "iterations": ROBUST_TRUE_ITERS,
+        "seconds": time.perf_counter() - t0}), flush=True)
+    failures = ["{}: experimental_fused_step=True launched {} times in {} "
+                "iterations".format(k, v, ROBUST_TRUE_ITERS)
+                for k, v in true_launches.items() if v != ROBUST_TRUE_ITERS]
+    t0 = time.perf_counter()
+    zoo, zoo_fail = _robust_zoo(torch, dev)
+    failures += zoo_fail
+    print("phase35 zoo " + json.dumps(dict(
+        zoo, seconds=time.perf_counter() - t0)), flush=True)
+    recs, launches, ex_fail = _robust_run_examples(torch, dev, ref)
+    failures += ex_fail
+    for name, rec in recs.items():
+        print("phase35 {} {}".format(name, json.dumps(rec)), flush=True)
+    check(not failures, "phase 35: " + "; ".join(failures))
+    return launches, max_err, timing
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4932,6 +5452,8 @@ def main():
                                           torch, dev)
     run_phase("phase33", phase_samplers_changepoint, torch, dev)
     smc_launches, smc_err, smc_t = run_phase("phase34", phase_smc_ssm,
+                                             torch, dev)
+    rob_launches, rob_err, rob_t = run_phase("phase35", phase_robust_models,
                                              torch, dev)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
@@ -5153,7 +5675,32 @@ def main():
         **bound(ex_t),
         "shape": ex_t["shape"],
         "n_leapfrogs": ex_t["n_leapfrogs"],
-    }] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
+    }] + [{
+        "name": "fused_nuts_transition ({}, {} x {}, {} data rows, depth "
+                "{})".format(label, *rob_t[key]["shape"],
+                             rob_t[key]["n_rows"], rob_t[key]["depth"]),
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/nuts_step.cu",
+        "replaces": ["zhusuan_tpu/ops/nuts_step.py:331",
+                     "zhusuan_tpu/ops/nuts_step.py:641"],
+        "launches": rob_launches[example],
+        "max_abs_err": rob_err,
+        "ms": rob_t[key]["kernel_graph_ms"],
+        "ms_back_to_back": rob_t[key]["kernel_ms"],
+        "plain_ms": rob_t[key]["plain_ms"],
+        **bound(rob_t[key]),
+        **extra,
+    } for label, key, example, extra in (
+        ("eight schools, centred", "eight_schools_centred", "eight_schools",
+         {"ms_noncentred": rob_t["eight_schools_noncentred"][
+             "kernel_graph_ms"],
+          "plain_ms_noncentred": rob_t["eight_schools_noncentred"][
+              "plain_ms"],
+          "bound_ms_noncentred": rob_t["eight_schools_noncentred"][
+              "bound_ms"]}),
+        ("ordinal regression", "ordinal_regression", "ordinal", {}),
+        ("Weibull AFT survival", "survival_regression", "survival", {}))
+    ] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,11 @@ Imports no jax, so its ``cuda`` tests also run on a GPU host:
 On the CPU it holds the layout rule and the shared-memory rule to sm_90's
 limits; on the card both stack placements of the kernel at widths of every
 lane count against the plain version (``fused_nuts_transition_reference``)
-on the same injected noise and on the kernel's own Philox draws. The JAX
-package's parity for the transition is in ``tests/test_torch_nuts.py``.
+on the same injected noise and on the kernel's own Philox draws, and the
+carried-gradient body on the built-ins over several latents with data
+(eight schools, ordinal, Weibull AFT). The JAX package's parity for the
+transition is in ``tests/test_torch_nuts.py`` and
+``tests/test_torch_examples_robust.py``.
 """
 
 import numpy as np
@@ -277,3 +280,78 @@ def test_chains_of_one_warp_stopping_at_different_leaves(dim, shared):
     _compare(got, want)
     for i in (4, 5, 6, 7):
         assert torch.equal(got[i][:3], want[i][:3])
+
+
+# --------------------------------------------------------------------- #
+# The built-ins over several latents with data (the carried-gradient body)
+# --------------------------------------------------------------------- #
+def _data_builtins():
+    """The three data built-ins at the examples' shapes, on synthetic data
+    made with numpy."""
+    from zhusuan_tpu_torch.ops.densities import (
+        EightSchoolsLogJoint, OrderedLogisticRegressionLogJoint,
+        WeibullAFTLogJoint,
+    )
+
+    rs = np.random.RandomState(16)
+    x2 = rs.randn(400, 2)
+    cut = np.array([-1.0, 0.3, 1.5])
+    eta = x2 @ np.array([1.2, -0.8])
+    y_ord = np.sum(rs.rand(400, 1) > 1.0 / (1.0 + np.exp(-(cut - eta[:, None]))),
+                   axis=-1)
+    x3 = np.concatenate([np.ones((500, 1)), rs.randn(500, 2)], -1)
+    t = np.exp(x3 @ np.array([0.7, 0.8, -0.5])) * (-np.log(rs.rand(500))) \
+        ** (1 / 1.5)
+    c = -3.0 * np.log(rs.rand(500))
+    y8 = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
+    s8 = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
+    return {
+        "eight_schools": EightSchoolsLogJoint(y8, s8),
+        "eight_schools_centred": EightSchoolsLogJoint(y8, s8, True),
+        "ordinal": OrderedLogisticRegressionLogJoint(x2, y_ord, 4),
+        "survival": WeibullAFTLogJoint(x3, np.minimum(t, c), c),
+    }
+
+
+def test_a_built_in_with_data_keeps_the_far_gradient_row():
+    """One more shared row a chain, and 8 or 32 lanes a chain by its data
+    rows."""
+    assert nuts_step.nuts_data_lanes(8) == 8
+    assert nuts_step.nuts_data_lanes(32) == 8
+    assert nuts_step.nuts_data_lanes(33) == 32
+    for depth, shared in ((6, True), (8, True), (8, False)):
+        assert (nuts_shared_bytes(10, depth, shared, 8)
+                - nuts_shared_bytes(10, depth, shared)) == 4 * 3 * 16
+        assert nuts_shared_bytes(5, depth, shared, 400) == nuts_shared_bytes(
+            5, depth, shared, 8) // 4
+    assert nuts_step.nuts_layout(10, 8, 32, 8) == (8, True)
+    assert nuts_step.nuts_layout(5, 6, 32, 400) == (32, True)
+    assert nuts_step.nuts_layout(10, 8, 32) == (8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 6, 8])
+@pytest.mark.parametrize("name", ["eight_schools", "eight_schools_centred",
+                                  "ordinal", "survival"])
+def test_data_builtins_match_plain_version(name, depth):
+    dev = _cuda()
+    dens = _data_builtins()[name]
+    rs = np.random.RandomState(depth)
+    chains, dim = 37, dens.dim
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    q = t(0.5 * rs.randn(chains, dim))
+    inv_mass = t(0.5 + rs.rand(1, dim))
+    noise = (t(rs.randn(chains, dim)), t(rs.rand(chains, depth)),
+             t(rs.rand(chains, (1 << depth) - 1)), t(rs.rand(chains, depth)))
+    want = fused_nuts_transition_reference(dens, q, inv_mass, 0.1, depth,
+                                           1000.0, (3, 4), 1, noise=noise)
+    for shared in LAYOUTS:
+        before = fused_nuts_transition.launches
+        got = nuts_step._launch(dens, q, inv_mass, 0.1, depth, 1000.0, (3, 4),
+                                1, noise, shared)
+        torch.cuda.synchronize()
+        assert fused_nuts_transition.launches == before + 1
+        _compare(got, want)

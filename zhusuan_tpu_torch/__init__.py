@@ -42,7 +42,11 @@ driven by the change-point example; annealed SMC (:mod:`.smc`) and the
 state-space family (:mod:`.ssm`: the particle filter, FFBS, conditional
 SMC, particle Gibbs, PMMH, exact HMMs and Kalman filtering with their
 log-depth scans), driven by the SMC Bayes-factor and stochastic-volatility
-examples.
+examples; the heads of ``extra.py`` (``StudentT`` to ``VonMises``) and
+``Mixture`` with their ``BayesianNet`` methods, driven by the robust,
+ordinal and survival regression, eight-schools and Gaussian-mixture
+examples, whose NUTS runs take the NUTS kernel through built-in densities
+over several latents (:class:`.ops.densities.LatentDictDensity`).
 """
 
 from zhusuan_tpu_torch import (
@@ -106,9 +110,13 @@ from zhusuan_tpu_torch.mcmc import (
 )
 from zhusuan_tpu_torch.ops import (
     DiagonalGaussianLogJoint,
+    EightSchoolsLogJoint,
     EquicorrelatedGaussianLogJoint,
+    LatentDictDensity,
+    OrderedLogisticRegressionLogJoint,
     TemperedLogJoint,
     Toy2DLogJoint,
+    WeibullAFTLogJoint,
     fused_chees_step,
     fused_leapfrog,
     fused_meanfield_advi,
@@ -163,11 +171,15 @@ __all__ = [
     "SliceSampler",
     "SliceState",
     "DiagonalGaussianLogJoint",
+    "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "LatentDictDensity",
+    "OrderedLogisticRegressionLogJoint",
     "FullRankGuide",
     "MeanFieldGuide",
     "TemperedLogJoint",
     "Toy2DLogJoint",
+    "WeibullAFTLogJoint",
     "advi",
     "fit_dense_preconditioner",
     "fit_scan",

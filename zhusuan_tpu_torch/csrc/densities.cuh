@@ -37,7 +37,11 @@ namespace zs {
 enum DensityId {
   kDiagonalGaussian = 0,
   kEquicorrelatedGaussian = 1,
-  kToy2D = 2
+  kToy2D = 2,
+  kEightSchools = 3,
+  kEightSchoolsCentred = 4,
+  kOrderedLogisticRegression = 5,
+  kWeibullAFT = 6
 };
 
 // A lane's partial sum of a row: summed over the warp that shares the row,
@@ -235,6 +239,348 @@ struct Tempered {
 
   __device__ __forceinline__ float log_prob(const float (&x)[E]) const {
     return w0 * prior.log_prob(x) + beta * target.log_prob(x);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Built-ins over several latents, with data (NUTS only; ops/densities.py's
+// LatentDictDensity classes). A chain's row of dim <= 16 elements lies on the
+// first lanes of its group of L lanes, 4 elements a lane (lane r holds flat
+// elements 4 r .. 4 r + 3; csrc/nuts_step.cu launches them at K = 1). Every
+// lane of the group:
+//   1. gathers the whole row by shuffles (the parameters are few);
+//   2. scores the data rows i = r, r + L, ... and adds each row's log-density
+//      and its terms of each parameter's gradient into double partial sums,
+//      in the flat order of the row (acc[0] is log p, acc[1 + j] element j);
+//      the lane that owns element j adds its prior and Jacobian terms;
+//   3. sums the partials over the group in one butterfly of log2 L shuffles
+//      of doubles, so every lane holds the totals, rounds each to float once
+//      and applies the chain rule of the bijectors in float;
+//   4. keeps the gradient of the elements it owns.
+// The sums of float32 terms are exact in double at these sizes, so the order
+// of addition (rows over lanes, then the butterfly) does not change the
+// float32 results: the plain version (ops/densities.py) sums in torch's order
+// in double and rounds once, and each element's arithmetic is written in the
+// plain version's order. value_and_grad returns log p on every lane of the
+// group and the lane's 4 gradient elements (0 past the row).
+// p0 is the data table (float32 rows), p1 the float32 constants.
+
+__device__ __forceinline__ float softplus_k(float u) {
+  return fmaxf(u, 0.0f) + log1pf(expf(-fabsf(u)));
+}
+
+__device__ __forceinline__ float log_sigmoid_k(float u) {
+  return -(fmaxf(-u, 0.0f) + log1pf(expf(-fabsf(u))));
+}
+
+__device__ __forceinline__ float sigmoid_k(float u) {
+  return 1.0f / (1.0f + expf(-u));
+}
+
+// The row's flat elements 0 .. kMax - 1 on every lane of the group of L.
+template <int L, int kMax>
+__device__ __forceinline__ void gather_row(const float (&x)[4],
+                                           float (&P)[kMax]) {
+#pragma unroll
+  for (int j = 0; j < kMax; ++j)
+    P[j] = __shfl_sync(0xffffffffu, x[j & 3], j >> 2, L);
+}
+
+template <int L, int N>
+__device__ __forceinline__ void group_sums_double(double (&v)[N]) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int s = 0; s < N; ++s) v[s] += __shfl_xor_sync(0xffffffffu, v[s], off);
+  }
+}
+
+// Lane r's 4 elements of the flat gradient G.
+template <int kMax>
+__device__ __forceinline__ void own_elements(const float (&G)[kMax], int r,
+                                             float (&g)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) g[e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMax; ++j)
+    if ((j >> 2) == r) g[j & 3] = G[j];
+}
+
+// The eight-schools posterior in its unconstrained space (EightSchoolsLogJoint):
+// elements mu, tau (softplus-unconstrained), then theta_tilde (non-centred,
+// theta = mu + scale theta_tilde) or theta (centred), J <= 14 of them. Data
+// rows are the schools: (y_j, 1 / sigma_j). Constants: log(2/pi) - log 5,
+// 1/5, 1/100.
+template <int L, bool kCentred>
+struct EightSchools {
+  static constexpr bool kCarried = true;
+  static constexpr int kMax = 16;
+  const float* tab;
+  int n, r;
+  float c_hc, s_inv, m_inv;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       int lane, int n_rows) {
+    tab = p0;
+    n = n_rows;
+    r = lane;
+    c_hc = p1[0];
+    s_inv = p1[1];
+    m_inv = p1[2];
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&x)[4],
+                                                  float (&g)[4]) const {
+    float P[kMax];
+    gather_row<L>(x, P);
+    const float mu = P[0], u = P[1];
+    const float tau = softplus_k(u);
+    const float sg = sigmoid_k(u), sgm = sigmoid_k(-u);
+    const float itau = 1.0f / tau, ltau = logf(tau);
+    double acc[1 + kMax];
+#pragma unroll
+    for (int s = 0; s <= kMax; ++s) acc[s] = 0.0;
+#pragma unroll
+    for (int j = 0; j < kMax - 2; ++j) {
+      if (j < n && (j & (L - 1)) == r) {  // school j on its lane
+        const float yv = tab[2 * j], is = tab[2 * j + 1];
+        const float t = P[2 + j];
+        if (kCentred) {
+          const float a = (t - mu) * itau;
+          const float z = (yv - t) * is;
+          const float rr = z * is;
+          acc[0] += static_cast<double>((-0.5f * (a * a) - ltau) + (-0.5f * (z * z)));
+          const float ait = a * itau;
+          acc[1] += static_cast<double>(ait);
+          acc[2] += static_cast<double>((a * a) * itau - itau);
+          acc[3 + j] += static_cast<double>(rr - ait);
+        } else {
+          const float theta = mu + tau * t;
+          const float z = (yv - theta) * is;
+          const float rr = z * is;
+          acc[0] += static_cast<double>(-0.5f * (z * z));
+          acc[1] += static_cast<double>(rr);
+          acc[2] += static_cast<double>(rr) * static_cast<double>(t);
+          acc[3 + j] += static_cast<double>(tau * rr);
+        }
+      }
+      if (!kCentred && j < n && ((2 + j) >> 2) == r) {  // theta_tilde's prior
+        const float t = P[2 + j];
+        acc[0] += static_cast<double>(-0.5f * (t * t));
+        acc[3 + j] += static_cast<double>(-t);
+      }
+    }
+    if (r == 0) {  // mu and tau's lane: their priors and tau's Jacobian
+      const float t5 = tau * s_inv;
+      const float mu_s = mu * m_inv;
+      acc[0] += static_cast<double>(-0.5f * (mu_s * mu_s));
+      acc[0] += static_cast<double>(c_hc - log1pf(t5 * t5));
+      acc[0] += static_cast<double>(log_sigmoid_k(u));
+      acc[1] += static_cast<double>(-(mu_s * m_inv));
+      acc[2] += static_cast<double>(-(2.0f * (t5 * s_inv)) / (1.0f + t5 * t5));
+    }
+    group_sums_double<L>(acc);
+    float G[kMax];
+    G[0] = static_cast<float>(acc[1]);
+    G[1] = static_cast<float>(acc[2]) * sg + sgm;
+#pragma unroll
+    for (int j = 0; j < kMax - 2; ++j) G[2 + j] = j < n ? static_cast<float>(acc[3 + j]) : 0.0f;
+    own_elements(G, r, g);
+    return static_cast<float>(acc[0]);
+  }
+};
+
+// Ordinal (cumulative-logit) regression in its unconstrained space
+// (OrderedLogisticRegressionLogJoint): elements beta [p], then u [K - 1] with
+// the Ordered cutpoints c_0 = u_0, c_k = c_{k-1} + exp(u_k); p <= 4,
+// K - 1 <= 8, p + K - 1 <= 12. Data rows (x_i [p], y_i). Constants p, K - 1,
+// finfo(float32).max / 2 (the padding of the outer cutpoints).
+template <int L>
+struct OrderedLogisticRegression {
+  static constexpr bool kCarried = true;
+  static constexpr int kMax = 12, kMaxP = 4;
+  const float* tab;
+  int n, r, p, nc;
+  float big;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       int lane, int n_rows) {
+    tab = p0;
+    n = n_rows;
+    r = lane;
+    p = static_cast<int>(p1[0]);
+    nc = static_cast<int>(p1[1]);
+    big = p1[2];
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&x)[4],
+                                                  float (&g)[4]) const {
+    float P[kMax], cf[kMax];
+    gather_row<L>(x, P);
+    float run = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) {  // the cutpoints, at their flat index
+      const float v = j == p ? P[j] : run + expf(P[j]);
+      const bool cut = j >= p && j < p + nc;
+      cf[j] = cut ? v : 0.0f;
+      run = cut ? v : run;
+    }
+    double acc[1 + kMax];
+#pragma unroll
+    for (int s = 0; s <= kMax; ++s) acc[s] = 0.0;
+    const int stride = p + 1;
+    for (int i = r; i < n; i += L) {
+      const float* row = tab + static_cast<size_t>(i) * stride;
+      float xr[kMaxP];
+#pragma unroll
+      for (int j = 0; j < kMaxP; ++j) xr[j] = j < p ? row[j] : 0.0f;
+      float eta = P[0] * xr[0];
+#pragma unroll
+      for (int j = 1; j < kMaxP; ++j)
+        if (j < p) eta = eta + P[j] * xr[j];
+      const int y = static_cast<int>(row[p]);
+      float hi = big, lo = -big;
+#pragma unroll
+      for (int j = 0; j < kMax; ++j) {
+        const int k = j - p;
+        if (j >= p && k < nc) {
+          hi = k == y ? cf[j] : hi;
+          lo = k == y - 1 ? cf[j] : lo;
+        }
+      }
+      const float a = hi - eta, b = lo - eta;
+      const float d = b - a;
+      const float lp_row = (log_sigmoid_k(a) + log_sigmoid_k(-b)) +
+                           logf(-expm1f(fminf(d, -1e-12f)));
+      const float inv_em = d < -1e-12f ? 1.0f / expm1f(a - b) : 0.0f;
+      const float s_na = 1.0f / (1.0f + expf(a));
+      const float s_b = 1.0f / (1.0f + expf(-b));
+      const float ga = s_na + inv_em, gb = -s_b - inv_em, geta = s_b - s_na;
+      acc[0] += static_cast<double>(lp_row);
+#pragma unroll
+      for (int j = 0; j < kMaxP; ++j)
+        if (j < p) acc[1 + j] += static_cast<double>(xr[j]) * static_cast<double>(geta);
+#pragma unroll
+      for (int j = 0; j < kMax; ++j) {
+        const int k = j - p;
+        if (j >= p && k < nc) {
+          if (k == y) acc[1 + j] += static_cast<double>(ga);
+          if (k + 1 == y) acc[1 + j] += static_cast<double>(gb);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) {  // priors and the Jacobian, on j's lane
+      if ((j >> 2) != r) continue;
+      if (j < p) {
+        acc[0] += static_cast<double>(-0.5f * (P[j] * P[j]));
+        acc[1 + j] += static_cast<double>(-P[j]);
+      } else if (j < p + nc) {
+        const float ch = cf[j] * 0.5f;
+        acc[0] += static_cast<double>(-0.5f * (ch * ch));
+        acc[1 + j] += static_cast<double>(-(ch * 0.5f));
+        if (j > p) acc[0] += static_cast<double>(P[j]);
+      }
+    }
+    group_sums_double<L>(acc);
+    // Through the Ordered bijector: d/du_k = exp(u_k) sum_{m >= k} g_c_m + 1
+    // for k >= 1, and the whole sum for k = 0.
+    float G[kMax], tail = 0.0f;
+#pragma unroll
+    for (int j = kMax - 1; j >= 0; --j) {
+      const float gc = static_cast<float>(acc[1 + j]);
+      if (j < p) {
+        G[j] = gc;
+      } else if (j < p + nc) {
+        tail = j == p + nc - 1 ? gc : gc + tail;
+        G[j] = j == p ? tail : expf(P[j]) * tail + 1.0f;
+      } else {
+        G[j] = 0.0f;
+      }
+    }
+    own_elements(G, r, g);
+    return static_cast<float>(acc[0]);
+  }
+};
+
+// Weibull AFT survival regression in its unconstrained space
+// (WeibullAFTLogJoint): elements beta [p], then u (the shape softplus(u));
+// p <= 8. Data rows (x_i [p], log s_i, event_i), s_i the event time or the
+// censor time. Constant p.
+template <int L>
+struct WeibullAFT {
+  static constexpr bool kCarried = true;
+  static constexpr int kMax = 9, kMaxP = 8;
+  const float* tab;
+  int n, r, p;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       int lane, int n_rows) {
+    tab = p0;
+    n = n_rows;
+    r = lane;
+    p = static_cast<int>(p1[0]);
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&x)[4],
+                                                  float (&g)[4]) const {
+    float P[kMax];
+    gather_row<L>(x, P);
+    float u = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) u = j == p ? P[j] : u;
+    const float k = softplus_k(u);
+    const float sg = sigmoid_k(u), sgm = sigmoid_k(-u);
+    const float logk = logf(k), ik = 1.0f / k, km1 = k - 1.0f;
+    double acc[1 + kMax];
+#pragma unroll
+    for (int s = 0; s <= kMax; ++s) acc[s] = 0.0;
+    const int stride = p + 2;
+    for (int i = r; i < n; i += L) {
+      const float* row = tab + static_cast<size_t>(i) * stride;
+      float xr[kMaxP];
+#pragma unroll
+      for (int j = 0; j < kMaxP; ++j) xr[j] = j < p ? row[j] : 0.0f;
+      float eta = P[0] * xr[0];
+#pragma unroll
+      for (int j = 1; j < kMaxP; ++j)
+        if (j < p) eta = eta + P[j] * xr[j];
+      const float ls = row[p], ev = row[p + 1];
+      const bool event = ev > 0.5f;
+      const float z = ls - eta;
+      const float e = expf(k * z);
+      const float lp_row = event ? ((logk - eta) + (k - 1.0f) * z) - e : -e;
+      const float rr = k * (e - ev);
+      const float dk = (event ? ik + z : 0.0f) - z * e;
+      acc[0] += static_cast<double>(lp_row);
+#pragma unroll
+      for (int j = 0; j < kMaxP; ++j)
+        if (j < p) acc[1 + j] += static_cast<double>(xr[j]) * static_cast<double>(rr);
+#pragma unroll
+      for (int j = 0; j < kMax; ++j)
+        if (j == p) acc[1 + j] += static_cast<double>(dk);
+    }
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) {  // priors and the Jacobian, on j's lane
+      if ((j >> 2) != r) continue;
+      if (j < p) {
+        acc[0] += static_cast<double>(-0.5f * (P[j] * P[j]));
+        acc[1 + j] += static_cast<double>(-P[j]);
+      } else if (j == p) {
+        acc[0] += static_cast<double>(-0.5f * (km1 * km1));
+        acc[0] += static_cast<double>(log_sigmoid_k(u));
+        acc[1 + j] += static_cast<double>(-km1);
+      }
+    }
+    group_sums_double<L>(acc);
+    float G[kMax];
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) {
+      const float gj = static_cast<float>(acc[1 + j]);
+      G[j] = j < p ? gj : j == p ? gj * sg + sgm : 0.0f;
+    }
+    own_elements(G, r, g);
+    return static_cast<float>(acc[0]);
   }
 };
 

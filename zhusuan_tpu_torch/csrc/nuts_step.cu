@@ -14,11 +14,19 @@
 // each merge, the full-tree U-turn check after a merge, and the divergence
 // rule (NaN energy, or H - H0 > max_delta_energy).
 //
-// The density is the built-in diagonal Gaussian
+// The density is a built-in (ops/nuts_step.py::DENSITIES), read through
+// pointers. The diagonal Gaussian
 //   log p(x) = sum_j -0.5 * (x_j - loc_j)^2 * inv_var_j,
-//   grad     = -(x - loc) * inv_var,
-// read through pointers. Its gradient is a function of x alone, so the
-// kernel recomputes it where the JAX package carries it (the edges' g).
+//   grad     = -(x - loc) * inv_var
+// has a gradient that is a function of x alone, so its body recomputes it
+// where the JAX package carries it (the edges' g). The built-ins over several
+// latents with data (csrc/densities.cuh: EightSchools, OrderedLogisticRegression,
+// WeibullAFT) sweep their data rows for each evaluation, so their body
+// carries the gradient as the JAX package does: the moving edge's in
+// registers, the far edge's in a shared row beside its (q, p), and one
+// evaluation of log p and its gradient a leaf. The body is one template over
+// the density (`Diagonal` or a data built-in); `if constexpr` keeps the
+// carried paths out of the diagonal instantiation.
 //
 // What bounds it on an H100: per leaf a chain does ~20 flops an element and
 // reads and writes nothing of device memory, so the kernel is bound by the
@@ -72,6 +80,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "densities.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -220,21 +229,34 @@ __host__ __device__ constexpr int checkpoint_slots(int depth) {
   return depth > 1 ? depth - 1 : 1;  // popcount(i >> 1) < D - 1 for i < 2^(D-1)
 }
 
-// Shared rows of a chain: the far edge (q, p) and the tree's proposal, then,
-// unless the stacks are in global memory, n_slots rows of checkpointed
-// momenta and n_slots rows of the subtree momentum sums before each
-// checkpoint.
-constexpr int kRowFarQ = 0, kRowFarP = 1, kRowProp = 2, kFixedRows = 3;
+// Shared rows of a chain: the far edge (q, p) and the tree's proposal (and
+// the far edge's gradient for a carried density), then, unless the stacks are
+// in global memory, n_slots rows of checkpointed momenta and n_slots rows of
+// the subtree momentum sums before each checkpoint.
+constexpr int kRowFarQ = 0, kRowFarP = 1, kRowProp = 2, kRowFarG = 3;
 
-__host__ __device__ constexpr int shared_rows(int depth, bool stacks_in_shared) {
-  return kFixedRows + (stacks_in_shared ? 2 * checkpoint_slots(depth) : 0);
+__host__ __device__ constexpr int fixed_rows(bool carried) { return carried ? 4 : 3; }
+
+__host__ __device__ constexpr int shared_rows(int depth, bool stacks_in_shared,
+                                              bool carried) {
+  return fixed_rows(carried) + (stacks_in_shared ? 2 * checkpoint_slots(depth) : 0);
 }
+
+// The diagonal Gaussian's tag: its body reads a.loc and a.inv_var itself.
+// The data built-ins of csrc/densities.cuh have kCarried = true: the body
+// carries their gradient.
+struct Diagonal {
+  static constexpr bool kCarried = false;
+};
 
 struct Args {
   const float* q;          // [c, d]
   const float* inv_mass;   // [d]
-  const float* loc;        // [d]
-  const float* inv_var;    // [d]
+  const float* loc;        // [d]  (diagonal Gaussian)
+  const float* inv_var;    // [d]  (diagonal Gaussian)
+  const float* dens_data;  // the data table of a carried density
+  const float* dens_consts;  // its constants
+  int n_rows;              // its data rows
   const float* step_size;  // [1]
   const float* eps;        // [c, d] injected normals, or null
   const float* u_dir;      // [c, D], or null
@@ -254,10 +276,13 @@ struct Args {
   uint8_t* out_divergent;
 };
 
-// L = lanes a chain; K = groups of 4 elements a lane (dim <= 4 L K).
-template <int L, int K>
+// L = lanes a chain; K = groups of 4 elements a lane (dim <= 4 L K); Dens
+// the density (Diagonal, or a data built-in at K = 1).
+template <int L, int K, class Dens>
 __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
   constexpr int E = 4 * K;
+  constexpr bool kCarried = Dens::kCarried;
+  static_assert(!kCarried || K == 1, "a carried density takes K = 1");
   constexpr int kChains = 32 / L;  // a block is one warp
   extern __shared__ float4 shared[];
   ZS_CLOCK(c_start);
@@ -276,11 +301,12 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
   const int n_slots = checkpoint_slots(max_depth);
   const bool stacks_in_shared = a.stacks == nullptr;
   float4* mine = shared + static_cast<size_t>(local) *
-                              shared_rows(max_depth, stacks_in_shared) * groups;
+                              shared_rows(max_depth, stacks_in_shared, kCarried) *
+                              groups;
   const Rows<L, K> fixed{mine, groups, r};
   const Rows<L, K> stack{
       stacks_in_shared
-          ? mine + kFixedRows * groups
+          ? mine + fixed_rows(kCarried) * groups
           : a.stacks + static_cast<size_t>(slot_chain) * 2 * n_slots * groups,
       groups, r};
   const int row_ckpt_psum = n_slots;  // stack rows: momenta, then sums
@@ -288,10 +314,13 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
   const float ss = *a.step_size;
   const float neg_inf = -INFINITY;
 
-  // Registers: the moving edge (x, p), the tree's and the subtree's
-  // momentum sums, the subtree's proposal, and the per-element constants.
-  // Padding elements are 0 everywhere, so they add nothing to any sum.
-  float x[E], p[E], psum[E], spsum[E], sprop[E], im[E], mu[E], w[E];
+  // Registers: the moving edge (x, p, and g for a carried density), the
+  // tree's and the subtree's momentum sums, the subtree's proposal, and the
+  // per-element constants. Padding elements are 0 everywhere, so they add
+  // nothing to any sum.
+  float x[E], p[E], psum[E], spsum[E], sprop[E], im[E], mu[E], w[E], g[E];
+  Dens dens;
+  if constexpr (kCarried) dens.load(a.dens_data, a.dens_consts, r, a.n_rows);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int grp = r + L * k;
@@ -313,17 +342,23 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
       const int j = grp * 4 + i;
       const bool ok = grp < groups && j < dim;
       im[e] = ok ? a.inv_mass[j] : 0.0f;
-      mu[e] = ok ? a.loc[j] : 0.0f;
-      w[e] = ok ? a.inv_var[j] : 0.0f;
+      if constexpr (!kCarried) {
+        mu[e] = ok ? a.loc[j] : 0.0f;
+        w[e] = ok ? a.inv_var[j] : 0.0f;
+      }
       x[e] = ok ? a.q[row0 + j] : 0.0f;
       p[e] = ok ? nrm[i] / sqrtf(im[e]) : 0.0f;  // p0 = eps / sqrt(inv_mass)
       psum[e] = p[e];
     }
   }
+  // The log-density and gradient at the start (a carried density).
+  float lp_start = 0.0f;
+  if constexpr (kCarried) lp_start = dens.value_and_grad(x, g);
   // The registers hold the right edge, the far rows the left one.
   fixed.store(kRowFarQ, x);
   fixed.store(kRowFarP, p);
   fixed.store(kRowProp, x);
+  if constexpr (kCarried) fixed.store(kRowFarG, g);
   bool far_is_right = false;
 
   // The direction uniforms (lanes 0-2 of a group: groups 0-2 of the row) and
@@ -345,13 +380,16 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
   // kinetic energy sum((p * p) * inv_mass): each product fused into its sum
   // (fmaf), two sums a part to halve the dependent adds. The -0.5 of log p
   // is applied to the total (a power of 2: exact).
+  // A carried density has its log p from value_and_grad: quad is 0.
   auto energy_parts = [&](float* quad, float* kin) {
     float s0 = 0.0f, s1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
 #pragma unroll
     for (int e = 0; e < E; e += 2) {
-      const float z0 = x[e] - mu[e], z1 = x[e + 1] - mu[e + 1];
-      s0 = __fmaf_rn(z0 * z0, w[e], s0);
-      s1 = __fmaf_rn(z1 * z1, w[e + 1], s1);
+      if constexpr (!kCarried) {
+        const float z0 = x[e] - mu[e], z1 = x[e + 1] - mu[e + 1];
+        s0 = __fmaf_rn(z0 * z0, w[e], s0);
+        s1 = __fmaf_rn(z1 * z1, w[e + 1], s1);
+      }
       b0 = __fmaf_rn(p[e] * p[e], im[e], b0);
       b1 = __fmaf_rn(p[e + 1] * p[e + 1], im[e + 1], b1);
     }
@@ -362,7 +400,7 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
   float part0[2];
   energy_parts(&part0[0], &part0[1]);
   group_sums<L, 2>(part0);
-  const float lp0 = -0.5f * part0[0];
+  const float lp0 = kCarried ? lp_start : -0.5f * part0[0];
   const float h0 = -lp0 + 0.5f * part0[1];
   float lp_prop = lp0, h_prop = h0, logw = -h0, sum_alpha = 0.0f;
   int depth = 0, n_leap = 0;
@@ -384,6 +422,13 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
       for (int e = 0; e < E; ++e) {
         x[e] = fq[e];
         p[e] = fp[e];
+      }
+      if constexpr (kCarried) {
+        float fg[E];
+        fixed.load(kRowFarG, fg);
+        fixed.store(kRowFarG, g);
+#pragma unroll
+        for (int e = 0; e < E; ++e) g[e] = fg[e];
       }
       far_is_right = !right;
     }
@@ -408,12 +453,26 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
       const float log_u = __shfl_sync(kFull, pick(lu, j & 3), (j >> 2) - g0, L);
       ZS_CLOCK(c_uniform);
 
-      // One leapfrog step; grad = -(x - loc) * inv_var at either end.
+      // One leapfrog step: for the diagonal Gaussian grad = -(x - loc) *
+      // inv_var at either end; a carried density evaluates log p and its
+      // gradient once, at the new x.
+      float lp_leaf = 0.0f;
+      if constexpr (kCarried) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        p[e] = p[e] + half_eps * (-(x[e] - mu[e]) * w[e]);
-        x[e] = x[e] + (eps * p[e]) * im[e];
-        p[e] = p[e] + half_eps * (-(x[e] - mu[e]) * w[e]);
+        for (int e = 0; e < E; ++e) {
+          p[e] = p[e] + half_eps * g[e];
+          x[e] = x[e] + (eps * p[e]) * im[e];
+        }
+        lp_leaf = dens.value_and_grad(x, g);
+#pragma unroll
+        for (int e = 0; e < E; ++e) p[e] = p[e] + half_eps * g[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          p[e] = p[e] + half_eps * (-(x[e] - mu[e]) * w[e]);
+          x[e] = x[e] + (eps * p[e]) * im[e];
+          p[e] = p[e] + half_eps * (-(x[e] - mu[e]) * w[e]);
+        }
       }
       ZS_CLOCK(c_leapfrog);
 
@@ -462,7 +521,7 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
       ZS_CLOCK(c_sums);
       leaf_sums<L>(part, ones);
       ZS_CLOCK(c_butterfly);
-      const float lp = -0.5f * part[0];
+      const float lp = kCarried ? lp_leaf : -0.5f * part[0];
       const float h = -lp + 0.5f * part[1];
       const float delta = h - h0;
       const bool div = isnan(delta) || delta > a.max_delta_energy;
@@ -573,18 +632,18 @@ __global__ void __launch_bounds__(32) fused_nuts_kernel(const Args a) {
 // The dynamic shared memory a launch asks for is checked by
 // cudaFuncSetAttribute against the device's per-block limit (the wrapper's
 // layout rule keeps under it).
-template <int L, int K>
+template <int L, int K, class Dens = Diagonal>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int kChains = 32 / L;
   const size_t bytes = static_cast<size_t>(kChains) *
-                       shared_rows(a.max_depth, a.stacks == nullptr) *
+                       shared_rows(a.max_depth, a.stacks == nullptr, Dens::kCarried) *
                        ((a.dim + 3) / 4) * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<L, K>,
+  cudaError_t err = cudaFuncSetAttribute(fused_nuts_kernel<L, K, Dens>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (static_cast<long long>(a.n_chains) + kChains - 1) / kChains;
-  fused_nuts_kernel<L, K><<<static_cast<unsigned>(blocks), 32, bytes, stream>>>(a);
+  fused_nuts_kernel<L, K, Dens><<<static_cast<unsigned>(blocks), 32, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -610,6 +669,44 @@ int dispatch(const Args& a, cudaStream_t stream) {
 #endif
 }
 
+template <int L>
+using EightSchoolsNonCentred = zs::EightSchools<L, false>;
+template <int L>
+using EightSchoolsCentred = zs::EightSchools<L, true>;
+
+// A carried density: one group of 4 elements a lane (its rows have at most
+// 16 elements, on lanes 0-3), and the lanes of a chain split the data rows:
+// 8 lanes a chain up to kRowsFor32 rows, 32 above (the butterfly's two more
+// levels cost less than the rows they take off each lane). A measurement
+// build fixes the width with -DZS_NUTS_DATA_LANES=L.
+constexpr int kRowsFor32 = 32;
+
+template <template <int> class D>
+int launch_data(const Args& a, cudaStream_t stream) {
+  if (a.dim > D<8>::kMax) return static_cast<int>(cudaErrorInvalidValue);
+#ifdef ZS_NUTS_DATA_LANES
+  return launch<ZS_NUTS_DATA_LANES, 1, D<ZS_NUTS_DATA_LANES>>(a, stream);
+#else
+  if (a.n_rows > kRowsFor32) return launch<32, 1, D<32>>(a, stream);
+  return launch<8, 1, D<8>>(a, stream);
+#endif
+}
+
+int dispatch_carried(int density, const Args& a, cudaStream_t stream) {
+  switch (density) {
+    case zs::kEightSchools:
+      return launch_data<EightSchoolsNonCentred>(a, stream);
+    case zs::kEightSchoolsCentred:
+      return launch_data<EightSchoolsCentred>(a, stream);
+    case zs::kOrderedLogisticRegression:
+      return launch_data<zs::OrderedLogisticRegression>(a, stream);
+    case zs::kWeibullAFT:
+      return launch_data<zs::WeibullAFT>(a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* zs_cuda_error_string(int code) {
@@ -626,36 +723,25 @@ extern "C" int zs_nuts_clocks(void* host_out) {
 }
 #endif
 
-// Plain C entry point. Pointers are device pointers; q, inv_mass [dim], loc,
-// inv_var, step_size [1] and the noise are float32. eps [n, dim], u_dir
-// [n, D], u_leaf [n, 2^D - 1] and u_merge [n, D] are all null (the kernel
-// then draws them from Philox keyed by (key0, key1) with counter (t, chain,
-// group, stream)) or all given. dim <= 512. stacks is null (the checkpoint
-// stacks in shared memory) or a float32 scratch buffer of (n + 3) * 2 *
-// max(D - 1, 1) * ceil(dim / 4) * 4 elements, 16-byte aligned.
-// Outputs: out_q [n, dim], out_lp, out_h, out_acc [n] float32, out_depth,
-// out_n_leap [n] int32, out_turning, out_divergent [n] one byte each.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int zs_fused_nuts_transition(
-    const void* q, const void* inv_mass, const void* loc, const void* inv_var,
-    const void* step_size, const void* eps, const void* u_dir, const void* u_leaf,
-    const void* u_merge, int n_chains, int dim, int max_depth,
-    float max_delta_energy, uint32_t key0, uint32_t key1, uint32_t t, void* stacks,
-    void* out_q, void* out_lp, void* out_h, void* out_acc, void* out_depth,
-    void* out_n_leap, void* out_turning, void* out_divergent, void* stream) {
-  const bool noise_ok = (eps == nullptr && u_dir == nullptr && u_leaf == nullptr &&
-                         u_merge == nullptr) ||
-                        (eps != nullptr && u_dir != nullptr && u_leaf != nullptr &&
-                         u_merge != nullptr);
-  if (n_chains < 1 || dim < 1 || dim > kMaxDim || max_depth < 1 ||
-      max_depth > kMaxDepth || !noise_ok)
-    return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+bool noise_ok(const void* eps, const void* u_dir, const void* u_leaf,
+              const void* u_merge) {
+  return (eps == nullptr && u_dir == nullptr && u_leaf == nullptr && u_merge == nullptr) ||
+         (eps != nullptr && u_dir != nullptr && u_leaf != nullptr && u_merge != nullptr);
+}
+
+Args make_args(const void* q, const void* inv_mass, const void* step_size,
+               const void* eps, const void* u_dir, const void* u_leaf,
+               const void* u_merge, int n_chains, int dim, int max_depth,
+               float max_delta_energy, uint32_t key0, uint32_t key1, uint32_t t,
+               void* stacks, void* out_q, void* out_lp, void* out_h, void* out_acc,
+               void* out_depth, void* out_n_leap, void* out_turning,
+               void* out_divergent) {
   const auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
   Args a{};
   a.q = f(q);
   a.inv_mass = f(inv_mass);
-  a.loc = f(loc);
-  a.inv_var = f(inv_var);
   a.step_size = f(step_size);
   a.eps = f(eps);
   a.u_dir = f(u_dir);
@@ -677,5 +763,61 @@ extern "C" int zs_fused_nuts_transition(
   a.out_n_leap = static_cast<int*>(out_n_leap);
   a.out_turning = static_cast<uint8_t*>(out_turning);
   a.out_divergent = static_cast<uint8_t*>(out_divergent);
+  return a;
+}
+
+}  // namespace
+
+// Plain C entry point of the diagonal Gaussian. Pointers are device pointers;
+// q, inv_mass [dim], loc, inv_var, step_size [1] and the noise are float32.
+// eps [n, dim], u_dir [n, D], u_leaf [n, 2^D - 1] and u_merge [n, D] are all
+// null (the kernel then draws them from Philox keyed by (key0, key1) with
+// counter (t, chain, group, stream)) or all given. dim <= 512. stacks is null
+// (the checkpoint stacks in shared memory) or a float32 scratch buffer of
+// (n + 3) * 2 * max(D - 1, 1) * ceil(dim / 4) * 4 elements, 16-byte aligned.
+// Outputs: out_q [n, dim], out_lp, out_h, out_acc [n] float32, out_depth,
+// out_n_leap [n] int32, out_turning, out_divergent [n] one byte each.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int zs_fused_nuts_transition(
+    const void* q, const void* inv_mass, const void* loc, const void* inv_var,
+    const void* step_size, const void* eps, const void* u_dir, const void* u_leaf,
+    const void* u_merge, int n_chains, int dim, int max_depth,
+    float max_delta_energy, uint32_t key0, uint32_t key1, uint32_t t, void* stacks,
+    void* out_q, void* out_lp, void* out_h, void* out_acc, void* out_depth,
+    void* out_n_leap, void* out_turning, void* out_divergent, void* stream) {
+  if (n_chains < 1 || dim < 1 || dim > kMaxDim || max_depth < 1 ||
+      max_depth > kMaxDepth || !noise_ok(eps, u_dir, u_leaf, u_merge))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(q, inv_mass, step_size, eps, u_dir, u_leaf, u_merge, n_chains,
+                     dim, max_depth, max_delta_energy, key0, key1, t, stacks, out_q,
+                     out_lp, out_h, out_acc, out_depth, out_n_leap, out_turning,
+                     out_divergent);
+  a.loc = static_cast<const float*>(loc);
+  a.inv_var = static_cast<const float*>(inv_var);
   return dispatch(a, static_cast<cudaStream_t>(stream));
+}
+
+// The same transition on a built-in density over several latents with data
+// (density: zs::DensityId 3-6, csrc/densities.cuh): data is its float32 table
+// of n_rows rows, consts its float32 constants, dim <= 16; the stacks' scratch
+// buffer as above. The rest as zs_fused_nuts_transition.
+extern "C" int zs_fused_nuts_transition_data(
+    int density, const void* data, const void* consts, int n_rows, const void* q,
+    const void* inv_mass, const void* step_size, const void* eps, const void* u_dir,
+    const void* u_leaf, const void* u_merge, int n_chains, int dim, int max_depth,
+    float max_delta_energy, uint32_t key0, uint32_t key1, uint32_t t, void* stacks,
+    void* out_q, void* out_lp, void* out_h, void* out_acc, void* out_depth,
+    void* out_n_leap, void* out_turning, void* out_divergent, void* stream) {
+  if (n_chains < 1 || dim < 1 || max_depth < 1 || max_depth > kMaxDepth ||
+      n_rows < 1 || data == nullptr || consts == nullptr ||
+      !noise_ok(eps, u_dir, u_leaf, u_merge))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(q, inv_mass, step_size, eps, u_dir, u_leaf, u_merge, n_chains,
+                     dim, max_depth, max_delta_energy, key0, key1, t, stacks, out_q,
+                     out_lp, out_h, out_acc, out_depth, out_n_leap, out_turning,
+                     out_divergent);
+  a.dens_data = static_cast<const float*>(data);
+  a.dens_consts = static_cast<const float*>(consts);
+  a.n_rows = n_rows;
+  return dispatch_carried(density, a, static_cast<cudaStream_t>(stream));
 }

@@ -5,10 +5,9 @@ Port of ``zhusuan_tpu/framework/bn.py`` (parity: reference
 ``BayesianNet`` with ``stochastic``/``deterministic``/``get``/
 ``cond_log_prob``/``log_joint`` (bn.py:319-497), the compatibility queries
 ``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and the sugar
-methods of every distribution of ``univariate.py`` and ``multivariate.py``
-(21 methods and 6 aliases, in the JAX package's order); those of
-``extra.py``, ``special.py`` and ``mixture.py`` come with their
-distributions.
+methods of every distribution of ``univariate.py``, ``multivariate.py``,
+``extra.py`` and ``mixture.py`` (34 methods and 6 aliases, in the JAX
+package's order); ``implicit`` and ``empirical`` come with ``special.py``.
 
 Randomness: a net's ``key`` is an int seed. Each unobserved node draws from
 its own ``torch.Generator`` on its distribution's device, seeded from
@@ -558,6 +557,151 @@ class BayesianNet(Context):
             check_numerics=check_numerics, **kwargs)
         return self.stochastic(name, dist, n_samples=n_samples)
 
+    # -- heads beyond the reference (distributions/extra.py) ---------- #
+    def student_t(
+        self, name, df, loc=0.0, scale=1.0, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a StudentT node (beyond reference)."""
+        dist = distributions.StudentT(
+            df, loc, scale, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def exponential(
+        self, name, rate, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add an Exponential node (beyond reference)."""
+        dist = distributions.Exponential(
+            rate, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def cauchy(
+        self, name, loc, scale, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Cauchy node (beyond reference)."""
+        dist = distributions.Cauchy(
+            loc, scale, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def half_cauchy(
+        self, name, scale, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a HalfCauchy node (beyond reference)."""
+        dist = distributions.HalfCauchy(
+            scale, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def log_normal(
+        self, name, mean=0.0, scale=1.0, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a LogNormal node (beyond reference)."""
+        dist = distributions.LogNormal(
+            mean, scale, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def negative_binomial(
+        self, name, logits, total_count, dtype=None, group_ndims=0,
+        n_samples=None, check_numerics=False, **kwargs,
+    ):
+        """Add a NegativeBinomial node (beyond reference)."""
+        dist = distributions.NegativeBinomial(
+            logits, total_count,
+            dtype=torch.int32 if dtype is None else dtype,
+            group_ndims=group_ndims, check_numerics=check_numerics,
+            **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def truncated_normal(
+        self, name, loc, scale, low, high, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a TruncatedNormal node (beyond reference)."""
+        dist = distributions.TruncatedNormal(
+            loc, scale, low, high, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def weibull(
+        self, name, concentration, scale, group_ndims=0, n_samples=None,
+        is_reparameterized=True, use_path_derivative=False,
+        check_numerics=False, **kwargs,
+    ):
+        """Add a Weibull node (beyond reference)."""
+        dist = distributions.Weibull(
+            concentration, scale, group_ndims=group_ndims,
+            is_reparameterized=is_reparameterized,
+            use_path_derivative=use_path_derivative,
+            check_numerics=check_numerics, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def right_censored(
+        self, name, base, upper, group_ndims=0, n_samples=None, **kwargs,
+    ):
+        """Add a RightCensored node wrapping a distribution instance
+        (beyond reference; the survival observation model)."""
+        dist = distributions.RightCensored(
+            base, upper, group_ndims=group_ndims, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def beta_binomial(
+        self, name, n_experiments, alpha, beta, dtype=None, group_ndims=0,
+        n_samples=None, check_numerics=False, **kwargs,
+    ):
+        """Add a BetaBinomial node (beyond reference)."""
+        dist = distributions.BetaBinomial(
+            n_experiments, alpha, beta,
+            dtype=torch.int32 if dtype is None else dtype,
+            group_ndims=group_ndims, check_numerics=check_numerics,
+            **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def ordered_logistic(
+        self, name, eta, cutpoints, dtype=None, group_ndims=0,
+        n_samples=None, **kwargs,
+    ):
+        """Add an OrderedLogistic node (beyond reference)."""
+        dist = distributions.OrderedLogistic(
+            eta, cutpoints, dtype=torch.int32 if dtype is None else dtype,
+            group_ndims=group_ndims, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
+    def zero_inflated(
+        self, name, base, pi_logits, group_ndims=0, n_samples=None,
+        **kwargs,
+    ):
+        """Add a ZeroInflated node wrapping a count distribution instance
+        (beyond reference)."""
+        dist = distributions.ZeroInflated(
+            base, pi_logits, group_ndims=group_ndims, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)
+
     def bin_concrete(
         self, name, temperature, logits, group_ndims=0, n_samples=None,
         is_reparameterized=True, use_path_derivative=False,
@@ -602,3 +746,14 @@ class BayesianNet(Context):
         return self.stochastic(name, dist, n_samples=n_samples)
 
     gumbel_softmax = concrete
+
+    def mixture(
+        self, name, logits, components, group_ndims=0, n_samples=None,
+        **kwargs,
+    ):
+        """Add a finite Mixture node (beyond the reference): ``logits``
+        over the last batch axis of the K-batched ``components``
+        distribution; the assignment is marginalized in ``log_prob``."""
+        dist = distributions.Mixture(
+            logits, components, group_ndims=group_ndims, **kwargs)
+        return self.stochastic(name, dist, n_samples=n_samples)

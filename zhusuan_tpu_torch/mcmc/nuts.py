@@ -20,12 +20,18 @@ and the kernel's plain version
 (:func:`~zhusuan_tpu_torch.ops.nuts_step.fused_nuts_transition_reference`)
 both run it.
 
-On a CUDA device, a single ``[n_chains, dim]`` float32 latent under the
-built-in :class:`~zhusuan_tpu_torch.ops.densities.DiagonalGaussianLogJoint`
-(the one built-in the NUTS kernel evaluates) takes the hand-written CUDA
-kernel (:func:`~zhusuan_tpu_torch.ops.nuts_step.fused_nuts_transition`)
-for the whole tree, at every depth from 1 to 12; everything else takes the
-plain path. The state is the port's
+On a CUDA device, a log-joint that is one of the NUTS kernel's built-in
+densities (:data:`~zhusuan_tpu_torch.ops.nuts_step.DENSITIES`) takes the
+hand-written CUDA kernel
+(:func:`~zhusuan_tpu_torch.ops.nuts_step.fused_nuts_transition`) for the
+whole tree, at every depth from 1 to 12: the diagonal Gaussian over a
+single ``[n_chains, dim]`` float32 latent, or a built-in over several
+latents (:class:`~zhusuan_tpu_torch.ops.densities.LatentDictDensity`)
+whose names are the latent dict's, each ``[n_chains]`` plus its shape in
+float32, with no observed leaf but the data it holds. The latents are
+raveled in sorted-name order, as the JAX package's NUTS gate flattens them
+(``zhusuan_tpu/mcmc/nuts.py:534-572``). Everything else takes the plain
+path. The state is the port's
 :class:`~zhusuan_tpu_torch.mcmc.hmc.HMCState` (``t`` a host int), so
 ``state_from_numpy`` / ``state_to_numpy`` carry a JAX NUTS state
 unchanged.
@@ -51,7 +57,7 @@ from zhusuan_tpu_torch.mcmc.hmc import (
     use_kernel,
 )
 from zhusuan_tpu_torch.ops._random import as_key, iteration_generator
-from zhusuan_tpu_torch.ops.densities import BuiltinDensity
+from zhusuan_tpu_torch.ops.densities import BuiltinDensity, LatentDictDensity
 from zhusuan_tpu_torch.ops.nuts_step import (
     DENSITIES,
     MAX_DIM,
@@ -315,6 +321,48 @@ def nuts_transition(vag, q0, inv_mass, step_size, max_tree_depth: int,
             diverging)
 
 
+def latent_dict_ineligible(density, observed, q, mass, n_chain_dims,
+                           max_tree_depth, wants):
+    """Why the NUTS kernel cannot take a transition on the latent dict
+    ``q`` under ``density``, a built-in over several latents (None if it
+    can): the NUTS counterpart of
+    :func:`~zhusuan_tpu_torch.mcmc.hmc.builtin_density_ineligible`, which
+    HMC, ChEES and SGMCMC keep (one latent, as the JAX HMC gate). The
+    latents must be the density's, each ``[n_chains]`` plus its shape, in
+    float32 with a ``[1, ...]`` float32 mass; an observed leaf must be data
+    the density holds."""
+    if not isinstance(density, DENSITIES):
+        return "the log-joint must be one of the built-in densities {}".format(
+            ", ".join(c.__name__ for c in DENSITIES))
+    if sorted(q) != list(density.names):
+        return "the latents must be the built-in density's {}; got {}".format(
+            list(density.names), sorted(q))
+    for k, v in (observed or {}).items():
+        if not density.holds(k, v):
+            return ("the observed leaf {!r} is not data the built-in density "
+                    "holds".format(k))
+    if n_chain_dims != 1:
+        return "the latents must have one chain axis"
+    n_chains = None
+    for k in density.names:
+        x, shape = q[k], density.shapes[k]
+        if (x.dtype != torch.float32 or x.ndim != 1 + len(shape)
+                or tuple(x.shape[1:]) != shape
+                or x.shape[0] != (n_chains or x.shape[0])):
+            return ("latent {!r} must be [n_chains] + {} float32; got {} "
+                    "{}".format(k, list(shape), tuple(x.shape), x.dtype))
+        n_chains = x.shape[0]
+        if mass is not None and (tuple(mass[k].shape) != (1,) + shape
+                                 or mass[k].dtype != torch.float32):
+            return "the mass of {!r} must be [1] + {} float32".format(
+                k, list(shape))
+    if not nuts_step_supported((n_chains, density.dim), max_tree_depth,
+                               torch.float32):
+        return "the flattened latents must be {}; got [{}, {}]".format(
+            wants, n_chains, density.dim)
+    return density.kernel_ineligible()
+
+
 class NUTS:
     """No-U-Turn Sampler with multinomial trajectory sampling.
 
@@ -406,12 +454,15 @@ class NUTS:
     def _fused_ineligible(self, meta_bn, observed, q, mass, n_chain_dims):
         """Why the kernel cannot take this transition (None if it can)."""
         depth = self.max_tree_depth
+        wants = ("float32 with dim <= {} at 1 <= max_tree_depth <= {} (depth "
+                 "{})".format(MAX_DIM, MAX_TREE_DEPTH, depth))
+        if isinstance(meta_bn, LatentDictDensity):
+            return latent_dict_ineligible(meta_bn, observed, q, mass,
+                                          n_chain_dims, depth, wants)
         return builtin_density_ineligible(
             meta_bn, observed, q, mass, n_chain_dims,
             lambda shape, dtype: nuts_step_supported(shape, depth, dtype),
-            DENSITIES,
-            "float32 with dim <= {} at 1 <= max_tree_depth <= {} (depth "
-            "{})".format(MAX_DIM, MAX_TREE_DEPTH, depth))
+            DENSITIES, wants)
 
     def _use_fused_step(self, meta_bn, observed, q, mass, n_chain_dims):
         return use_kernel(self.experimental_fused_step, q,
@@ -427,6 +478,11 @@ class NUTS:
         if (len(q) == 1 and isinstance(meta_bn, BuiltinDensity)
                 and meta_bn.name in q):
             return tuple(q[meta_bn.name].shape[:-1])
+        if (isinstance(meta_bn, LatentDictDensity)
+                and sorted(q) == list(meta_bn.names)):
+            first = q[meta_bn.names[0]]
+            return tuple(first.shape[:first.ndim - len(
+                meta_bn.shapes[meta_bn.names[0]])])
         chain_shape = tuple(log_post(q).shape)
         n = len(chain_shape)
         if n:
@@ -503,10 +559,10 @@ class NUTS:
 
         if self._use_fused_step(meta_bn, observed, state.q, mass,
                                 n_chain_dims):
-            ((name, x),) = state.q.items()
             outs = fused_nuts_transition(
-                meta_bn, x, inv_mass[None, :], eps, D,
-                self.max_delta_energy, as_key(key), new_t, noise=noise)
+                meta_bn, flat.ravel(state.q, (n_chains,)), inv_mass[None, :],
+                eps, D, self.max_delta_energy, as_key(key), new_t,
+                noise=noise)
         else:
             q_flat = flat.ravel(q, (n_chains,))
 

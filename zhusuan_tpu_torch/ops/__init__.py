@@ -39,9 +39,13 @@ from zhusuan_tpu_torch.ops.chees_step import (
 from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
     DiagonalGaussianLogJoint,
+    EightSchoolsLogJoint,
     EquicorrelatedGaussianLogJoint,
+    LatentDictDensity,
+    OrderedLogisticRegressionLogJoint,
     TemperedLogJoint,
     Toy2DLogJoint,
+    WeibullAFTLogJoint,
 )
 from zhusuan_tpu_torch.ops.hmc_step import (
     fused_hmc_step,
@@ -96,9 +100,13 @@ from zhusuan_tpu_torch.ops.sgnht_step import (
 __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
+    "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "LatentDictDensity",
+    "OrderedLogisticRegressionLogJoint",
     "TemperedLogJoint",
     "Toy2DLogJoint",
+    "WeibullAFTLogJoint",
     "advi_layout",
     "advi_step_supported",
     "check_numerics",

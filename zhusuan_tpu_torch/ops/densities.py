@@ -17,6 +17,12 @@ kernel takes (``DENSITIES``); any other log-joint takes the plain path.
 - :class:`TemperedLogJoint`: the tempered bridge ``(1 - beta) log p0 +
   beta log p1`` between two of the Gaussians above, ``beta`` a device
   scalar; annealed SMC's HMC moves take it, and K1 alone evaluates it.
+- :class:`EightSchoolsLogJoint`, :class:`OrderedLogisticRegressionLogJoint`
+  and :class:`WeibullAFTLogJoint` (:class:`LatentDictDensity`): the
+  unconstrained posteriors of ``examples/hierarchical/eight_schools.py``,
+  ``examples/robust_models/ordinal_regression.py`` and
+  ``survival_regression.py``, over several latents and with the data they
+  hold; the NUTS kernel alone evaluates them.
 
 Beside ``log_prob`` (plain torch ops, differentiable by autograd) each has
 ``value_and_grad``: the log-density and its gradient written out in the
@@ -27,16 +33,22 @@ trainer's kernel and its plain version both evaluate.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 __all__ = [
     "BuiltinDensity",
     "DiagonalGaussianLogJoint",
+    "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "LatentDictDensity",
+    "OrderedLogisticRegressionLogJoint",
     "TemperedLogJoint",
     "Toy2DLogJoint",
+    "WeibullAFTLogJoint",
 ]
 
 
@@ -314,3 +326,426 @@ class _EquicorrelatedLogProb(torch.autograd.Function):
         r = x - (s * inv_d)[..., None]
         grad = -(a * r + (c * s)[..., None])
         return g[..., None] * grad, None, None, None
+
+
+# -- built-ins over several latents, with data ------------------------- #
+# The elementwise helpers below are written as csrc/densities.cuh writes
+# them (softplus as max(u, 0) + log1p(exp(-|u|)), the logistic as
+# 1 / (1 + exp(-u))), so that a float32 evaluation on the card gives the
+# kernel's bits.
+
+
+def _softplus(u):
+    return torch.clamp(u, min=0.0) + torch.log1p(torch.exp(-torch.abs(u)))
+
+
+def _log_sigmoid(u):
+    return -(torch.clamp(-u, min=0.0) + torch.log1p(torch.exp(-torch.abs(u))))
+
+
+def _sigmoid(u):
+    return 1.0 / (1.0 + torch.exp(-u))
+
+
+def _sum64(x):
+    """The sum over the last axis in float64 (rounded by the caller once,
+    with the other terms of the same total)."""
+    return torch.sum(x, -1, dtype=torch.float64)
+
+
+def _host64(v):
+    """``v`` (a tensor, array or list) as a float64 CPU tensor of its own."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device="cpu", dtype=torch.float64)
+    return torch.tensor(np.array(v, dtype=np.float64))
+
+
+def _x_dot64(table_x, r):
+    """``sum_i x[i, j] r[..., i]`` in float64: each product of two float32
+    values is exact in double, and the sum is rounded by the caller once."""
+    return torch.sum(r.double()[..., :, None] * table_x.double(), dim=-2)
+
+
+class LatentDictDensity(BuiltinDensity):
+    """A built-in log-density over several latents, with the data it holds.
+
+    The NUTS sampler ravels a latent dict into one row a chain, in sorted
+    name order (:class:`~zhusuan_tpu_torch.mcmc.nuts._Flattener`, the JAX
+    package's ``_Flattener``); :meth:`log_prob` and :meth:`value_and_grad`
+    take that row, and calling the density on a latent dict ravels it so.
+    ``log_prob``'s gradient is the one written out in the kernel's
+    arithmetic (:meth:`value_and_grad`), not autograd's. Every sum over the
+    data, and the prior and Jacobian terms of the same total, is
+    accumulated in float64 and rounded once, as the kernel accumulates its
+    lanes' partial sums in double: the two then agree whatever their order
+    of addition.
+
+    The data reach the kernel as two float32 arrays (:meth:`kernel_args`):
+    a table of ``n_rows`` rows and a few constants.
+
+    :param shapes: ``{latent name: shape without the chain axis}``.
+    :param held: ``{name: tensor}`` of the observations the density holds
+        itself; a sampler's ``observed`` may name them (with these very
+        tensors), and no other leaf.
+    """
+
+    def __init__(self, shapes: Dict[str, Tuple[int, ...]], held=None):
+        names = tuple(sorted(shapes))
+        sizes = {k: int(np.prod(shapes[k], dtype=np.int64)) for k in names}
+        super().__init__(None, sum(sizes.values()))
+        self.names = names
+        self.shapes = {k: tuple(shapes[k]) for k in names}
+        self.sizes = sizes
+        self.held = dict(held or {})
+        self._tables = {}
+
+    @property
+    def n_rows(self) -> int:
+        """Rows of the data table."""
+        return int(self._params()[0].shape[0])
+
+    def kernel_ineligible(self) -> Optional[str]:
+        """Why the NUTS kernel cannot evaluate this instance (None if it
+        can): the limits of its device side (``csrc/densities.cuh``)."""
+        return None
+
+    def holds(self, name, value) -> bool:
+        """Whether ``value`` is the observation ``name`` this density
+        holds."""
+        return name in self.held and value is self.held[name]
+
+    def ravel(self, obs) -> torch.Tensor:
+        """The latents of ``obs`` as one ``[..., dim]`` row in sorted-name
+        order; a key that is neither a latent nor a held observation
+        raises."""
+        for k, v in obs.items():
+            if k not in self.shapes and not self.holds(k, v):
+                raise ValueError(
+                    "{} holds its data; {!r} is neither one of its latents "
+                    "{} nor an observation it holds.".format(
+                        type(self).__name__, k, list(self.names)))
+        first = torch.as_tensor(obs[self.names[0]])
+        lead = tuple(first.shape[:first.ndim - len(self.shapes[
+            self.names[0]])])
+        return torch.cat([
+            torch.as_tensor(obs[k]).reshape(lead + (self.sizes[k],))
+            for k in self.names], dim=-1)
+
+    def __call__(self, obs):
+        return self.log_prob(self.ravel(obs))
+
+    def log_prob(self, x):
+        return _LatentDictLogProb.apply(x, self)
+
+    def _table(self, dtype, device):
+        """The data table and constants in ``dtype`` on ``device``
+        (cached): the float32 values the kernel reads, at float32."""
+        key = (str(device), dtype)
+        if key not in self._tables:
+            table, consts = self._params()
+            self._tables[key] = (
+                table.to(device=device, dtype=dtype),
+                [float(torch.tensor(float(c), dtype=dtype))
+                 for c in consts])
+        return self._tables[key]
+
+
+class _LatentDictLogProb(torch.autograd.Function):
+    """``density.value_and_grad``'s value, with its written-out gradient as
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, x, density):
+        lp, g = density.value_and_grad(x)
+        ctx.save_for_backward(g)
+        return lp
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        (g,) = ctx.saved_tensors
+        return gout[..., None] * g, None
+
+
+class EightSchoolsLogJoint(LatentDictDensity):
+    """The eight-schools posterior of ``examples/hierarchical/
+    eight_schools.py`` in its unconstrained space: ``transform_log_joint(
+    make_log_joint(), {"tau": Softplus()})[0]`` (or of
+    ``make_centered_log_joint`` when ``centered``), Jacobian included.
+
+    Latents, in sorted order: ``mu`` and ``tau`` (scalars a chain; ``tau``
+    unconstrained, the scale is ``softplus(tau)``), then ``theta_tilde``
+    (non-centred, ``theta = mu + scale * theta_tilde``) or ``theta``
+    (centred), ``[J]``. The density: ``mu ~ N(0, 100)`` (without its
+    constant), ``scale ~ HalfCauchy(5)``, ``theta_tilde ~ N(0, 1)`` or
+    ``theta ~ N(mu, scale)`` (with ``-log scale``), ``y_j ~ N(theta_j,
+    sigma_j)`` (without constants), plus ``log sigmoid(tau)``.
+
+    Data table ``[J, 2]``: ``y_j`` and ``1 / sigma_j``; constants
+    ``(log(2/pi) - log 5, 1/5, 1/100)``.
+    """
+
+    #: Largest J the kernel takes (``2 + J <= 16`` elements a row).
+    MAX_SCHOOLS = 14
+
+    def __init__(self, y, sigma, centered: bool = False):
+        y, sigma = _host64(y), _host64(sigma)
+        if y.ndim != 1 or sigma.shape != y.shape or y.shape[0] < 1:
+            raise ValueError(
+                "y and sigma must be 1-D of one length; got {} and "
+                "{}.".format(tuple(y.shape), tuple(sigma.shape)))
+        self.centered = bool(centered)
+        self.theta_name = "theta" if self.centered else "theta_tilde"
+        super().__init__({"mu": (), "tau": (),
+                          self.theta_name: (y.shape[0],)})
+        self.y, self.sigma = y, sigma
+        self.kernel_id = 4 if self.centered else 3
+
+    def kernel_ineligible(self):
+        if self.y.shape[0] > self.MAX_SCHOOLS:
+            return "the kernel takes at most {} schools; got {}".format(
+                self.MAX_SCHOOLS, self.y.shape[0])
+        return None
+
+    def _params(self):
+        table = torch.stack([self.y, 1.0 / self.sigma], dim=-1)
+        consts = torch.tensor([math.log(2.0 / math.pi) - math.log(5.0),
+                               1.0 / 5.0, 1.0 / 100.0], dtype=torch.float64)
+        return table, consts
+
+    def value_and_grad(self, x):
+        table, (c_hc, s_inv, m_inv) = self._table(x.dtype, x.device)
+        yv, isig = table[:, 0], table[:, 1]
+        mu, u, rest = x[..., 0], x[..., 1], x[..., 2:]
+        tau = _softplus(u)
+        sg, sgm = _sigmoid(u), _sigmoid(-u)
+        t5 = tau * s_inv
+        lp_hc = c_hc - torch.log1p(t5 * t5)
+        g_hc = -(2.0 * (t5 * s_inv)) / (1.0 + t5 * t5)
+        mu_s = mu * m_inv
+        lp_prior = (-0.5 * (mu_s * mu_s)).double() + lp_hc.double() \
+            + _log_sigmoid(u).double()
+        g_mu_prior = -(mu_s * m_inv)
+        if self.centered:
+            itau = (1.0 / tau)[..., None]
+            a = (rest - mu[..., None]) * itau
+            z = (yv - rest) * isig
+            r = z * isig
+            v = (-0.5 * (a * a) - torch.log(tau)[..., None]) \
+                + (-0.5 * (z * z))
+            lp = (_sum64(v) + lp_prior).to(x.dtype)
+            ait = a * itau
+            g_mu = (_sum64(ait) + g_mu_prior.double()).to(x.dtype)
+            g_tau = (_sum64((a * a) * itau - itau)
+                     + g_hc.double()).to(x.dtype)
+            g_rest = r - ait
+        else:
+            theta = mu[..., None] + tau[..., None] * rest
+            z = (yv - theta) * isig
+            r = z * isig
+            lp = (_sum64(-0.5 * (z * z)) + _sum64(-0.5 * (rest * rest))
+                  + lp_prior).to(x.dtype)
+            g_mu = (_sum64(r) + g_mu_prior.double()).to(x.dtype)
+            g_tau = (_sum64(r.double() * rest.double())
+                     + g_hc.double()).to(x.dtype)
+            g_rest = tau[..., None] * r - rest
+        g_u = g_tau * sg + sgm
+        return lp, torch.cat([g_mu[..., None], g_u[..., None], g_rest],
+                             dim=-1)
+
+
+class OrderedLogisticRegressionLogJoint(LatentDictDensity):
+    """The ordinal regression posterior of ``examples/robust_models/
+    ordinal_regression.py`` in its unconstrained space:
+    ``transform_log_joint(build_log_joint(x, y), {"cuts": Ordered()})[0]``.
+
+    Latents, in sorted order: ``beta [p]`` and ``cuts [K - 1]``
+    (unconstrained ``u``; the cutpoints are ``c_0 = u_0``,
+    ``c_k = c_{k-1} + exp(u_k)``). The density: ``beta ~ N(0, 1)`` and
+    ``c ~ N(0, 2^2)`` without constants, the ``Ordered`` Jacobian
+    ``sum(u[1:])``, and for each row ``OrderedLogistic(x_i^T beta,
+    c).log_prob(y_i)`` term for term as
+    :class:`~zhusuan_tpu_torch.distributions.OrderedLogistic` computes it.
+
+    Data table ``[n, p + 1]``: ``x_i`` and ``y_i``; constants ``(p, K - 1,
+    finfo(float32).max / 2)``.
+
+    :param x: ``[n, p]`` covariates.
+    :param y: ``[n]`` categories in ``0 .. n_categories - 1``.
+    """
+
+    #: The kernel's limits: ``p <= 4``, ``K - 1 <= 8``, ``p + K - 1 <= 12``.
+    MAX_P, MAX_CUTS, MAX_DIM = 4, 8, 12
+
+    kernel_id = 5
+
+    def __init__(self, x, y, n_categories: int):
+        x = _host64(x)
+        y = (y.detach().cpu() if isinstance(y, torch.Tensor)
+             else torch.tensor(np.array(y)))
+        n_categories = int(n_categories)
+        if x.ndim != 2 or y.shape != x.shape[:1]:
+            raise ValueError("x must be [n, p] and y [n]; got {} and "
+                             "{}.".format(tuple(x.shape), tuple(y.shape)))
+        if n_categories < 2:
+            raise ValueError("n_categories must be >= 2.")
+        if y.is_floating_point() and not bool((y == torch.round(y)).all()):
+            raise ValueError("y must hold category indices.")
+        y = y.to(torch.int64)
+        if bool((y < 0).any()) or bool((y >= n_categories).any()):
+            raise ValueError("y must lie in 0 .. {}.".format(
+                n_categories - 1))
+        self.p, self.n_cuts = int(x.shape[1]), n_categories - 1
+        super().__init__({"beta": (self.p,), "cuts": (self.n_cuts,)})
+        self.x, self.y, self.n_categories = x, y, n_categories
+
+    def kernel_ineligible(self):
+        if (self.p > self.MAX_P or self.n_cuts > self.MAX_CUTS
+                or self.dim > self.MAX_DIM):
+            return ("the kernel takes p <= {}, K - 1 <= {} and p + K - 1 <= "
+                    "{}; got p {}, K - 1 {}".format(
+                        self.MAX_P, self.MAX_CUTS, self.MAX_DIM, self.p,
+                        self.n_cuts))
+        return None
+
+    def _params(self):
+        table = torch.cat([self.x, self.y.to(torch.float64)[:, None]], -1)
+        consts = torch.tensor([self.p, self.n_cuts,
+                               float(torch.finfo(torch.float32).max) / 2],
+                              dtype=torch.float64)
+        return table, consts
+
+    def value_and_grad(self, x):
+        table, _ = self._table(x.dtype, x.device)
+        p, nc = self.p, self.n_cuts
+        big = torch.finfo(x.dtype).max / 2
+        tx = table[:, :p]
+        yi = table[:, p].to(torch.int64)
+        beta, u = x[..., :p], x[..., p:]
+        cuts = [u[..., 0]]
+        for k in range(1, nc):
+            cuts.append(cuts[-1] + torch.exp(u[..., k]))
+        c = torch.stack(cuts, dim=-1)
+        eta = beta[..., 0, None] * tx[:, 0]
+        for j in range(1, p):
+            eta = eta + beta[..., j, None] * tx[:, j]
+        pad = torch.ones_like(c[..., :1])
+        padded = torch.cat([-big * pad, c, big * pad], dim=-1)
+        table_c = padded[..., None, :].expand(eta.shape + (nc + 2,))
+        hi = torch.gather(table_c, -1, (yi + 1).expand(eta.shape)[..., None])
+        lo = torch.gather(table_c, -1, yi.expand(eta.shape)[..., None])
+        a, b = hi[..., 0] - eta, lo[..., 0] - eta
+        d = b - a
+        lp_row = (_log_sigmoid(a) + _log_sigmoid(-b)) + torch.log(
+            -torch.expm1(torch.clamp(d, max=-1e-12)))
+        inv_em = torch.where(d < -1e-12, 1.0 / torch.expm1(a - b),
+                             torch.zeros_like(d))
+        s_na = 1.0 / (1.0 + torch.exp(a))
+        s_b = 1.0 / (1.0 + torch.exp(-b))
+        ga = s_na + inv_em
+        gb = -s_b - inv_em
+        geta = s_b - s_na
+        c_half = c * 0.5
+        lp = (_sum64(lp_row) + _sum64(-0.5 * (beta * beta))
+              + _sum64(-0.5 * (c_half * c_half)) + _sum64(u[..., 1:])
+              ).to(x.dtype)
+        g_beta = (_x_dot64(tx, geta) + (-beta).double()).to(x.dtype)
+        zero = torch.zeros_like(ga)
+        g_c = [(_sum64(torch.where(yi == k, ga, zero))
+                + _sum64(torch.where(yi == k + 1, gb, zero))
+                + (-(c_half[..., k] * 0.5)).double()).to(x.dtype)
+               for k in range(nc)]
+        # Through the Ordered bijector: d/du_k = exp(u_k) sum_{m >= k} g_c_m
+        # (+1 from the Jacobian) for k >= 1, and sum_m g_c_m for k = 0.
+        tail = g_c[-1]
+        g_u = [None] * nc
+        for k in range(nc - 1, -1, -1):
+            if k < nc - 1:
+                tail = g_c[k] + tail
+            g_u[k] = tail if k == 0 else torch.exp(u[..., k]) * tail + 1.0
+        return lp, torch.cat([g_beta, torch.stack(g_u, dim=-1)], dim=-1)
+
+
+class WeibullAFTLogJoint(LatentDictDensity):
+    """The Weibull accelerated-failure-time posterior of
+    ``examples/robust_models/survival_regression.py`` in its unconstrained
+    space: ``transform_log_joint(build_log_joint(x, y, c), {"k":
+    Softplus()})[0]`` with ``observed={"y": y}``.
+
+    Latents, in sorted order: ``beta [p]`` and ``k`` (a scalar a chain,
+    unconstrained; the shape is ``softplus(k)``). With ``eta_i = x_i^T
+    beta`` and ``z_i = log(s_i) - eta_i``, ``s_i`` the event time where
+    ``y_i < c_i`` and the censor time where censored: a row scores
+    ``log k - eta_i + (k - 1) z_i - exp(k z_i)`` (the event density) or
+    ``-exp(k z_i)`` (the survival mass); priors ``k ~ N(1, 1)`` and
+    ``beta ~ N(0, 1)`` without constants, plus ``log sigmoid(k_u)``. The
+    density holds ``y`` (:attr:`held`).
+
+    Data table ``[n, p + 2]``: ``x_i``, ``log s_i`` and the event flag; no
+    constants but ``p``.
+
+    :param x: ``[n, p]`` covariates.
+    :param y: ``[n]`` observed times ``min(T_i, c_i)``.
+    :param censor: ``[n]`` censor times ``c_i``.
+    """
+
+    #: The kernel's limit: ``p + 1 <= 9`` elements a row.
+    MAX_P = 8
+
+    kernel_id = 6
+
+    def __init__(self, x, y, censor):
+        y_held = y
+        x, y, censor = _host64(x), _host64(y), _host64(censor)
+        if x.ndim != 2 or y.shape != x.shape[:1] or censor.shape != y.shape:
+            raise ValueError(
+                "x must be [n, p], y and censor [n]; got {}, {} and "
+                "{}.".format(tuple(x.shape), tuple(y.shape),
+                             tuple(censor.shape)))
+        self.p = int(x.shape[1])
+        super().__init__({"beta": (self.p,), "k": ()},
+                         held={"y": y_held} if isinstance(
+                             y_held, torch.Tensor) else None)
+        self.x, self.y, self.censor = x, y, censor
+        self.event = y < censor
+
+    def kernel_ineligible(self):
+        if self.p > self.MAX_P:
+            return "the kernel takes p <= {}; got {}".format(self.MAX_P,
+                                                             self.p)
+        return None
+
+    def _params(self):
+        tiny = float(torch.finfo(torch.float64).tiny)
+        s = torch.where(self.event, torch.clamp(self.y, min=tiny),
+                        self.censor)
+        table = torch.cat([self.x, torch.log(s)[:, None],
+                           self.event.to(torch.float64)[:, None]], -1)
+        return table, torch.tensor([self.p], dtype=torch.float64)
+
+    def value_and_grad(self, x):
+        table, _ = self._table(x.dtype, x.device)
+        p = self.p
+        tx, ls, ev = table[:, :p], table[:, p], table[:, p + 1]
+        event = ev > 0.5
+        beta, u = x[..., :p], x[..., p]
+        k = _softplus(u)
+        sg, sgm = _sigmoid(u), _sigmoid(-u)
+        logk, ik = torch.log(k)[..., None], (1.0 / k)[..., None]
+        kk = k[..., None]
+        eta = beta[..., 0, None] * tx[:, 0]
+        for j in range(1, p):
+            eta = eta + beta[..., j, None] * tx[:, j]
+        z = ls - eta
+        e = torch.exp(kk * z)
+        lp_row = torch.where(event, ((logk - eta) + (kk - 1.0) * z) - e, -e)
+        r = kk * (e - ev)
+        dk = torch.where(event, ik + z, torch.zeros_like(z)) - z * e
+        km1 = k - 1.0
+        lp = (_sum64(lp_row) + _sum64(-0.5 * (beta * beta))
+              + (-0.5 * (km1 * km1)).double()
+              + _log_sigmoid(u).double()).to(x.dtype)
+        g_beta = (_x_dot64(tx, r) + (-beta).double()).to(x.dtype)
+        g_k = (_sum64(dk) + (-km1).double()).to(x.dtype)
+        g_u = g_k * sg + sgm
+        return lp, torch.cat([g_beta, g_u[..., None]], dim=-1)

@@ -12,9 +12,15 @@ stops. ``L`` follows from the width (:func:`nuts_lanes`), and
 :func:`nuts_layout` chooses where the checkpoint stacks live (shared
 memory, or a global scratch buffer that stays in L2) from the shape alone.
 
-The kernel computes one built-in density (:data:`DENSITIES`),
-:class:`~zhusuan_tpu_torch.ops.densities.DiagonalGaussianLogJoint`, whose
-parameters it reads through pointers; any other log-joint takes the
+The kernel computes the built-in densities of :data:`DENSITIES`, whose
+parameters it reads through pointers: the diagonal Gaussian over one
+latent, and three posteriors over several latents with the data they hold
+(:class:`~zhusuan_tpu_torch.ops.densities.LatentDictDensity`: eight schools
+centred and non-centred, ordinal regression, Weibull AFT survival), which
+the sampler ravels into one row a chain in sorted-name order. For those the
+kernel carries the edges' gradients (one density evaluation a leaf) and
+takes the C entry ``zs_fused_nuts_transition_data``; the diagonal Gaussian
+keeps ``zs_fused_nuts_transition``. Any other log-joint takes the
 sampler's plain path.
 
 Random numbers: the momentum from the HMC kernel's Philox stream
@@ -45,7 +51,13 @@ from zhusuan_tpu_torch.ops._random import (
     philox_normal,
     philox_uniform_rows,
 )
-from zhusuan_tpu_torch.ops.densities import DiagonalGaussianLogJoint
+from zhusuan_tpu_torch.ops.densities import (
+    DiagonalGaussianLogJoint,
+    EightSchoolsLogJoint,
+    LatentDictDensity,
+    OrderedLogisticRegressionLogJoint,
+    WeibullAFTLogJoint,
+)
 from zhusuan_tpu_torch.ops.hmc_step import check_density
 
 __all__ = [
@@ -55,6 +67,7 @@ __all__ = [
     "fused_nuts_transition",
     "fused_nuts_transition_reference",
     "kernel_library",
+    "nuts_data_lanes",
     "nuts_lanes",
     "nuts_layout",
     "nuts_noise",
@@ -78,8 +91,12 @@ MAX_BLOCKS_PER_SM = 32
 # shared memory (csrc/nuts_step.cu); the JAX package's looped kernel has the
 # same cap.
 MAX_TREE_DEPTH = 12
+# A built-in with data takes 32 lanes a chain above this many data rows, 8
+# up to it (csrc/nuts_step.cu's launch_data).
+DATA_ROWS_FOR_32_LANES = 32
 #: The built-in densities the NUTS kernel evaluates.
-DENSITIES = (DiagonalGaussianLogJoint,)
+DENSITIES = (DiagonalGaussianLogJoint, EightSchoolsLogJoint,
+             OrderedLogisticRegressionLogJoint, WeibullAFTLogJoint)
 
 
 def nuts_step_supported(q_shape, max_tree_depth: int,
@@ -108,45 +125,64 @@ def nuts_lanes(dim: int) -> int:
     return 8 if dim <= 128 else 16 if dim <= 256 else 32
 
 
+def nuts_data_lanes(n_rows: int) -> int:
+    """Lanes a chain of a built-in with data (:class:`LatentDictDensity`,
+    rows of at most 16 elements on its first 4 lanes), which split its
+    ``n_rows`` data rows: ``csrc/nuts_step.cu``'s ``launch_data``."""
+    return 32 if int(n_rows) > DATA_ROWS_FOR_32_LANES else 8
+
+
+def _lanes(dim, data_rows):
+    return nuts_lanes(dim) if data_rows is None else nuts_data_lanes(
+        data_rows)
+
+
 def _slots(max_tree_depth: int) -> int:
     return max(1, int(max_tree_depth) - 1)
 
 
 def nuts_shared_bytes(dim: int, max_tree_depth: int,
-                      stacks_in_shared: bool) -> int:
-    """Dynamic shared memory of one block (one warp, ``32 /``
-    :func:`nuts_lanes` chains): ``csrc/nuts_step.cu``'s rule. A chain keeps
-    the far edge ``(q, p)``, the tree's proposal and, when
+                      stacks_in_shared: bool, data_rows=None) -> int:
+    """Dynamic shared memory of one block (one warp, ``32 / lanes``
+    chains): ``csrc/nuts_step.cu``'s rule. A chain keeps the far edge
+    ``(q, p)`` (and its gradient, for a built-in with ``data_rows`` data
+    rows, whose gradient the kernel carries), the tree's proposal and, when
     ``stacks_in_shared``, its two checkpoint stacks of ``max(D - 1, 1)``
     rows each; a row is ``ceil(dim / 4)`` float4s."""
-    rows = 3 + (2 * _slots(max_tree_depth) if stacks_in_shared else 0)
-    return (32 // nuts_lanes(dim)) * rows * (-(-dim // 4)) * 16
+    rows = ((3 if data_rows is None else 4)
+            + (2 * _slots(max_tree_depth) if stacks_in_shared else 0))
+    return (32 // _lanes(dim, data_rows)) * rows * (-(-dim // 4)) * 16
 
 
 def nuts_resident_chains(dim: int, max_tree_depth: int,
-                         stacks_in_shared: bool) -> int:
+                         stacks_in_shared: bool, data_rows=None) -> int:
     """Chains that shared memory lets one H100 SM hold at once (registers
     may allow fewer; ``-Xptxas -v`` reports them). 0 when one block does not
     fit at all."""
-    need = nuts_shared_bytes(dim, max_tree_depth, stacks_in_shared)
+    need = nuts_shared_bytes(dim, max_tree_depth, stacks_in_shared,
+                             data_rows)
     if need > BLOCK_SHARED_BYTES:
         return 0
     blocks = min(MAX_BLOCKS_PER_SM,
                  SM_SHARED_BYTES // (need + BLOCK_RESERVED_BYTES))
-    return blocks * (32 // nuts_lanes(dim))
+    return blocks * (32 // _lanes(dim, data_rows))
 
 
 @functools.lru_cache(maxsize=None)
-def nuts_layout(dim: int, max_tree_depth: int, n_chains: int):
+def nuts_layout(dim: int, max_tree_depth: int, n_chains: int,
+                data_rows=None):
     """``(lanes, stacks_in_shared)`` of the kernel for this shape: the
     chain's width (:func:`nuts_lanes`), and the checkpoint stacks in shared
     memory when every chain is then resident on the card at once, else in
     global memory (L2). Set from measurements on an H100
     (PERF_APPENDIX.md): at 4096 x 100 shared stacks won at depths 6 and 8
     (all chains resident either way) and lost 1.5x at depth 10, where they
-    hold 3168 of the 4096 chains and the rest wait."""
-    resident = H100_SMS * nuts_resident_chains(dim, max_tree_depth, True)
-    return nuts_lanes(dim), n_chains <= resident
+    hold 3168 of the 4096 chains and the rest wait. ``data_rows``: those of
+    a built-in with data (its lanes by :func:`nuts_data_lanes`, one more
+    shared row a chain), None for the diagonal Gaussian."""
+    resident = H100_SMS * nuts_resident_chains(dim, max_tree_depth, True,
+                                               data_rows)
+    return _lanes(dim, data_rows), n_chains <= resident
 
 
 def kernel_library():
@@ -161,6 +197,10 @@ def kernel_library():
             [ptr] * 9 + [i32, i32, i32, ctypes.c_float, u32, u32, u32]
             + [ptr] * 10)
         lib.zs_fused_nuts_transition.restype = i32
+        lib.zs_fused_nuts_transition_data.argtypes = (
+            [i32, ptr, ptr, i32] + [ptr] * 7
+            + [i32, i32, i32, ctypes.c_float, u32, u32, u32] + [ptr] * 10)
+        lib.zs_fused_nuts_transition_data.restype = i32
         lib.zs_cuda_error_string.argtypes = [i32]
         lib.zs_cuda_error_string.restype = ctypes.c_char_p
         lib._zs_typed = True
@@ -221,7 +261,9 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
     On a CUDA tensor this launches the CUDA kernel (or raises); on a CPU
     tensor it runs :func:`fused_nuts_transition_reference`.
 
-    :param density: a :class:`DiagonalGaussianLogJoint` over ``q``.
+    :param density: one of :data:`DENSITIES` over ``q`` (for a
+        :class:`LatentDictDensity`, its latents raveled in sorted-name
+        order).
     :param q: ``[n_chains, dim]`` positions (float32 on the card).
     :param inv_mass: ``[1, dim]`` inverse diagonal mass (float32 on the
         card).
@@ -240,9 +282,12 @@ def fused_nuts_transition(density, q, inv_mass, step_size,
         return fused_nuts_transition_reference(
             density, q, inv_mass, step_size, max_tree_depth,
             max_delta_energy, key, t, noise=noise)
+    data_rows = (density.n_rows if isinstance(density, LatentDictDensity)
+                 else None)
     return _launch(density, q, inv_mass, step_size, max_tree_depth,
                    max_delta_energy, key, t, noise,
-                   nuts_layout(q.shape[1], max_tree_depth, q.shape[0])[1])
+                   nuts_layout(q.shape[1], max_tree_depth, q.shape[0],
+                               data_rows)[1])
 
 
 def _launch(density, q, inv_mass, step_size, max_tree_depth,
@@ -264,13 +309,18 @@ def _launch(density, q, inv_mass, step_size, max_tree_depth,
     if not (q.is_contiguous() and inv_mass.is_contiguous()):
         raise ValueError("q and inv_mass must be contiguous.")
     c, d = q.shape
-    if stacks_in_shared and (nuts_shared_bytes(d, max_tree_depth, True)
-                             > BLOCK_SHARED_BYTES):
+    carried = isinstance(density, LatentDictDensity)
+    if carried and density.kernel_ineligible() is not None:
+        raise ValueError("the CUDA kernel cannot evaluate this {}: {}.".format(
+            type(density).__name__, density.kernel_ineligible()))
+    if stacks_in_shared and (nuts_shared_bytes(
+            d, max_tree_depth, True, density.n_rows if carried else None)
+            > BLOCK_SHARED_BYTES):
         raise ValueError(
             "the checkpoint stacks of depth {} at dim {} do not fit one "
             "block's shared memory.".format(max_tree_depth, d))
     dev = q.device
-    loc, inv_var = density.kernel_args(dev)
+    p0, p1 = density.kernel_args(dev)
     if isinstance(step_size, torch.Tensor):
         ss = step_size.to(device=dev, dtype=torch.float32).reshape(1)
     else:
@@ -295,15 +345,23 @@ def _launch(density, q, inv_mass, step_size, max_tree_depth,
     turning, divergent = (torch.empty((c,), dtype=torch.bool, device=dev)
                           for _ in range(2))
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
-    launch_kernel(
-        fused_nuts_transition, kernel_library, "zs_fused_nuts_transition",
-        dev,
-        q.data_ptr(), inv_mass.data_ptr(), loc.data_ptr(),
-        inv_var.data_ptr(), ss.data_ptr(), *noise_ptrs, c, d,
-        int(max_tree_depth), float(max_delta_energy), k0, k1,
-        int(t) & 0xFFFFFFFF, None if stacks is None else stacks.data_ptr(),
-        out_q.data_ptr(), lp.data_ptr(), h.data_ptr(), acc.data_ptr(), depth.data_ptr(),
-        n_leap.data_ptr(), turning.data_ptr(), divergent.data_ptr())
+    rest = (ss.data_ptr(), *noise_ptrs, c, d, int(max_tree_depth),
+            float(max_delta_energy), k0, k1, int(t) & 0xFFFFFFFF,
+            None if stacks is None else stacks.data_ptr(),
+            out_q.data_ptr(), lp.data_ptr(), h.data_ptr(), acc.data_ptr(),
+            depth.data_ptr(), n_leap.data_ptr(), turning.data_ptr(),
+            divergent.data_ptr())
+    if carried:
+        launch_kernel(
+            fused_nuts_transition, kernel_library,
+            "zs_fused_nuts_transition_data", dev, density.kernel_id,
+            p0.data_ptr(), p1.data_ptr(), density.n_rows, q.data_ptr(),
+            inv_mass.data_ptr(), *rest)
+    else:
+        launch_kernel(
+            fused_nuts_transition, kernel_library,
+            "zs_fused_nuts_transition", dev, q.data_ptr(),
+            inv_mass.data_ptr(), p0.data_ptr(), p1.data_ptr(), *rest)
     return out_q, lp, h, acc, depth, n_leap, turning, divergent
 
 
