@@ -6,6 +6,14 @@ It needs one CUDA device and ``nvcc`` (it builds the kernels from
 ``zhusuan_tpu_torch/csrc``), imports nothing of JAX, and exits non-zero as
 soon as a phase fails (nothing is caught). Each phase prints its seconds.
 
+The phases that give no number to the kernels' record (19-23, 25, 27-30
+and 33: example runs whose host-bound loops leave the card idle most of
+their time) run last, in ``len(EXAMPLE_PHASES)`` child processes at once
+on the same card, after every other phase has run alone: the wall-clock
+figures they print are taken beside each other, and a failing child stops
+the others. To time one alone, run it as the other phases are run alone
+(``run_phase`` after ``phase_build``).
+
 1. device: the card, as ``nvidia-smi`` reports its name and power limit;
 2. build: compiles ``csrc/hmc_step.cu`` (the HMC step, ChEES step and
    trajectory kernels), ``csrc/nuts_step.cu``, ``csrc/sgmcmc_step.cu``
@@ -47,12 +55,15 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
 8. NUTS main path: ``bench.py``'s ``measure_nuts`` recipe through
    ``zhusuan_tpu_torch.NUTS`` -- 4096 chains x 100 dims, depth 6, 200
    adaptive then 200 sampling iterations collecting samples and leapfrog
-   counts -- on the kernel path (3 timed trials) and the plain path (one:
-   a plain iteration takes about 0.1 s), with the kernel's launch count
-   read around each;
+   counts -- on the kernel path (3 timed trials) and the plain path
+   (``NUTS_PLAIN_ITERS`` adaptive then as many sampling iterations, one
+   run: a plain iteration takes about 0.08 s), with the kernel's launch
+   count read around each;
 9. NUTS deep trees: ``bench.py``'s sweep on the ``linspace(0.1, 30)``
    target, kernel path at depths 6, 8 and 10 (150 adaptive, 50 sampling
-   iterations, 2 trials), and a few timed plain-path iterations at 10;
+   iterations, 2 trials), and a few timed plain-path iterations at 10
+   after ``NUTS_PLAIN_DEEP_WARM`` adaptive ones (an iteration from the
+   start takes about 1 s there);
 10. HMC family vs plain: the HMC step with the equicorrelated density, the
    ChEES step and the leapfrog trajectory against their plain torch
    versions on the same injected noise, float32, at 4096 x 100 (the mixing
@@ -75,8 +86,10 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    trajectory kernel), (b) ChEES (the ChEES kernel), (c) pilot ->
    ``fit_dense_preconditioner`` -> ``whiten_log_joint`` -> HMC (a plain
    callable: the plain path, 0 launches); (a) and (b) again on the plain
-   path (one timed run each and no untimed one; (b) adapts as on the
-   kernel, then samples ``MIX_PLAIN_CHEES_ITERS``, cut for time). Each
+   path (one timed run each and no untimed one; (b) starts from the
+   kernel arm's adapted state, whose 300 adaptive iterations would take
+   ~25 s on the plain path, and samples ``MIX_PLAIN_CHEES_ITERS``, both
+   cut for time). Each
    reports min-coordinate and slow-projection ESS and their rates; gated
    on finite samples, on acceptance (whitened HMC in [0.6, 0.95]; fixed-L
    in [``FIXED_L_MIN_ACCEPTANCE``, 0.95], as the JAX package samples it at
@@ -213,7 +226,7 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ``configs_protocol.py``'s synthetic binary MNIST, ``SBN_WARMUP`` +
    ``SBN_STEPS`` steps; steps/s, gated on a finite bound that rises;
 22. toy2d and BNN configurations at reduced step counts (budget 40 s;
-   ``CONFIG_STEPS``: toy2d 50 + 2000, BNN SGVB and SGHMC 50 + 1000 each,
+   ``CONFIG_STEPS``: toy2d 50 + 1000, BNN SGVB and SGHMC 50 + 500 each,
    of the recipes' 50 + 16000 and 50 + 8000, which
    ``scripts/measure_configs_torch.py`` runs in full) through each
    example's own train step; steps/s, gated on finite metrics, a rising
@@ -274,7 +287,9 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    estimates over 8 keys (``AIS_REFERENCE``) and below the analytic log Z
    plus three spreads;
 28. the checking examples (budget 35 s): ``model_comparison/loo_compare``
-   at its defaults (degree 0 behind by more than ``LOO_LOSS_SES`` paired
+   at its defaults but its HMC fits cut to ``LOO_RECIPE`` (250 of 500
+   iterations, 125 adapting; ~1.9 ms a leapfrog on the host) (degree 0
+   behind by more than ``LOO_LOSS_SES`` paired
    SEs, degrees 1 and 2 within ``LOO_TIE_SES``, every ``pareto_k`` below
    ``LOO_MAX_K``), ``toy_examples/evidence_sandwich`` at its defaults
    (``L_0.5 <= log Z <= CUBO_2``), and ``sigmoid_belief_nets/
@@ -295,14 +310,18 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    burn-in 800): training accuracy above the majority class by
    ``EXAMPLE_MARGIN``, mean shrinks and seconds. No hand-written kernel
    (the JAX ``gp.py`` calls none either).
-30. flows and NeuTra (budget 110 s): ``normalizing_flows/toy2d_flow`` at its
+30. flows and NeuTra (budget 80 s): ``normalizing_flows/toy2d_flow`` at its
    defaults (final flow ELBO above ``FLOW_MIN_ELBO``); ``vae_nf`` at full
    width (784-500-500-40, batch 128, 10 planar flows) cut to one epoch of
    its 10 (390 steps): steps/s, the bound finite and rising (last
    ``EXAMPLE_TAIL`` steps over the first); ``toy_examples/
-   neal_funnel_neutra`` at its defaults (512 chains, 2000 fit steps, 1000
-   HMC iterations of which 500 adapt, both runs): NeuTra's ``std(v)``
-   above plain HMC's by ``FUNNEL_MARGIN`` and within ``FUNNEL_TOL`` of 3.
+   neal_funnel_neutra`` at its defaults (512 chains, 2000 fit steps) but
+   its HMC runs cut to 300 iterations of which 150 adapt
+   (``FUNNEL_RECIPE``; from the defaults' 1000 and 500 the run took 90.6 s
+   of the phase on one H100, most of it the two plain HMC runs, and at
+   its JAX test's 600 and 300 it took 50-91 s): NeuTra's
+   ``std(v)`` above plain HMC's by ``FUNNEL_MARGIN`` and within
+   ``FUNNEL_TOL`` of 3.
    The lifted density is a closure: its HMC takes the plain transition, K1
    counted 0.
 31. SVGD and the toy samplers (budget 55 s): ``stein_variational/
@@ -313,7 +332,9 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    the bisection's stopping tests (a host read a pass, which SVGD takes;
    every pass on the device, kept here for the timing), with its passes;
    ``toy_examples/gaussian_chees`` at its defaults (512 chains, 1000
-   iterations of which 500 adapt) on both routes, each pooled std within
+   iterations of which 500 adapt) on ``--fused`` and cut to
+   ``CHEES_MODEL_RECIPE`` on the model route (its host-bound iterations
+   took 31-33 s at the defaults), each pooled std within
    ``CHEES_REL_STD`` of the target's, K7's launches counted from 0 around
    each run (1000 on ``--fused``, 0 on the model); K7 against its plain
    version at 512 x 16 on injected noise at the fused run's step size and
@@ -360,10 +381,12 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    (``REMC_TEMPS`` rungs down to ``REMC_MIN_BETA``, 4096 chains from one
    mode, ``REMC_ITERS`` iterations of which ``REMC_ADAPT`` adapt), the cold
    rung's share in the other mode within ``REMC_SHARE_TOL`` of 0.5 and
-   every adjacent pair swapping; ``state_space/changepoint.run`` at its
-   defaults on the JAX example's counts (``CHANGEPOINT_REFERENCE``, from
-   ``scripts/changepoint_jax_reference.py``): the same ``tau`` mode and
-   both rates' posterior means within ``CHANGEPOINT_LAM_TOL``. No
+   every adjacent pair swapping; ``state_space/changepoint.run`` on the
+   JAX example's counts (``CHANGEPOINT_REFERENCE``, from
+   ``scripts/changepoint_jax_reference.py``) at ``CHANGEPOINT_RECIPE``
+   (its 2000 sweeps, 500 burn-in, halved for time): the same ``tau`` mode
+   as the JAX example's defaults and both rates' posterior means within
+   ``CHANGEPOINT_LAM_TOL`` of them. No
    hand-written kernel: these samplers and the example's closure take the
    plain path (neither package has a kernel for them).
 
@@ -392,9 +415,10 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ``SV_ITERS`` iterations (``SV_BURNIN`` burn-in; cut from 1500 for time),
    the gates of ``tests/test_examples.py:940-950``, beside the JAX package's
    CPU numbers (``SSM_REFERENCE``, from ``scripts/ssm_jax_reference.py``);
-   ``hmm_filter`` / ``hmm_smoother`` at K = 64, T = 16384 and
-   ``kalman_filter`` / ``kalman_smoother`` at d = 4, T = 16384, sequential
-   against ``parallel=True`` within ``SCAN_*_TOL``, both timed. No other
+   ``hmm_filter`` / ``hmm_smoother`` at K = 64 and ``kalman_filter`` /
+   ``kalman_smoother`` at d = 4, T = ``SCAN_T`` (cut from 16384 for time:
+   the sequential loops took 24 s there), sequential against
+   ``parallel=True`` within ``SCAN_*_TOL``, both timed. No other
    hand-written kernel: neither package has one for these.
 
 35. robust models, eight schools and mixtures (budget about 90 s): the
@@ -418,6 +442,26 @@ soon as a phase fails (nothing is caught). Each phase prints its seconds.
    ``survival_regression`` by NUTS on the kernel, counted from 0: one
    launch an iteration.
 
+36. LKJ covariance, matrix factorization, topic models and GANs (budget
+   about 90 s): the NUTS kernel against its plain version on its built-in
+   ``CovarianceEstimationLogJoint`` (the JAX example's data from
+   ``COV_REFERENCE``, written by ``scripts/covariance_jax_reference.py``)
+   at the example's 16 chains and at ``COV_WIDE_CHAINS``, at step 0.1 and
+   at ``COV_DIVERGING_STEP``, with 0 differing chains, and timed (back to
+   back, CUDA graph, plain) beside its bound: one entry of the kernels'
+   record; ``covariance_estimation.run`` at the JAX defaults (n 300, 16
+   chains, 1200 iterations, 400 burn-in, depth 6) on the JAX data with
+   the gates of ``tests/test_examples.py:1020-1030`` and the JAX numbers
+   beside, counted from 0: one launch an iteration; ``LKJCholesky``,
+   ``Wishart``, ``Empirical`` and ``Implicit`` on the card (``log_prob``
+   against the CPU's float64, ``COV_ZOO_DRAWS`` draws' moments against
+   closed forms, Wishart's ``-inf`` off the PD cone); and the examples
+   ``pmf_hmc``, ``lntm_mcem``, ``dirichlet_vae``, ``dcgan`` and
+   ``wasserstein_gan`` at the JAX tests' arguments with their gates (the
+   GAN training-dynamics gates over ``GAN_SEEDS`` seeds: the DCGAN medians
+   under the tests' bounds, and no number above the JAX package's spread
+   in ``GAN_REFERENCE`` by a one-sided rank-sum test).
+
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
 over 67 TFLOP/s, counted from the sources by the ``_*_bound`` helpers at
@@ -433,6 +477,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 DIM = 100
@@ -443,6 +488,10 @@ N_TRIALS = 3
 TOL = 1e-4
 NUTS_CHAINS = 4096
 NUTS_ITERS = 200
+# The plain path of phases 8 and 9, cut for time: its iterations are
+# host-bound (~0.08 s at depth 6, ~1 s at depth 10 before adaptation).
+NUTS_PLAIN_ITERS = 50
+NUTS_PLAIN_DEEP_WARM = 5
 NUTS_TOL = (1e-4, 1e-5)  # (abs, rel) on log_prob, energy; abs on accept
 NUTS_Q_TOL = 1e-5  # the leapfrog arithmetic is the same on both sides
 NUTS_MAX_DIFFERING = 0.001  # share of chains
@@ -452,9 +501,10 @@ NUTS_TIMED = ((6, 1.0), (8, 30.0), (10, 30.0))
 MIX_CHAINS = 4096
 MIX_RHO = 0.95
 MIX_ITERS = 300  # adaptive, then sampling iterations per run
-# The plain ChEES arm adapts as the kernel arm does, then samples this
-# many iterations (~0.1 s each on the card) in its one timed run.
-MIX_PLAIN_CHEES_ITERS = 100
+# The plain ChEES arm starts from the kernel arm's adapted state and
+# samples this many iterations (~0.08 s each on the card) in its one timed
+# run.
+MIX_PLAIN_CHEES_ITERS = 50
 CHEES_MAX_LEAPFROGS = 1000  # ChEESHMC's default cap
 MAX_DIFFERING = 0.001  # share of chains (MH decision or finiteness)
 Q_TOL = 1e-4  # q', p' relative to 1 + |ref|
@@ -1076,7 +1126,8 @@ def phase_nuts_main_path(torch, dev):
     runs = {}
     for fused in (True, False):
         fused_nuts_transition.launches = 0
-        rec = _nuts_run(torch, dev, fused, 6, 1.0, NUTS_ITERS, NUTS_ITERS,
+        n = NUTS_ITERS if fused else NUTS_PLAIN_ITERS
+        rec = _nuts_run(torch, dev, fused, 6, 1.0, n, n,
                         N_TRIALS if fused else 1)
         rec["launches"] = fused_nuts_transition.launches
         runs[rec["path"]] = rec
@@ -1109,7 +1160,8 @@ def phase_nuts_deep(torch, dev):
     # The plain path at depth 10: a short warm-up, then a few timed
     # iterations (a full run would take minutes).
     fused_nuts_transition.launches = 0
-    deep["plain_depth10"] = _nuts_run(torch, dev, False, 10, 30.0, 20, 3, 1,
+    deep["plain_depth10"] = _nuts_run(torch, dev, False, 10, 30.0,
+                                      NUTS_PLAIN_DEEP_WARM, 3, 1,
                                       ("n_leapfrogs", "depth"))
     check(fused_nuts_transition.launches == 0,
           "the NUTS plain path launched the kernel")
@@ -1428,9 +1480,10 @@ def _mixing_hmc(torch, dev, fused, leapfrog_kernel, trials, untimed=True):
 
 
 def _mixing_chees(torch, dev, fused, trials, n_iters=MIX_ITERS,
-                  untimed=True):
+                  untimed=True, warm_state=None):
     """Arm (b): ChEES-HMC (bench.py:386-394): ``MIX_ITERS`` adaptive
-    iterations, then ``n_iters`` a timed run."""
+    iterations (none when ``warm_state``, an adapted state, is given), then
+    ``n_iters`` a timed run. Returns the record and the adapted state."""
     import zhusuan_tpu_torch as zt
     from zhusuan_tpu_torch.ops import fused_chees_step
 
@@ -1438,9 +1491,11 @@ def _mixing_chees(torch, dev, fused, trials, n_iters=MIX_ITERS,
     ch = zt.ChEESHMC(step_size=0.05, trajectory_length=1.0,
                      experimental_fused_step="auto" if fused else False)
     before = fused_chees_step.launches
-    st = ch.init({"z": torch.zeros(MIX_CHAINS, DIM, device=dev)})
-    st, _ = ch.run(dens, {}, st, torch.Generator().manual_seed(21),
-                   MIX_ITERS, n_adapt=MIX_ITERS, collect=False)
+    st = warm_state
+    if st is None:
+        st = ch.init({"z": torch.zeros(MIX_CHAINS, DIM, device=dev)})
+        st, _ = ch.run(dens, {}, st, torch.Generator().manual_seed(21),
+                       MIX_ITERS, n_adapt=MIX_ITERS, collect=False)
     torch.cuda.synchronize()
     warm = fused_chees_step.launches - before
     rec, out, _ = _timed_trials(
@@ -1455,7 +1510,8 @@ def _mixing_chees(torch, dev, fused, trials, n_iters=MIX_ITERS,
     rec["mean_n_leapfrogs"] = float(out["n_leapfrogs"].double().mean())
     rec["warmup_launches"] = [warm]
     rec["launch_counters"] = ["fused_chees_step"]
-    return rec
+    rec["adapted_here"] = warm_state is None
+    return rec, st
 
 
 def _mixing_dense(torch, dev, warm_state, pilot_traj, trials):
@@ -1513,7 +1569,7 @@ def phase_mixing(torch, dev):
     k1 = fused_hmc_step.launches
     arms["hmc_fixed_L_leapfrog_kernel"], _, _ = _mixing_hmc(
         torch, dev, False, True, N_TRIALS)
-    arms["chees"] = _mixing_chees(torch, dev, True, N_TRIALS)
+    arms["chees"], chees_warm = _mixing_chees(torch, dev, True, N_TRIALS)
     arms["hmc_dense_precond"] = _mixing_dense(torch, dev, warm, pilot,
                                               N_TRIALS)
     launches = {f.__name__: f.launches for f in kernels}
@@ -1526,8 +1582,9 @@ def phase_mixing(torch, dev):
     # (a) and (b) on the plain path: one timed run each.
     arms["hmc_fixed_L_plain"], _, _ = _mixing_hmc(torch, dev, False, False, 1,
                                                   untimed=False)
-    arms["chees_plain"] = _mixing_chees(torch, dev, False, 1,
-                                        MIX_PLAIN_CHEES_ITERS, untimed=False)
+    arms["chees_plain"], _ = _mixing_chees(
+        torch, dev, False, 1, MIX_PLAIN_CHEES_ITERS, untimed=False,
+        warm_state=chees_warm)
     print("phase11 mixing " + json.dumps({
         "target": "equicorrelated Gaussian rho={} dim={}".format(MIX_RHO,
                                                                  DIM),
@@ -2939,8 +2996,8 @@ VAE_IS_MARGIN = 5.0  # the IS estimate stays below the final train LB + 5
 IWAE_WARMUP, IWAE_STEPS = 20, 180
 IWAE_TAIL = 50
 SBN_WARMUP, SBN_STEPS = 30, 500
-CONFIG_STEPS = {"toy2d": (50, 2000), "bnn_sgvb": (50, 1000),
-                "bnn_sghmc": (50, 1000)}  # (untimed, timed): reduced
+CONFIG_STEPS = {"toy2d": (50, 1000), "bnn_sgvb": (50, 500),
+                "bnn_sghmc": (50, 500)}  # (untimed, timed): reduced
 
 
 def phase_vae_main_path(torch, dev):
@@ -3453,6 +3510,7 @@ AIS_LEAPFROGS = 5
 AIS_SEED = 27
 AIS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "scripts", "ais_jax_reference.json")
+LOO_RECIPE = ["--n_iters", "250", "--n_adapt", "125"]
 LOO_LOSS_SES = 4.0  # degree 0 loses by more than this many paired SEs
 LOO_TIE_SES = 2.0  # degrees 1 and 2 tie within this many
 LOO_MAX_K = 0.7
@@ -3805,10 +3863,10 @@ def phase_checking_examples(torch, dev):
     failures, recs = [], {}
     argv = ["--device", str(dev)]
 
-    # loo_compare at its defaults.
+    # loo_compare at its defaults, its fits cut to LOO_RECIPE.
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results, rows = loo_compare.main(argv)
+    results, rows = loo_compare.main(argv + LOO_RECIPE)
     rec = {"wall_sec": time.perf_counter() - t0,
            "rows": [r._asdict() for r in rows],
            "max_pareto_k": max(float(r.pareto_k.max())
@@ -3909,8 +3967,15 @@ SGPR_TIMED = 10
 EXAMPLE_MARGIN = 0.2  # accuracy above the majority class (ESS, SVGD)
 FLOW_MIN_ELBO = -0.15  # tests/test_examples.py:225
 FUNNEL_MARGIN, FUNNEL_TOL = 0.2, 0.45  # tests/test_examples.py:77-78
+# Half the HMC runs of tests/test_examples.py:73-74 (600 iterations, 300
+# adapting, took 50-91 s on one H100, most of it the two plain HMC runs;
+# the example's defaults, 1000 and 500, 90.6 s); the chains and the fit as
+# the defaults. On the CPU at seeds 0-2, at 600 / 300: plain 2.47-2.54,
+# NeuTra 2.93-2.94; at 300 / 150: plain 2.44-2.49, NeuTra 2.93-2.96.
+FUNNEL_RECIPE = {"n_iters": 300, "n_adapt": 150}
 SVGD_TIMED = (4096, 25)  # particles x dims of SVGD.update's timing
 CHEES_REL_STD = 0.15  # tests/test_examples.py:39
+CHEES_MODEL_RECIPE = {"n_iters": 400, "n_adapt": 200}
 MIXTURE_ITERS = 3000  # tests/test_examples.py:64's cut of 30000
 MIXTURE_RIGHT = (0.2, 0.8)
 
@@ -4010,9 +4075,10 @@ def phase_gp(torch, dev):
 
 
 def phase_flows(torch, dev):
-    """Phase 30 (budget 110 s): ``toy2d_flow`` at its defaults, ``vae_nf``
-    at full width cut to one epoch, ``neal_funnel_neutra`` at its
-    defaults (its HMC on the plain transition: K1 not launched)."""
+    """Phase 30 (budget 80 s): ``toy2d_flow`` at its defaults, ``vae_nf``
+    at full width cut to one epoch, ``neal_funnel_neutra`` with its HMC
+    runs at its JAX test's iterations (on the plain transition: K1 not
+    launched)."""
     from zhusuan_tpu_torch.examples.normalizing_flows import toy2d_flow, vae_nf
     from zhusuan_tpu_torch.examples.toy_examples import neal_funnel_neutra
     from zhusuan_tpu_torch.examples.utils.dataset import load_binary_mnist
@@ -4043,7 +4109,8 @@ def phase_flows(torch, dev):
 
     fused_hmc_step.launches = 0
     (std_plain, std_neutra, fit), seconds = _wall(
-        torch, lambda: neal_funnel_neutra.run(dev, verbose=False))
+        torch, lambda: neal_funnel_neutra.run(dev, verbose=False,
+                                              **FUNNEL_RECIPE))
     losses = fit.losses.cpu()
     recs["neal_funnel_neutra"] = {
         "wall_sec": seconds, "std_plain": std_plain,
@@ -4149,12 +4216,16 @@ def phase_svgd_toys(torch, dev):
 
     routes = {}
     for fused in (True, False):
+        recipe = ({"n_iters": gaussian_chees.N_ITERS,
+                   "n_adapt": gaussian_chees.N_ADAPT} if fused
+                  else CHEES_MODEL_RECIPE)
         fused_chees_step.launches = 0
         (state, out, rel_err), seconds = _wall(
-            torch, lambda: gaussian_chees.run(dev, fused))
-        keep = slice(gaussian_chees.N_ADAPT, None)
+            torch, lambda: gaussian_chees.run(dev, fused, **recipe))
+        keep = slice(recipe["n_adapt"], None)
         routes["fused" if fused else "model"] = {
-            "wall_sec": seconds, "launches": fused_chees_step.launches,
+            **recipe, "wall_sec": seconds,
+            "launches": fused_chees_step.launches,
             "max_rel_std_err": float(rel_err.max()),
             "acceptance": float(out["acceptance_rate"][keep].mean()),
             "mean_leapfrogs": float(out["n_leapfrogs"][keep].double().mean()),
@@ -4250,7 +4321,8 @@ PF_HMC_ITERS, PF_HMC_STEP, PF_HMC_THIN = 200, 0.5, 10
 PF_HMC_STD_TOL = 0.05  # over the last half of the warm-started run
 MH_CHAINS, MH_ADAPT, MH_ITERS = 32768, 300, 300
 MH_ACC_TOL = 0.05
-SLICE_CHAINS, SLICE_DIM, SLICE_SWEEPS = 4096, 10, 300
+# SLICE_SWEEPS cut from 300 for time (~50 ms a sweep on the host).
+SLICE_CHAINS, SLICE_DIM, SLICE_SWEEPS = 4096, 10, 150
 SLICE_SES = 4.0
 SLICE_TIMED = 5  # sweeps per timing of a loop route
 REMC_MU, REMC_TEMPS, REMC_MIN_BETA, REMC_CHAINS = 4.0, 8, 0.02, 4096
@@ -4260,6 +4332,7 @@ CHANGEPOINT_REFERENCE = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "scripts",
     "changepoint_jax_reference.json")
 CHANGEPOINT_LAM_TOL = 0.15
+CHANGEPOINT_RECIPE = {"n_iters": 1000, "burnin": 250}  # ~11 ms a sweep
 
 
 def _blr_laplace(torch, dev):
@@ -4558,8 +4631,10 @@ def phase_samplers_changepoint(torch, dev):
     with open(CHANGEPOINT_REFERENCE) as f:
         ref = json.load(f)
     res, seconds = _wall(torch, lambda: changepoint.run(
-        y=torch.tensor(ref["y"], dtype=torch.float64, device=dev)))
-    rec = {"wall_sec": seconds, "ms_per_sweep": seconds / 2000 * 1e3,
+        y=torch.tensor(ref["y"], dtype=torch.float64, device=dev),
+        **CHANGEPOINT_RECIPE))
+    rec = {"wall_sec": seconds, **CHANGEPOINT_RECIPE,
+           "ms_per_sweep": seconds / CHANGEPOINT_RECIPE["n_iters"] * 1e3,
            "tau_mode": res["tau_mode"], "tau_mean": res["tau_mean"],
            "lam_mean": [float(v) for v in res["lam_mean"]],
            "jax": {k: ref[k] for k in ("tau_mode", "tau_mean", "lam_mean")}}
@@ -4603,7 +4678,7 @@ SV_CHAINS, SV_PARTICLES = 8, 512
 SV_ITERS, SV_BURNIN = 200, 40
 SSM_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "scripts", "ssm_jax_reference.json")
-SCAN_T, SCAN_K, SCAN_D = 16384, 64, 4
+SCAN_T, SCAN_K, SCAN_D = 4096, 64, 4
 SCAN_LOGP_TOL = 1e-8  # normalized log-marginals, float64
 SCAN_LOGZ_RTOL = 1e-10
 SCAN_KALMAN_TOL = 1e-8  # means and covariances, float64
@@ -4899,12 +4974,12 @@ ROBUST_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # H100: 58 / 104 / 167 s): they are cut, with the chains kept, from
 # 1500 / 700, 3000 / 1500 and 800 + 1500 iterations to those below (gmm's
 # warmup of 200 missed its location gate on one of four CPU seeds; 300 and
-# 400 held it on four).
+# 400 held it on four; 300 is kept, for time).
 ROBUST_EXAMPLES = {
     "robust_regression": {"n_chains": 64, "n_iters": 300, "n_adapt": 150},
     "eight_schools": {"n_chains": 64, "n_iters": 800, "n_adapt": 400},
     "funnel": {"n_chains": 32, "n_iters": 1000, "n_adapt": 500},
-    "gmm": {"n_chains": 16, "n_iters": 200, "n_adapt": 400},
+    "gmm": {"n_chains": 16, "n_iters": 200, "n_adapt": 300},
     "ordinal": {"n_chains": 32, "n_iters": 1200, "burnin": 400},
     "survival": {"n_chains": 16, "n_iters": 1200, "burnin": 400},
 }
@@ -5388,6 +5463,439 @@ def phase_robust_models(torch, dev):
     return launches, max_err, timing
 
 
+COV_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "scripts", "covariance_jax_reference.json")
+GAN_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "scripts", "gan_jax_reference.json")
+# Phase 36's budget is about 90 s (``COV_*``, ``TOPIC_*`` and ``GAN_*``
+# names only: the module is one namespace). Every example runs at the JAX
+# example's defaults or its JAX test's arguments; nothing is cut.
+COV_RECIPE = {"n": 300, "n_chains": 16, "n_iters": 1200, "burnin": 400,
+              "seed": 2}
+COV_DEPTH = 6
+COV_WIDE_CHAINS = 4096
+COV_WARM = 150  # adaptive NUTS iterations to the states compared
+COV_STEP = 0.1
+COV_DIVERGING_STEP = 1.0  # most trees of the warm chains diverge
+# Operations of one leaf's density (value and gradient) at K = 3, counted
+# from csrc/densities.cuh's CovarianceEstimation: the transcendental
+# functions of 3 partial correlations and 3 scales, the factor, its
+# inverse, W M, W M W^T, the trace, W^T V and the gradients' sums.
+COV_OPS_LEAF = 260
+COV_ZOO_DRAWS = 200000
+COV_LKJ_CASES = ((2, 1.0), (3, 2.0), (5, 0.7))
+GAN_SEEDS = 8  # seeds of each GAN training-dynamics run
+GAN_Z_DIM = 16
+# The one-sided exact rank-sum test's level: the port's training-dynamics
+# numbers over its seeds must not lie significantly above the JAX
+# package's over its own (GAN_REFERENCE).
+GAN_RANK_P = 0.01
+
+
+def _cov_reference():
+    with open(COV_REFERENCE) as f:
+        return json.load(f)
+
+
+def _cov_kernel_vs_plain(torch, dev, ref):
+    """Phase 36 (a): the NUTS kernel against its plain version on the
+    covariance built-in, and their times."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.hierarchical import (
+        covariance_estimation as ce,
+    )
+    from zhusuan_tpu_torch.mcmc import NUTS
+    from zhusuan_tpu_torch.mcmc.nuts import draw_noise
+    from zhusuan_tpu_torch.ops.nuts_step import (
+        fused_nuts_transition, fused_nuts_transition_reference,
+        nuts_data_lanes,
+    )
+
+    x = np.asarray(ref["x"], np.float32)
+    dens, to_u, _ = ce.covariance_density(x)
+    c, depth = COV_RECIPE["n_chains"], COV_DEPTH
+    nuts = NUTS(step_size=0.1, max_tree_depth=depth, adapt_step_size=True)
+    st = nuts.init(to_u(ce.init_state(c, dens.k, dev)), n_chain_dims=1)
+    st, _ = nuts.run(dens, {}, st, (3, 6), COV_WARM, n_adapt=COV_WARM,
+                     collect=False)
+    q = dens.ravel(st.q).float().contiguous()
+    g = torch.Generator(device=dev).manual_seed(36)
+    wide = (q[torch.arange(COV_WIDE_CHAINS, device=dev) % c]
+            + 0.05 * torch.randn(COV_WIDE_CHAINS, dens.dim, generator=g,
+                                 device=dev)).contiguous()
+    ones = torch.ones(1, dens.dim, device=dev)
+    cases, max_err = [], 0.0
+    for qq in (q, wide):
+        for step in (COV_STEP, COV_DIVERGING_STEP):
+            chains = qq.shape[0]
+            noise = draw_noise(torch.Generator(device=dev).manual_seed(
+                chains + int(10 * step)), chains, dens.dim, depth,
+                torch.float32, dev)
+            got = fused_nuts_transition(dens, qq, ones, step, depth, 1000.0,
+                                        (5, 6), 1, noise=noise)
+            torch.cuda.synchronize()
+            want = fused_nuts_transition_reference(
+                dens, qq, ones, step, depth, 1000.0, (5, 6), 1, noise=noise)
+            rec = _compare_nuts(torch, got, want)
+            rec.update({"shape": [chains, dens.dim], "depth": depth,
+                        "step": step,
+                        "mean_depth": float(want[4].float().mean()),
+                        "divergent": float(want[7].float().mean())})
+            max_err = max([max_err] + list(rec["max_abs_err"].values()))
+            cases.append(rec)
+    failures = ["{} x {} at step {}: {} chains differ".format(
+        *r["shape"], r["step"], r["tree_differing"] + r["selection_differing"])
+        for r in cases if r["tree_differing"] + r["selection_differing"]]
+    failures += ["{} x {} at step {}: no tree diverged".format(
+        *r["shape"], r["step"]) for r in cases
+        if r["step"] == COV_DIVERGING_STEP and r["divergent"] == 0.0]
+
+    def kernel():
+        return fused_nuts_transition(dens, q, ones, COV_STEP, depth, 1000.0,
+                                     (7, 8), 1)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def plain():
+        noise = draw_noise(gen, c, dens.dim, depth, torch.float32, dev)
+        return fused_nuts_transition_reference(
+            dens, q, ones, COV_STEP, depth, 1000.0, None, 1, noise=noise)
+
+    leapfrogs = int(kernel()[5].sum())
+    table = 4 * dens.k * dens.k
+    timing = {
+        "shape": [c, dens.dim], "n_rows": dens.n_rows, "depth": depth,
+        "step": COV_STEP, "lanes": nuts_data_lanes(dens.n_rows),
+        "kernel_ms": _time_ms(torch, kernel, 20),
+        "kernel_graph_ms": _graph_ms(torch, kernel, 20),
+        "plain_ms": _time_ms(torch, plain, 2),
+        "leapfrogs_total": leapfrogs,
+        **_bound(4 * (2 * c * dens.dim + 8 * c + 2 * dens.dim) + table,
+                 c * dens.dim * OPS_NORMAL
+                 + leapfrogs * (COV_OPS_LEAF + dens.dim * 20))}
+    return cases, timing, max_err, failures
+
+
+def _cov_example(torch, dev, ref):
+    """Phase 36 (b): ``covariance_estimation.run`` at the JAX defaults on
+    the JAX data, with ``tests/test_examples.py:1020-1030``'s gates."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.hierarchical import (
+        covariance_estimation as ce,
+    )
+    from zhusuan_tpu_torch.ops.nuts_step import fused_nuts_transition
+
+    fused_nuts_transition.launches = 0
+    t0 = time.perf_counter()
+    res = ce.run(**COV_RECIPE, data=np.asarray(ref["x"], np.float32),
+                 device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_nuts_transition.launches
+    err = np.abs(res["cov_mean"] - res["sample_cov"])
+    failures = []
+    if not bool((err < 4.0 * res["cov_sd"] + 0.05).all()):
+        failures.append("covariance: |cov_mean - sample_cov| {}".format(
+            err.tolist()))
+    if not bool(np.all(np.abs(res["scale_mean"] - ce.TRUE_SCALES)
+                       <= 0.15 * np.abs(ce.TRUE_SCALES))):
+        failures.append("covariance: scales {}".format(
+            res["scale_mean"].tolist()))
+    if not bool(np.all(np.abs(res["corr_mean"] - ce.TRUE_CORR) <= 0.15)):
+        failures.append("covariance: correlations {}".format(
+            res["corr_mean"].tolist()))
+    if launches != COV_RECIPE["n_iters"]:
+        failures.append("covariance: {} NUTS kernel launches for {} "
+                        "iterations".format(launches, COV_RECIPE["n_iters"]))
+    rec = {"wall_s": wall, "launches": launches,
+           "divergent": res["divergent"],
+           **{k: np.asarray(res[k]).tolist() for k in (
+               "scale_mean", "corr_mean", "cov_mean", "cov_sd",
+               "sample_cov")},
+           "jax": {k: ref[k] for k in ("scale_mean", "corr_mean",
+                                       "cov_mean", "cov_sd")}}
+    return rec, launches, failures
+
+
+def _cov_zoo(torch, dev):
+    """Phase 36 (c): ``LKJCholesky``, ``Wishart``, ``Empirical`` and
+    ``Implicit`` on the card."""
+    import numpy as np
+
+    from zhusuan_tpu_torch import distributions as zd
+
+    failures, errs, worst = [], {}, {}
+
+    def held(name, make, v):
+        want = make(torch.float64, "cpu").log_prob(torch.tensor(v)).double()
+        got = make(torch.float32, dev).log_prob(torch.tensor(
+            v, dtype=torch.float32, device=dev)).double().cpu()
+        fin = torch.isfinite(want)
+        err = float(((got - want).abs() / (1.0 + want.abs()))[fin].max())
+        errs[name] = err
+        if err > ZOO_TOL or not torch.equal(torch.isfinite(got), fin):
+            failures.append("{} log_prob off by {} (finite {} vs {})".format(
+                name, err, torch.isfinite(got).tolist(), fin.tolist()))
+
+    gen = torch.Generator(device=dev).manual_seed(36)
+    for d, eta in COV_LKJ_CASES:
+        def make(dtype, device, d=d, eta=eta):
+            return zd.LKJCholesky(d, torch.tensor(eta, dtype=dtype,
+                                                  device=device))
+        L = make(torch.float64, "cpu").sample(
+            torch.Generator().manual_seed(d), 64).numpy()
+        bad = np.stack([2.0 * np.eye(d), np.eye(d) + np.triu(
+            np.ones((d, d)), 1) * 0.5, -np.eye(d)])
+        held("LKJCholesky_d{}".format(d), make, np.concatenate([L, bad]))
+        draws = make(torch.float32, dev).sample(gen, COV_ZOO_DRAWS)
+        corr = draws @ draws.transpose(-1, -2)
+        a = eta + 0.5 * (d - 2)
+        ok, worst["LKJCholesky_d{}".format(d)] = _moments_ok(
+            torch, corr[:, d - 1, 0], 0.0, 1.0 / (2.0 * a + 1.0))
+        if not ok:
+            failures.append("LKJCholesky d {}: off-diagonal moments".format(d))
+
+    rng = np.random.RandomState(36)
+    for d, df in ((2, 3.0), (3, 5.5)):
+        m = rng.randn(d, d) * 0.4
+        S = np.eye(d) + m @ m.T
+
+        def make(dtype, device, S=S, df=df):
+            return zd.Wishart(df, torch.tensor(S, dtype=dtype, device=device))
+        W = make(torch.float64, "cpu").sample(
+            torch.Generator().manual_seed(d), 64).numpy()
+        indefinite = np.eye(d)
+        indefinite[0, 1] = indefinite[1, 0] = 2.0
+        held("Wishart_d{}".format(d), make,
+             np.concatenate([W, indefinite[None], -np.eye(d)[None]]))
+        got = make(torch.float32, dev).log_prob(torch.tensor(
+            indefinite, dtype=torch.float32, device=dev))
+        if float(got) != -math.inf:
+            failures.append("Wishart: log_prob {} off the PD cone".format(
+                float(got)))
+        draws = make(torch.float32, dev).sample(gen, COV_ZOO_DRAWS)
+        flat = draws.reshape(COV_ZOO_DRAWS, d * d)
+        ok, worst["Wishart_d{}".format(d)] = _moments_ok(
+            torch, flat, (df * S).ravel(),
+            (df * (S ** 2 + np.outer(np.diag(S), np.diag(S)))).ravel())
+        if not ok:
+            failures.append("Wishart d {}: moments".format(d))
+
+    emp = zd.Empirical(torch.float32, batch_shape=(2,), device=dev)
+    for what in ("sample", "log_prob"):
+        try:
+            (emp.sample(gen) if what == "sample"
+             else emp.log_prob(torch.zeros(2, device=dev)))
+            failures.append("Empirical.{} did not raise".format(what))
+        except ValueError:
+            pass
+    s = torch.tensor([1.0, 2.0], device=dev)
+    imp = zd.Implicit(s)
+    p = imp.prob(torch.tensor([1.0, 0.0], device=dev)).cpu().tolist()
+    if p != [math.inf, -math.inf] or not torch.equal(imp.sample(gen), s):
+        failures.append("Implicit: prob {}".format(p))
+    return {"log_prob_rel_err": errs, "moments_worst_ses": worst}, failures
+
+
+def _topic_pmf_examples(torch, dev):
+    """Phase 36 (d): ``pmf_hmc``, ``lntm_mcem`` and ``dirichlet_vae`` at
+    their JAX tests' arguments (``tests/test_examples.py:464-478,
+    880-910``) with those tests' gates."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.probabilistic_matrix_factorization \
+        import pmf_hmc
+    from zhusuan_tpu_torch.examples.topic_models import (
+        dirichlet_vae as dv, lntm_mcem,
+    )
+    from zhusuan_tpu_torch.fit import fit_scan
+    from zhusuan_tpu_torch.utils import tree_leaves
+
+    failures, recs = [], {}
+    t0 = time.perf_counter()
+    su, sv, rmse = pmf_hmc.main(n_epochs=5, D=4, K=2, n_leapfrogs=3,
+                                device=dev, verbose=False)
+    recs["pmf_hmc"] = {"rmse": rmse, "step_size_u": float(su.step_size),
+                       "wall_s": time.perf_counter() - t0}
+    if not bool(torch.isfinite(su.q["u"]).all()):
+        failures.append("pmf_hmc: non-finite U")
+    t0 = time.perf_counter()
+    beta, _, _, res = lntm_mcem.main(epochs=2, batch_size=50, n_topics=5,
+                                     ais_temperatures=40, device=dev,
+                                     verbose=False)
+    recs["lntm_mcem"] = dict(res, wall_s=time.perf_counter() - t0)
+    if not (bool(torch.isfinite(beta).all())
+            and math.isfinite(res["ll_lb"])):
+        failures.append("lntm_mcem: {}".format(res))
+    t0 = time.perf_counter()
+    bows, true_topics = dv.synthetic_corpus(n_docs=256, doc_len=64, seed=1)
+    params = dv.init_params(torch.Generator(device=dev).manual_seed(0))
+    tv0 = float(dv.topic_tv(params, true_topics).mean())
+    params, _, hist = fit_scan(
+        dv.elbo_loss, params, torch.optim.Adam(tree_leaves(params), lr=1e-2),
+        torch.as_tensor(bows, device=dev),
+        generator=torch.Generator().manual_seed(0), epochs=60, batch_size=64)
+    tv = float(dv.topic_tv(params, true_topics).mean())
+    recs["dirichlet_vae"] = {
+        "loss_first": float(hist[0].mean()), "loss_last": float(
+            hist[-1].mean()), "tv0": tv0, "tv": tv,
+        "wall_s": time.perf_counter() - t0}
+    if not (hist[-1].mean() < hist[0].mean() - 20.0 and tv < tv0 - 0.05):
+        failures.append("dirichlet_vae: {}".format(recs["dirichlet_vae"]))
+    return recs, failures
+
+
+def _rank_sum_p(x, y):
+    """The one-sided exact p-value that ``x`` lies above ``y``: the share of
+    the splits of the pooled values into groups of their sizes whose
+    Mann-Whitney U (the pairs with the first group's value larger, ties a
+    half) is at least ``x``'s."""
+    import itertools
+
+    def u_stat(a, b):
+        return sum((ai > bj) + 0.5 * (ai == bj) for ai in a for bj in b)
+
+    pooled, n = list(x) + list(y), len(x)
+    u_obs = u_stat(x, y)
+    hits = total = 0
+    for idx in itertools.combinations(range(len(pooled)), n):
+        chosen = set(idx)
+        a = [pooled[i] for i in idx]
+        b = [v for i, v in enumerate(pooled) if i not in chosen]
+        hits += u_stat(a, b) >= u_obs - 1e-9
+        total += 1
+    return hits / total
+
+
+def _gan_examples(torch, dev):
+    """Phase 36 (e): the GANs at their JAX tests' arguments
+    (``tests/test_examples.py:486-600``): the losses and the generator's
+    gradient finite at the small widths; the training dynamics (DCGAN 8
+    epochs, WGAN 5) over ``GAN_SEEDS`` seeds. The tests pin one key of
+    the JAX package's stream, and their bounds sit inside its spread over
+    keys (``GAN_REFERENCE``: over 8 keys the WGAN ratio spans 0.006-0.31
+    around its bound 0.15, the DCGAN one 0.48-0.89 around 0.85). So the
+    port's medians are held to the DCGAN bounds (gap ratio 0.85,
+    discriminator accuracy 0.8), and each of the three numbers over the
+    port's seeds must not lie above the JAX package's over its keys (a
+    one-sided exact rank-sum test at ``GAN_RANK_P``); the WGAN's seeds
+    under its bound are printed beside the JAX package's."""
+    import numpy as np
+
+    from zhusuan_tpu_torch.examples.generative_adversarial_nets import (
+        dcgan, wasserstein_gan,
+    )
+
+    failures, recs = [], {}
+    gen_p, disc_p = dcgan.init_params(1, 8, 8, 4, dev)
+    x = torch.tensor(np.random.RandomState(0).rand(4, 32, 32, 3),
+                     dtype=torch.float32, device=dev)
+    gl, dl = dcgan.gan_losses(gen_p, disc_p, x, 7, 8)
+    grads = torch.autograd.grad(gl, [t for layer in gen_p.values()
+                                     for t in layer.values()])
+    closs = wasserstein_gan.critic_loss(disc_p, gen_p, x, 7, 8)
+    gloss = wasserstein_gan.gen_loss(gen_p, disc_p, x, 7, 8)
+    finite = all(math.isfinite(float(v.detach()))
+                 for v in (gl, dl, closs, gloss))
+    finite = finite and all(bool(torch.isfinite(g).all()) for g in grads)
+    recs["losses"] = {"gan": [float(gl.detach()), float(dl.detach())],
+                      "wgan": [float(closs.detach()), float(gloss.detach())]}
+    if not finite:
+        failures.append("GAN losses: {}".format(recs["losses"]))
+
+    rng = np.random.RandomState(0)
+    data = (0.6 + 0.3 * rng.rand(512, 32, 32, 3)).astype(np.float32)
+    dm = float(data.mean())
+    z = GAN_Z_DIM
+
+    def gen_mean(params, key):
+        with torch.no_grad():
+            return float(dcgan.generator(params, 256, z, key)["x_gen"].mean())
+
+    runs = []
+    t0 = time.perf_counter()
+    for seed in range(1234, 1234 + GAN_SEEDS):
+        g0, _ = dcgan.init_params(seed, z, 8, 4, dev)
+        gp, dp, hist = dcgan.main(
+            epochs=8, batch_size=32, z_dim=z, ngf=8, ndf=4, lr=1e-3,
+            x_train=data, iters_per_epoch=16, save_samples=False, device=dev,
+            seed=seed, verbose=False)
+        with torch.no_grad():
+            fakes = dcgan.generator(gp, 256, z, 9)["x_gen"]
+            real = dcgan.discriminator(dp, torch.as_tensor(data[:256],
+                                                           device=dev))
+            acc = 0.5 * (float((real > 0).float().mean())
+                         + float((dcgan.discriminator(dp, fakes) < 0)
+                                 .float().mean()))
+        wp, _, whist = wasserstein_gan.main(
+            epochs=5, batch_size=32, z_dim=z, n_critic=2, ngf=8, ndf=4,
+            lr=1e-3, x_train=data, iters_per_epoch=12, device=dev,
+            seed=seed, verbose=False)
+        runs.append({
+            "seed": seed,
+            "dcgan_gap_ratio": abs(gen_mean(gp, 6) - dm)
+            / abs(gen_mean(g0, 5) - dm),
+            "dcgan_disc_accuracy": acc,
+            "dcgan_epochs": len(hist["gen_loss"]),
+            "wgan_gap_ratio": abs(gen_mean(wp, 7) - dm)
+            / abs(gen_mean(g0, 7) - dm),
+            "wgan_w_dist_finite": bool(np.all(np.isfinite(
+                whist["w_dist"])))})
+    keys = ("dcgan_gap_ratio", "dcgan_disc_accuracy", "wgan_gap_ratio")
+    med = {k: float(np.median([r[k] for r in runs])) for k in keys}
+    with open(GAN_REFERENCE) as f:
+        jref = json.load(f)
+    rank_p = {k: _rank_sum_p([r[k] for r in runs],
+                             [r[k] for r in jref["runs"]]) for k in keys}
+    recs["dynamics"] = {
+        "runs": runs, "median": med, "rank_sum_p": rank_p,
+        "wgan_under_bound": sum(r["wgan_gap_ratio"] < 0.15 for r in runs),
+        "jax_wgan_under_bound": sum(r["wgan_gap_ratio"] < 0.15
+                                    for r in jref["runs"]),
+        "jax_median": jref["median"], "jax_runs": jref["runs"],
+        "wall_s": time.perf_counter() - t0}
+    if not (med["dcgan_gap_ratio"] < 0.85
+            and med["dcgan_disc_accuracy"] < 0.8
+            and min(rank_p.values()) >= GAN_RANK_P
+            and all(r["wgan_w_dist_finite"] and r["dcgan_epochs"] == 8
+                    for r in runs)):
+        failures.append("GAN training dynamics: medians {}, rank-sum p "
+                        "{}".format(med, rank_p))
+    return recs, failures
+
+
+def phase_covariance_topics_gans(torch, dev):
+    """Phase 36 (budget about 90 s): the NUTS kernel on the covariance
+    built-in, ``covariance_estimation`` at the JAX defaults, the LKJ,
+    Wishart and special classes on the card, and the matrix factorization,
+    topic-model and GAN examples with their JAX tests' gates."""
+    ref = _cov_reference()
+    t0 = time.perf_counter()
+    cases, timing, max_err, failures = _cov_kernel_vs_plain(torch, dev, ref)
+    print("phase36 kernel_vs_plain " + json.dumps({
+        "cases": cases, "timing": timing,
+        "seconds": time.perf_counter() - t0}), flush=True)
+    rec, launches, fail_ex = _cov_example(torch, dev, ref)
+    failures += fail_ex
+    print("phase36 covariance_estimation " + json.dumps(rec), flush=True)
+    t0 = time.perf_counter()
+    zoo, zoo_fail = _cov_zoo(torch, dev)
+    failures += zoo_fail
+    print("phase36 zoo " + json.dumps(dict(
+        zoo, seconds=time.perf_counter() - t0)), flush=True)
+    recs, ex_fail = _topic_pmf_examples(torch, dev)
+    failures += ex_fail
+    for name, r in recs.items():
+        print("phase36 {} {}".format(name, json.dumps(r)), flush=True)
+    recs, gan_fail = _gan_examples(torch, dev)
+    failures += gan_fail
+    print("phase36 gans " + json.dumps(recs), flush=True)
+    check(not failures, "phase 36: " + "; ".join(failures))
+    return launches, max_err, timing
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5396,7 +5904,69 @@ def run_phase(name, fn, *args):
     return out
 
 
-def main():
+# The phases run last, a group a child process (see the module docstring),
+# grouped to take about the same time: 66, 76 and 73 s one after another
+# on an H100 host.
+EXAMPLE_PHASES = (
+    (("phase30", "phase_flows"), ("phase20", "phase_iwae_main_path"),
+     ("phase21", "phase_sbn_main_path"),
+     ("phase23", "phase_distribution_zoo")),
+    (("phase28", "phase_checking_examples"), ("phase27", "phase_ais"),
+     ("phase19", "phase_vae_main_path"),
+     ("phase25", "phase_example_trainings")),
+    (("phase33", "phase_samplers_changepoint"), ("phase29", "phase_gp"),
+     ("phase22", "phase_configs")),
+)
+EXAMPLE_TIMEOUT = 600  # seconds for the children together
+
+
+def run_example_phases(torch):
+    """Every group of ``EXAMPLE_PHASES``, each in a child process
+    (``--worker``), all at once; their output is printed after they end,
+    in group order."""
+    torch.cuda.empty_cache()  # leave the card's memory to the children
+    procs, outs, threads = [], [], []
+    try:
+        for group in EXAMPLE_PHASES:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 ",".join(name for name, _ in group)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            outs.append(None)
+
+        def drain(i):
+            outs[i] = procs[i].communicate()
+
+        for i in range(len(procs)):
+            threads.append(threading.Thread(target=drain, args=(i,),
+                                            daemon=True))
+            threads[-1].start()
+        deadline = time.monotonic() + EXAMPLE_TIMEOUT
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    for t in threads:
+        t.join()
+    failed = []
+    for group, p, (out, err) in zip(EXAMPLE_PHASES, procs, outs):
+        sys.stdout.write(out)
+        sys.stderr.write(err)
+        if p.returncode:
+            failed.append("{} (exit code {})".format(
+                ",".join(name for name, _ in group), p.returncode))
+    sys.stdout.flush()
+    check(not failed, "example phases failed or were stopped: {}".format(
+        "; ".join(failed)))
+
+
+def _setup():
     import torch
 
     if not torch.cuda.is_available():
@@ -5407,6 +5977,22 @@ def main():
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    return torch, dev
+
+
+def worker(names):
+    """A child's part of :func:`run_example_phases`: the group of
+    ``EXAMPLE_PHASES`` whose phase names ``names`` (comma-separated)
+    lists."""
+    torch, dev = _setup()
+    group, = [g for g in EXAMPLE_PHASES
+              if ",".join(name for name, _ in g) == names]
+    for name, fn in group:
+        run_phase(name, globals()[fn], torch, dev)
+
+
+def main():
+    torch, dev = _setup()
     run_phase("phase1", phase_device, torch)
     run_phase("phase2", phase_build)
     max_err, ms, plain_ms = run_phase("phase3", phase_kernel_vs_plain, torch,
@@ -5432,29 +6018,24 @@ def main():
     advi_err, advi_timing = run_phase("phase17", phase_advi_vs_plain, torch,
                                       dev)
     advi_launches = run_phase("phase18", phase_advi_main_path, torch, dev)
-    run_phase("phase19", phase_vae_main_path, torch, dev)
-    run_phase("phase20", phase_iwae_main_path, torch, dev)
-    run_phase("phase21", phase_sbn_main_path, torch, dev)
-    run_phase("phase22", phase_configs, torch, dev)
-    run_phase("phase23", phase_distribution_zoo, torch, dev)
     gauss_launches, gauss_err, gauss_t = run_phase(
         "phase24", phase_gaussian_example, torch, dev)
-    run_phase("phase25", phase_example_trainings, torch, dev)
     wf_launches, wf_err, wf_t = run_phase("phase26", phase_workflow, torch,
                                           dev)
-    run_phase("phase27", phase_ais, torch, dev)
-    run_phase("phase28", phase_checking_examples, torch, dev)
-    run_phase("phase29", phase_gp, torch, dev)
-    run_phase("phase30", phase_flows, torch, dev)
     ex_launches, ex_err, ex_t = run_phase("phase31", phase_svgd_toys, torch,
                                           dev)
     pf_launches, pf_err, pf_t = run_phase("phase32", phase_laplace_pathfinder,
                                           torch, dev)
-    run_phase("phase33", phase_samplers_changepoint, torch, dev)
     smc_launches, smc_err, smc_t = run_phase("phase34", phase_smc_ssm,
                                              torch, dev)
     rob_launches, rob_err, rob_t = run_phase("phase35", phase_robust_models,
                                              torch, dev)
+    cov_launches, cov_err, cov_t = run_phase(
+        "phase36", phase_covariance_topics_gans, torch, dev)
+    t0 = time.perf_counter()
+    run_example_phases(torch)
+    print("example phases seconds {:.3f} ({} children)".format(
+        time.perf_counter() - t0, len(EXAMPLE_PHASES)), flush=True)
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -5700,11 +6281,27 @@ def main():
               "bound_ms"]}),
         ("ordinal regression", "ordinal_regression", "ordinal", {}),
         ("Weibull AFT survival", "survival_regression", "survival", {}))
-    ] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
+    ] + [{
+        "name": "fused_nuts_transition (LKJ covariance, {} x {}, scatter "
+                "matrix, depth {})".format(*cov_t["shape"], cov_t["depth"]),
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/nuts_step.cu",
+        "replaces": ["zhusuan_tpu/ops/nuts_step.py:331",
+                     "zhusuan_tpu/ops/nuts_step.py:641"],
+        "launches": cov_launches,
+        "max_abs_err": cov_err,
+        "ms": cov_t["kernel_graph_ms"],
+        "ms_back_to_back": cov_t["kernel_ms"],
+        "plain_ms": cov_t["plain_ms"],
+        **bound(cov_t),
+    }] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
+    else:
+        main()

@@ -46,7 +46,14 @@ examples; the heads of ``extra.py`` (``StudentT`` to ``VonMises``) and
 ``Mixture`` with their ``BayesianNet`` methods, driven by the robust,
 ordinal and survival regression, eight-schools and Gaussian-mixture
 examples, whose NUTS runs take the NUTS kernel through built-in densities
-over several latents (:class:`.ops.densities.LatentDictDensity`).
+over several latents (:class:`.ops.densities.LatentDictDensity`);
+``LKJCholesky``, ``Wishart``, ``Empirical`` and ``Implicit`` with
+``BayesianNet.implicit`` / ``empirical``, driven by the covariance
+estimation example (NUTS on the kernel through
+:class:`.ops.densities.CovarianceEstimationLogJoint`), the matrix
+factorization, topic-model and GAN examples; and the deprecated
+self-registering wrappers of :mod:`.legacy`, re-exported flat here as the
+JAX package does (``zhusuan_tpu_torch.Normal`` is the legacy wrapper).
 """
 
 from zhusuan_tpu_torch import (
@@ -57,6 +64,7 @@ from zhusuan_tpu_torch import (
     fit,
     framework,
     gp,
+    legacy,
     mcmc,
     ops,
     smc,
@@ -109,6 +117,7 @@ from zhusuan_tpu_torch.mcmc import (
     whiten_log_joint,
 )
 from zhusuan_tpu_torch.ops import (
+    CovarianceEstimationLogJoint,
     DiagonalGaussianLogJoint,
     EightSchoolsLogJoint,
     EquicorrelatedGaussianLogJoint,
@@ -123,6 +132,7 @@ from zhusuan_tpu_torch.ops import (
     gpu_normal,
     gpu_uniform,
 )
+from zhusuan_tpu_torch.legacy import *  # noqa: F401,F403
 from zhusuan_tpu_torch.smc import *  # noqa: F401,F403
 from zhusuan_tpu_torch.ssm import *  # noqa: F401,F403
 from zhusuan_tpu_torch.variational import (
@@ -170,6 +180,7 @@ __all__ = [
     "SliceInfo",
     "SliceSampler",
     "SliceState",
+    "CovarianceEstimationLogJoint",
     "DiagonalGaussianLogJoint",
     "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
@@ -190,7 +201,7 @@ __all__ = [
     "gpu_uniform",
     "make_fit_epoch",
     "whiten_log_joint",
-] + smc.__all__ + ssm.__all__ + [
+] + smc.__all__ + ssm.__all__ + legacy.__all__ + [
     "bijectors",
     "diagnostics",
     "distributions",
@@ -198,6 +209,7 @@ __all__ = [
     "fit",
     "framework",
     "gp",
+    "legacy",
     "mcmc",
     "ops",
     "smc",

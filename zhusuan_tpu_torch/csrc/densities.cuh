@@ -41,7 +41,8 @@ enum DensityId {
   kEightSchools = 3,
   kEightSchoolsCentred = 4,
   kOrderedLogisticRegression = 5,
-  kWeibullAFT = 6
+  kWeibullAFT = 6,
+  kCovarianceEstimation = 7
 };
 
 // A lane's partial sum of a row: summed over the warp that shares the row,
@@ -581,6 +582,215 @@ struct WeibullAFT {
     }
     own_elements(G, r, g);
     return static_cast<float>(acc[0]);
+  }
+};
+
+// The covariance posterior of examples/hierarchical/covariance_estimation.py
+// in its unconstrained space (CovarianceEstimationLogJoint): elements
+// y [K(K-1)/2] (the partial correlations z = tanh(y), row-major in the strict
+// lower triangle; L is CorrelationCholesky's factor), then u [K] (the scales
+// s = softplus(u)); 2 <= K <= 5. One data row: the scatter matrix S (K x K,
+// float32). Constants K, n, C, then a_j - n/2 for j < K - 1. In closed form:
+//   log p = sum_a (-s_a^2/2 + log sigmoid(u_a) - n log s_a) - tr(W M W^T)/2
+//           + sum_{i>j} (a_j - n/2) log(1 - z_ij^2) + C,
+// W = L^-1, M = diag(1/s) S diag(1/s). Every lane of the chain's group
+// evaluates the whole density (it does not depend on the data size), in the
+// plain version's order: each sum accumulated in double left to right and
+// rounded once. Where a z rounds to +-1 or a diagonal entry of L underflows
+// to 0 the closure is not finite: log p is -inf and the gradient 0.
+template <int L>
+struct CovarianceEstimation {
+  static constexpr bool kCarried = true;
+  static constexpr int kMax = 16, kMaxK = 5, kMaxPairs = 10;
+  const float* tab;
+  int k, m;
+  float n, c0;
+  float coef[kMaxK - 1];
+  int r;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       int lane, int) {
+    tab = p0;
+    r = lane;
+    k = static_cast<int>(p1[0]);
+    m = k * (k - 1) / 2;
+    n = p1[1];
+    c0 = p1[2];
+#pragma unroll
+    for (int j = 0; j < kMaxK - 1; ++j) coef[j] = j < k - 1 ? p1[3 + j] : 0.0f;
+  }
+
+  __device__ __forceinline__ float value_and_grad(const float (&x)[4],
+                                                  float (&g)[4]) const {
+    float P[kMax];
+    gather_row<L>(x, P);
+    float u[kMaxK];
+#pragma unroll
+    for (int a = 0; a < kMaxK; ++a) {
+      float v = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMax; ++j) v = j == m + a ? P[j] : v;
+      u[a] = v;
+    }
+    float sp[kMaxK], isp[kMaxK];
+#pragma unroll
+    for (int a = 0; a < kMaxK; ++a) {
+      sp[a] = softplus_k(u[a]);
+      isp[a] = 1.0f / sp[a];
+    }
+    // Pair e = i (i - 1) / 2 + j of row i > column j.
+    float z[kMaxPairs], lz[kMaxPairs], om[kMaxPairs];
+#pragma unroll
+    for (int e = 0; e < kMaxPairs; ++e) {
+      z[e] = tanhf(P[e]);
+      const float zz = z[e] * z[e];
+      lz[e] = log1pf(-zz);
+      om[e] = 1.0f - zz;
+    }
+    float R[kMaxK][kMaxK], Lm[kMaxK][kMaxK];
+    bool bad = false;
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+      float p = 0.0f;
+#pragma unroll
+      for (int j = 0; j < i; ++j) {
+        const int e = i * (i - 1) / 2 + j;
+        R[i][j] = expf(0.5f * p);
+        Lm[i][j] = z[e] * R[i][j];
+        p = p + lz[e];
+        if (i < k) bad = bad || !(lz[e] > -INFINITY);
+      }
+      R[i][i] = expf(0.5f * p);
+      Lm[i][i] = R[i][i];
+      if (i < k) bad = bad || !(Lm[i][i] > 0.0f);
+    }
+    float W[kMaxK][kMaxK];
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+      W[i][i] = 1.0f / Lm[i][i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) {
+        double acc = static_cast<double>(Lm[i][j]) * static_cast<double>(W[j][j]);
+#pragma unroll
+        for (int q = j + 1; q < i; ++q)
+          acc = acc + static_cast<double>(Lm[i][q]) * static_cast<double>(W[q][j]);
+        W[i][j] = -static_cast<float>(acc) * W[i][i];
+      }
+    }
+    float M[kMaxK][kMaxK];
+#pragma unroll
+    for (int a = 0; a < kMaxK; ++a) {
+#pragma unroll
+      for (int b = a; b < kMaxK; ++b) {
+        const float v = (a < k && b < k) ? (tab[a * k + b] * isp[a]) * isp[b] : 0.0f;
+        M[a][b] = v;
+        M[b][a] = v;
+      }
+    }
+    float T[kMaxK][kMaxK];  // W M
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+#pragma unroll
+      for (int b = 0; b < kMaxK; ++b) {
+        double acc = static_cast<double>(W[i][0]) * static_cast<double>(M[0][b]);
+#pragma unroll
+        for (int q = 1; q <= i; ++q)
+          acc = acc + static_cast<double>(W[i][q]) * static_cast<double>(M[q][b]);
+        T[i][b] = static_cast<float>(acc);
+      }
+    }
+    float V[kMaxK][kMaxK];  // W M W^T
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+#pragma unroll
+      for (int j = 0; j < kMaxK; ++j) {
+        double acc = static_cast<double>(T[i][0]) * static_cast<double>(W[j][0]);
+#pragma unroll
+        for (int q = 1; q <= j; ++q)
+          acc = acc + static_cast<double>(T[i][q]) * static_cast<double>(W[j][q]);
+        V[i][j] = static_cast<float>(acc);
+      }
+    }
+    double quad = 0.0;
+    bool first = true;
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+#pragma unroll
+      for (int q = 0; q <= i; ++q) {
+        if (i >= k) continue;
+        const double t = static_cast<double>(T[i][q]) * static_cast<double>(W[i][q]);
+        quad = first ? t : quad + t;
+        first = false;
+      }
+    }
+    const double nd = static_cast<double>(n);
+    double lp = 0.0;
+#pragma unroll
+    for (int a = 0; a < kMaxK; ++a) {
+      if (a >= k) continue;
+      const double t = static_cast<double>(-0.5f * (sp[a] * sp[a]));
+      lp = a == 0 ? t : lp + t;
+      lp = lp + static_cast<double>(log_sigmoid_k(u[a]));
+      lp = lp - nd * static_cast<double>(logf(sp[a]));
+    }
+    lp = lp - 0.5 * quad;
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+#pragma unroll
+      for (int j = 0; j < i; ++j)
+        if (i < k) lp = lp + static_cast<double>(coef[j]) * static_cast<double>(lz[i * (i - 1) / 2 + j]);
+    }
+    lp = lp + static_cast<double>(c0);
+    float G[kMax];
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) G[j] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < kMaxK; ++a) {  // the scales, through Softplus
+      double h = static_cast<double>(W[a][a]) * static_cast<double>(T[a][a]);
+#pragma unroll
+      for (int q = a + 1; q < kMaxK; ++q)
+        if (q < k) h = h + static_cast<double>(W[q][a]) * static_cast<double>(T[q][a]);
+      double acc = -static_cast<double>(sp[a]) - nd * static_cast<double>(isp[a]);
+      acc = acc + static_cast<double>(isp[a]) * h;
+      const float gu = static_cast<float>(acc) * sigmoid_k(u[a]) + sigmoid_k(-u[a]);
+#pragma unroll
+      for (int j = 0; j < kMax; ++j)
+        if (a < k && j == m + a) G[j] = gu;
+    }
+    // G_ij = (W^T V)_ij in double, then the partial correlations.
+    double Gd[kMaxK][kMaxK];
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        double acc = static_cast<double>(W[i][i]) * static_cast<double>(V[i][j]);
+#pragma unroll
+        for (int q = i + 1; q < kMaxK; ++q)
+          if (q < k) acc = acc + static_cast<double>(W[q][i]) * static_cast<double>(V[q][j]);
+        Gd[i][j] = acc;
+      }
+    }
+#pragma unroll
+    for (int i = 1; i < kMaxK; ++i) {
+#pragma unroll
+      for (int j = 0; j < i; ++j) {
+        const int e = i * (i - 1) / 2 + j;
+        double acc = (static_cast<double>(om[e]) * Gd[i][j]) * static_cast<double>(R[i][j]);
+        double s_acc = Gd[i][j + 1] * static_cast<double>(Lm[i][j + 1]);
+#pragma unroll
+        for (int q = j + 2; q <= i; ++q) s_acc = s_acc + Gd[i][q] * static_cast<double>(Lm[i][q]);
+        const double zd = static_cast<double>(z[e]);
+        acc = acc - zd * s_acc;
+        acc = acc - (2.0 * static_cast<double>(coef[j])) * zd;
+        if (i < k) G[e] = static_cast<float>(acc);
+      }
+    }
+    if (bad) {
+#pragma unroll
+      for (int j = 0; j < kMax; ++j) G[j] = 0.0f;
+    }
+    own_elements(G, r, g);
+    return bad ? -INFINITY : static_cast<float>(lp);
   }
 };
 

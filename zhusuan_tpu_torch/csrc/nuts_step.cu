@@ -702,6 +702,8 @@ int dispatch_carried(int density, const Args& a, cudaStream_t stream) {
       return launch_data<zs::OrderedLogisticRegression>(a, stream);
     case zs::kWeibullAFT:
       return launch_data<zs::WeibullAFT>(a, stream);
+    case zs::kCovarianceEstimation:
+      return launch_data<zs::CovarianceEstimation>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -798,7 +800,7 @@ extern "C" int zs_fused_nuts_transition(
 }
 
 // The same transition on a built-in density over several latents with data
-// (density: zs::DensityId 3-6, csrc/densities.cuh): data is its float32 table
+// (density: zs::DensityId 3-7, csrc/densities.cuh): data is its float32 table
 // of n_rows rows, consts its float32 constants, dim <= 16; the stacks' scratch
 // buffer as above. The rest as zs_fused_nuts_transition.
 extern "C" int zs_fused_nuts_transition_data(

@@ -3,7 +3,8 @@
 The port's own copies of what its examples need from
 ``examples/utils/dataset.py`` (the file-or-synthetic MNIST and UCI loaders,
 the semi-supervised MNIST split, the scikit-learn diabetes set, German
-credits, ``standardize``) and from
+credits, ``standardize``, CIFAR-10, the UCI bag-of-words corpora and
+MovieLens-1M) and from
 ``baseline_ref/configs_protocol.py:56-93`` (the synthetic splits of the
 measured SVGP recipe). Everything is numpy; nothing is downloaded: the UCI
 files are read from ``ZS_DATA_DIR`` when present, else replaced by
@@ -19,10 +20,11 @@ import struct
 import numpy as np
 
 __all__ = [
-    "synthetic_regression", "standardize", "regression_splits",
+    "data_dir", "synthetic_regression", "standardize", "regression_splits",
     "load_uci_boston_housing", "load_uci_diabetes", "diabetes_arrays",
     "save_uci_diabetes", "load_uci_protein_data", "load_uci_german_credits", "load_mnist_realval", "load_binary_mnist",
     "to_one_hot", "load_mnist_semi_supervised", "epoch_batches",
+    "load_cifar10", "load_uci_bow", "load_movielens1m",
 ]
 
 
@@ -64,7 +66,9 @@ def regression_splits(cfg):
             float(std_y))
 
 
-def _data_dir():
+def data_dir():
+    """Where the loaders look for data files: ``ZS_DATA_DIR``, else
+    ``~/.zhusuan_tpu/data`` (the JAX package's ``data_dir``)."""
     return os.environ.get("ZS_DATA_DIR",
                           os.path.expanduser("~/.zhusuan_tpu/data"))
 
@@ -87,7 +91,7 @@ def load_uci_boston_housing(path=None, seed=0):
     :return: ``(x_train, y_train, x_valid, y_valid, x_test, y_test,
         synthetic)``.
     """
-    base = path or os.path.join(_data_dir(), "housing.data")
+    base = path or os.path.join(data_dir(), "housing.data")
     if os.path.exists(base):
         data = np.loadtxt(base)
         synthetic = False
@@ -116,7 +120,7 @@ def diabetes_arrays(path=None):
     """The raw diabetes arrays ``(data [442, 10], target [442])`` in
     float64: from ``path`` or ``diabetes.npz`` under ``ZS_DATA_DIR`` when
     present, else from scikit-learn (see :func:`load_uci_diabetes`)."""
-    base = path or os.path.join(_data_dir(), "diabetes.npz")
+    base = path or os.path.join(data_dir(), "diabetes.npz")
     if os.path.exists(base):
         with np.load(base) as f:
             data, target = f["data"], f["target"]
@@ -149,7 +153,7 @@ def load_uci_protein_data(path=None, seed=0):
     """Protein structure (45730 x 9; reference ``dataset.py:347-370``) from
     ``protein.data`` under ``ZS_DATA_DIR`` when present (first column the
     target), else synthetic."""
-    base = path or os.path.join(_data_dir(), "protein.data")
+    base = path or os.path.join(data_dir(), "protein.data")
     if os.path.exists(base):
         data = np.loadtxt(base, delimiter=",", skiprows=1)
         y, x = data[:, 0], data[:, 1:]
@@ -168,7 +172,7 @@ def load_uci_german_credits(path=None, n_train=700, seed=0):
 
     :return: ``(x_train, y_train, x_test, y_test, synthetic)``.
     """
-    base = path or os.path.join(_data_dir(), "german.data-numeric")
+    base = path or os.path.join(data_dir(), "german.data-numeric")
     if os.path.exists(base):
         data = np.loadtxt(base)
         x, y = data[:, :-1], data[:, -1] - 1
@@ -233,7 +237,7 @@ def load_mnist_realval(path=None):
     :return: ``(x_train, t_train, x_valid, t_valid, x_test, t_test,
         synthetic)``.
     """
-    base = path or os.path.join(_data_dir(), "mnist")
+    base = path or os.path.join(data_dir(), "mnist")
     files = [
         "train-images-idx3-ubyte.gz",
         "train-labels-idx1-ubyte.gz",
@@ -306,3 +310,148 @@ def epoch_batches(n_rows, batch_size, epoch, max_batches=None):
         n = min(n, max_batches)
     perm = np.random.RandomState(epoch).permutation(n_rows)
     return perm[:n * batch_size].reshape(n, batch_size)
+
+
+def load_cifar10(path=None, normalize=True, one_hot=True, seed=0):
+    """CIFAR-10 (``examples/utils/dataset.py:269-318``; reference
+    ``dataset.py:198``): the pickled batches under ``ZS_DATA_DIR`` when
+    present, else a deterministic synthetic 32x32x3 set (``RandomState(seed)``
+    draws, equal to the JAX package's).
+
+    :return: ``(x_train, t_train, x_test, t_test, synthetic)``.
+    """
+    import pickle as _pickle
+    import tarfile
+
+    base = path or os.path.join(data_dir(), "cifar-10-python.tar.gz")
+    if os.path.exists(base):
+        xs, ts, xs_test, ts_test = [], [], [], []
+        with tarfile.open(base) as tar:
+            for member in tar.getmembers():
+                name = os.path.basename(member.name)
+                if name.startswith("data_batch") or name == "test_batch":
+                    d = _pickle.load(tar.extractfile(member),
+                                     encoding="bytes")
+                    data = d[b"data"].reshape(-1, 3, 32, 32).transpose(
+                        0, 2, 3, 1
+                    )
+                    if name == "test_batch":
+                        xs_test.append(data)
+                        ts_test.extend(d[b"labels"])
+                    else:
+                        xs.append(data)
+                        ts.extend(d[b"labels"])
+        x_train = np.concatenate(xs).astype(np.float32)
+        x_test = np.concatenate(xs_test).astype(np.float32)
+        t_train = np.asarray(ts, np.int32)
+        t_test = np.asarray(ts_test, np.int32)
+        synthetic = False
+    else:
+        rng = np.random.RandomState(seed)
+        base_imgs = rng.rand(10, 32, 32, 3)
+        t_train = rng.randint(0, 10, 50000).astype(np.int32)
+        t_test = rng.randint(0, 10, 10000).astype(np.int32)
+        x_train = (base_imgs[t_train] * 0.7
+                   + 0.3 * rng.rand(50000, 32, 32, 3)) * 255
+        x_test = (base_imgs[t_test] * 0.7
+                  + 0.3 * rng.rand(10000, 32, 32, 3)) * 255
+        x_train = x_train.astype(np.float32)
+        x_test = x_test.astype(np.float32)
+        synthetic = True
+    if normalize:
+        x_train /= 255.0
+        x_test /= 255.0
+    if one_hot:
+        t_train = to_one_hot(t_train, 10)
+        t_test = to_one_hot(t_test, 10)
+    return x_train, t_train, x_test, t_test, synthetic
+
+
+def load_uci_bow(data_name="nips", path=None, n_docs=1500, n_vocab=1000,
+                 seed=0):
+    """UCI bag-of-words corpus (``examples/utils/dataset.py:339-371``;
+    reference ``dataset.py:373,422``); the synthetic LDA-like fallback
+    (``RandomState(seed)`` draws) equals the JAX package's.
+
+    :return: ``(doc_word_counts [n_docs, n_vocab] float32, vocab list,
+        synthetic)``.
+    """
+    base = path or os.path.join(data_dir(),
+                                "docword.{}.txt".format(data_name))
+    vocab_path = os.path.join(data_dir(), "vocab.{}.txt".format(data_name))
+    if os.path.exists(base):
+        with open(base) as f:
+            n_docs = int(f.readline())
+            n_vocab = int(f.readline())
+            f.readline()  # nnz
+            X = np.zeros((n_docs, n_vocab), np.float32)
+            for line in f:
+                d, w, c = map(int, line.split())
+                X[d - 1, w - 1] = c
+        if os.path.exists(vocab_path):
+            with open(vocab_path) as f:
+                vocab = [line.strip() for line in f]
+        else:
+            vocab = [str(i) for i in range(n_vocab)]
+        return X, vocab, False
+    rng = np.random.RandomState(seed)
+    n_topics = 25
+    phi = rng.dirichlet(np.full(n_vocab, 0.05), n_topics)
+    theta = rng.dirichlet(np.full(n_topics, 0.2), n_docs)
+    doc_word = theta @ phi
+    lengths = rng.poisson(150, n_docs) + 30
+    X = np.stack([
+        rng.multinomial(n, p) for n, p in zip(lengths, doc_word)
+    ]).astype(np.float32)
+    vocab = ["w{}".format(i) for i in range(n_vocab)]
+    return X, vocab, True
+
+
+def load_movielens1m(path=None, seed=0):
+    """MovieLens-1M ratings (``examples/utils/dataset.py:374-426``;
+    reference ``dataset.py:466,528``); the synthetic low-rank fallback
+    (``RandomState(seed)`` draws) equals the JAX package's.
+
+    :return: ``(n_users, n_movies, (user_idx, movie_idx, rating) train,
+        same valid, same test, synthetic)``.
+    """
+    base = path or os.path.join(data_dir(), "ml-1m", "ratings.dat")
+    if os.path.exists(base):
+        rows = []
+        with open(base, encoding="latin-1") as f:
+            for line in f:
+                u, m, r, _ = line.strip().split("::")
+                rows.append((int(u) - 1, int(m) - 1, float(r)))
+        arr = np.asarray(rows)
+        synthetic = False
+    else:
+        rng = np.random.RandomState(seed)
+        n_users, n_movies, n_obs = 6040, 3706, 1000209
+        u_f = rng.randn(n_users, 8)
+        m_f = rng.randn(n_movies, 8)
+        ui = rng.randint(0, n_users, n_obs)
+        mi = rng.randint(0, n_movies, n_obs)
+        r = np.clip(
+            np.round(2.5 + 0.8 * np.sum(u_f[ui] * m_f[mi], -1) / 8 * 5
+                     + 0.5 * rng.randn(n_obs)),
+            1, 5,
+        )
+        arr = np.stack([ui, mi, r], axis=1)
+        synthetic = True
+    rng = np.random.RandomState(seed + 1)
+    perm = rng.permutation(arr.shape[0])
+    arr = arr[perm]
+    n = arr.shape[0]
+    n_tr, n_va = int(0.85 * n), int(0.05 * n)
+    n_users = int(arr[:, 0].max()) + 1
+    n_movies = int(arr[:, 1].max()) + 1
+
+    def unpack(a):
+        return (a[:, 0].astype(np.int32), a[:, 1].astype(np.int32),
+                a[:, 2].astype(np.float32))
+
+    return (
+        n_users, n_movies,
+        unpack(arr[:n_tr]), unpack(arr[n_tr:n_tr + n_va]),
+        unpack(arr[n_tr + n_va:]), synthetic,
+    )

@@ -6,8 +6,8 @@ Port of ``zhusuan_tpu/framework/bn.py`` (parity: reference
 ``cond_log_prob``/``log_joint`` (bn.py:319-497), the compatibility queries
 ``outputs``/``local_log_prob``/``query`` (bn.py:1200-1249), and the sugar
 methods of every distribution of ``univariate.py``, ``multivariate.py``,
-``extra.py`` and ``mixture.py`` (34 methods and 6 aliases, in the JAX
-package's order); ``implicit`` and ``empirical`` come with ``special.py``.
+``extra.py``, ``special.py`` and ``mixture.py`` (36 methods and 6 aliases,
+in the JAX package's order).
 
 Randomness: a net's ``key`` is an int seed. Each unobserved node draws from
 its own ``torch.Generator`` on its distribution's device, seeded from
@@ -197,6 +197,11 @@ class BayesianNet(Context):
 
     def _noise_for(self, name: str):
         return self._noise.get(name)
+
+    def _get_observation(self, name):
+        """The observation bound to node ``name``, or None (the legacy
+        wrappers pick theirs up so)."""
+        return self._observed.get(name, None)
 
     # -- node creation ------------------------------------------------- #
     @property
@@ -746,6 +751,24 @@ class BayesianNet(Context):
         return self.stochastic(name, dist, n_samples=n_samples)
 
     gumbel_softmax = concrete
+
+    def implicit(self, name, samples, value_shape=(), group_ndims=0,
+                 **kwargs):
+        """Add an Implicit node wrapping samples made elsewhere (GAN
+        support; reference legacy/distributions/special.py:96)."""
+        dist = distributions.Implicit(
+            samples, value_shape=value_shape, group_ndims=group_ndims,
+            **kwargs)
+        return self.stochastic(name, dist)
+
+    def empirical(self, name, dtype, batch_shape=(), value_shape=(),
+                  group_ndims=0, **kwargs):
+        """Add an Empirical (always observed) node (reference
+        legacy/distributions/special.py:19)."""
+        dist = distributions.Empirical(
+            dtype, batch_shape=batch_shape, value_shape=value_shape,
+            group_ndims=group_ndims, **kwargs)
+        return self.stochastic(name, dist)
 
     def mixture(
         self, name, logits, components, group_ndims=0, n_samples=None,

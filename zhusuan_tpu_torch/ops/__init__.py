@@ -38,6 +38,7 @@ from zhusuan_tpu_torch.ops.chees_step import (
 )
 from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
+    CovarianceEstimationLogJoint,
     DiagonalGaussianLogJoint,
     EightSchoolsLogJoint,
     EquicorrelatedGaussianLogJoint,
@@ -99,6 +100,7 @@ from zhusuan_tpu_torch.ops.sgnht_step import (
 
 __all__ = [
     "BuiltinDensity",
+    "CovarianceEstimationLogJoint",
     "DiagonalGaussianLogJoint",
     "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",

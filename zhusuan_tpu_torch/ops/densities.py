@@ -17,11 +17,13 @@ kernel takes (``DENSITIES``); any other log-joint takes the plain path.
 - :class:`TemperedLogJoint`: the tempered bridge ``(1 - beta) log p0 +
   beta log p1`` between two of the Gaussians above, ``beta`` a device
   scalar; annealed SMC's HMC moves take it, and K1 alone evaluates it.
-- :class:`EightSchoolsLogJoint`, :class:`OrderedLogisticRegressionLogJoint`
-  and :class:`WeibullAFTLogJoint` (:class:`LatentDictDensity`): the
-  unconstrained posteriors of ``examples/hierarchical/eight_schools.py``,
-  ``examples/robust_models/ordinal_regression.py`` and
-  ``survival_regression.py``, over several latents and with the data they
+- :class:`EightSchoolsLogJoint`, :class:`OrderedLogisticRegressionLogJoint`,
+  :class:`WeibullAFTLogJoint` and :class:`CovarianceEstimationLogJoint`
+  (:class:`LatentDictDensity`): the unconstrained posteriors of
+  ``examples/hierarchical/eight_schools.py``,
+  ``examples/robust_models/ordinal_regression.py``,
+  ``survival_regression.py`` and ``examples/hierarchical/
+  covariance_estimation.py``, over several latents and with the data they
   hold; the NUTS kernel alone evaluates them.
 
 Beside ``log_prob`` (plain torch ops, differentiable by autograd) each has
@@ -41,6 +43,7 @@ from torch.autograd.function import once_differentiable
 
 __all__ = [
     "BuiltinDensity",
+    "CovarianceEstimationLogJoint",
     "DiagonalGaussianLogJoint",
     "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
@@ -749,3 +752,205 @@ class WeibullAFTLogJoint(LatentDictDensity):
         g_k = (_sum64(dk) + (-km1).double()).to(x.dtype)
         g_u = g_k * sg + sgm
         return lp, torch.cat([g_beta, g_u[..., None]], dim=-1)
+
+
+def _tril_pairs(k: int):
+    """The strict lower triangle's ``(row, column)`` pairs of a ``[k, k]``
+    matrix, row-major (``np.tril_indices(k, -1)``: CorrelationCholesky's
+    order)."""
+    return [(i, j) for i in range(k) for j in range(i)]
+
+
+class CovarianceEstimationLogJoint(LatentDictDensity):
+    """The covariance posterior of ``examples/hierarchical/
+    covariance_estimation.py`` in its unconstrained space:
+    ``transform_log_joint(build_log_joint(x), {"s": Softplus(), "L":
+    CorrelationCholesky()})[0]``, Jacobians included.
+
+    Latents, in sorted order: ``L [K(K-1)/2]`` (unconstrained ``y``; the
+    partial correlations are ``z = tanh(y)`` row-major in the strict lower
+    triangle, and the correlation factor ``L`` is CorrelationCholesky's)
+    and ``s [K]`` (unconstrained ``u``; the scales are ``softplus(u)``).
+    The model: ``s_a ~ HalfNormal(1)`` (without its constant), ``L ~
+    LKJCholesky(K, eta)``, ``x_i ~ N(0, diag(s) L L^T diag(s))``.
+
+    It is evaluated in closed form. The data enter only through ``n`` and
+    the scatter matrix ``S = sum_i x_i x_i^T`` (formed in float64 on the
+    host; the kernel reads it rounded to float32 once):
+    ``sum_i ||L^-1 diag(1/s) x_i||^2 = tr(W M W^T)`` with ``W = L^-1`` and
+    ``M = diag(1/s) S diag(1/s)``, so a leaf costs O(K^3) whatever ``n``
+    is. The LKJ density, CorrelationCholesky's Jacobian and ``-n sum log
+    diag L`` reduce together to ``sum_{i>j} (a_j - n/2) log(1 - z_ij^2)``
+    plus a constant ``C``, with ``a_j = eta + (K - 2 - j)/2`` and
+    ``log L_ii = 1/2 sum_{k<i} log(1 - z_ik^2)``:
+
+        log p = sum_a (-s_a^2 / 2 + log sigmoid(u_a) - n log s_a)
+                - tr(W M W^T) / 2 + sum_{i>j} (a_j - n/2) log(1 - z_ij^2)
+                + C.
+
+    The closure scores ``-inf`` (or NaN) where a partial correlation rounds
+    to +-1 (``log1p(-z^2) = -inf``) or a diagonal entry of ``L`` underflows
+    to 0 (LKJ's support mask); this density then gives ``-inf`` and a zero
+    gradient, so NUTS sees the same divergence.
+
+    Its gradient is written out (:meth:`value_and_grad`) in the arithmetic
+    of ``csrc/densities.cuh``'s ``CovarianceEstimation``: with ``G = W^T W
+    M W^T`` (minus half ``dQ/dL``, ``Q = tr(W M W^T)``), ``d/dy_ik =
+    (1 - z_ik^2) G_ik r_ik - z_ik sum_{k<j<=i} G_ij L_ij - 2 (a_k - n/2)
+    z_ik`` (``r_ik = L_ik / z_ik``, the stick remainder), and ``d/ds_a =
+    -s_a - n/s_a + (W^T W M)_aa / s_a``, through Softplus. Every sum is
+    accumulated in float64 in a fixed order and rounded once.
+
+    Data table ``[1, K * K]``: ``S``; constants ``(K, n, C, a_0 - n/2, ...,
+    a_{K-2} - n/2)``.
+
+    :param x: ``[n, K]`` observations (K >= 2).
+    :param eta: the LKJ concentration.
+    """
+
+    #: Largest K the kernel takes (``K (K + 1) / 2 <= 16`` elements a row).
+    MAX_K = 5
+
+    kernel_id = 7
+
+    def __init__(self, x, eta: float = 2.0):
+        x = _host64(x)
+        if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 2:
+            raise ValueError("x must be [n, K] with n >= 1 and K >= 2; got "
+                             "{}.".format(tuple(x.shape)))
+        self.n_obs, self.k = int(x.shape[0]), int(x.shape[1])
+        self.eta = float(eta)
+        if not self.eta > 0.0:
+            raise ValueError("eta must be positive; got {}.".format(eta))
+        k = self.k
+        super().__init__({"L": (k * (k - 1) // 2,), "s": (k,)})
+        self.scatter = x.T @ x
+        a = [self.eta + 0.5 * (k - 2 - j) for j in range(k - 1)]
+        self.const = -sum(
+            (k - 1 - j) * ((2.0 * a[j] - 1.0) * math.log(2.0)
+                           + 2.0 * math.lgamma(a[j]) - math.lgamma(2.0 * a[j]))
+            for j in range(k - 1))
+        self.coef = [a[j] - 0.5 * self.n_obs for j in range(k - 1)]
+
+    def kernel_ineligible(self):
+        if self.k > self.MAX_K:
+            return "the kernel takes K <= {}; got {}".format(self.MAX_K,
+                                                            self.k)
+        return None
+
+    def _params(self):
+        table = self.scatter.reshape(1, self.k * self.k)
+        consts = torch.tensor([self.k, self.n_obs, self.const] + self.coef,
+                              dtype=torch.float64)
+        return table, consts
+
+    def value_and_grad(self, x):
+        table, consts = self._table(x.dtype, x.device)
+        k, m = self.k, self.k * (self.k - 1) // 2
+        n, c0, coef = consts[1], consts[2], consts[3:]
+        S = table[0]
+
+        def d(v):
+            return v.double()
+
+        pairs = _tril_pairs(k)
+        u = [x[..., m + a] for a in range(k)]
+        sp = [_softplus(v) for v in u]
+        sg = [_sigmoid(v) for v in u]
+        sgm = [_sigmoid(-v) for v in u]
+        isp = [1.0 / v for v in sp]
+        z, lz, om = {}, {}, {}
+        for e, (i, j) in enumerate(pairs):
+            z[i, j] = torch.tanh(x[..., e])
+            zz = z[i, j] * z[i, j]
+            lz[i, j] = torch.log1p(-zz)
+            om[i, j] = 1.0 - zz
+        # CorrelationCholesky's factor, row by row: r_ij = exp(p_ij / 2)
+        # with p_ij the sum of the row's log(1 - z^2) before column j.
+        r, L = {}, {}
+        for i in range(k):
+            p = torch.zeros_like(u[0])
+            for j in range(i):
+                r[i, j] = torch.exp(0.5 * p)
+                L[i, j] = z[i, j] * r[i, j]
+                p = p + lz[i, j]
+            r[i, i] = torch.exp(0.5 * p)
+            L[i, i] = r[i, i]
+        bad = torch.zeros_like(u[0], dtype=torch.bool)
+        for key in pairs:
+            bad = bad | ~(lz[key] > -math.inf)
+        for i in range(k):
+            bad = bad | ~(L[i, i] > 0.0)
+        # W = L^-1 by forward substitution.
+        W = {}
+        for i in range(k):
+            W[i, i] = 1.0 / L[i, i]
+            for j in range(i):
+                acc = d(L[i, j]) * d(W[j, j])
+                for q in range(j + 1, i):
+                    acc = acc + d(L[i, q]) * d(W[q, j])
+                W[i, j] = -acc.to(x.dtype) * W[i, i]
+        M = {}
+        for a in range(k):
+            for b in range(a, k):
+                M[a, b] = (S[a * k + b] * isp[a]) * isp[b]
+                M[b, a] = M[a, b]
+        T = {}  # W M
+        for i in range(k):
+            for b in range(k):
+                acc = d(W[i, 0]) * d(M[0, b])
+                for q in range(1, i + 1):
+                    acc = acc + d(W[i, q]) * d(M[q, b])
+                T[i, b] = acc.to(x.dtype)
+        V = {}  # W M W^T
+        for i in range(k):
+            for j in range(k):
+                acc = d(T[i, 0]) * d(W[j, 0])
+                for q in range(1, j + 1):
+                    acc = acc + d(T[i, q]) * d(W[j, q])
+                V[i, j] = acc.to(x.dtype)
+        quad = None
+        for i in range(k):
+            for q in range(i + 1):
+                t = d(T[i, q]) * d(W[i, q])
+                quad = t if quad is None else quad + t
+        lp = None
+        for a in range(k):
+            t = d(-0.5 * (sp[a] * sp[a]))
+            lp = t if lp is None else lp + t
+            lp = lp + d(_log_sigmoid(u[a]))
+            lp = lp - n * d(torch.log(sp[a]))
+        lp = lp - 0.5 * quad
+        for (i, j) in pairs:
+            lp = lp + coef[j] * d(lz[i, j])
+        lp = lp + c0
+        # -dQ/2 / ds_a through Softplus, with h_a = (W^T W M)_aa.
+        g_u = []
+        for a in range(k):
+            h = d(W[a, a]) * d(T[a, a])
+            for q in range(a + 1, k):
+                h = h + d(W[q, a]) * d(T[q, a])
+            acc = -d(sp[a]) - n * d(isp[a])
+            acc = acc + d(isp[a]) * h
+            g_u.append(acc.to(x.dtype) * sg[a] + sgm[a])
+        # G = W^T V (lower triangle, diagonal included), in float64.
+        G = {}
+        for i in range(k):
+            for j in range(i + 1):
+                acc = d(W[i, i]) * d(V[i, j])
+                for q in range(i + 1, k):
+                    acc = acc + d(W[q, i]) * d(V[q, j])
+                G[i, j] = acc
+        g_y = []
+        for (i, j) in pairs:
+            acc = (d(om[i, j]) * G[i, j]) * d(r[i, j])
+            s_acc = G[i, j + 1] * d(L[i, j + 1])
+            for q in range(j + 2, i + 1):
+                s_acc = s_acc + G[i, q] * d(L[i, q])
+            acc = acc - d(z[i, j]) * s_acc
+            acc = acc - (2.0 * coef[j]) * d(z[i, j])
+            g_y.append(acc.to(x.dtype))
+        grad = torch.stack(g_y + g_u, dim=-1)
+        lp = torch.where(bad, torch.full_like(lp, -math.inf), lp)
+        grad = torch.where(bad[..., None], torch.zeros_like(grad), grad)
+        return lp.to(x.dtype), grad

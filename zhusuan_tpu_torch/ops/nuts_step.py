@@ -14,9 +14,10 @@ memory, or a global scratch buffer that stays in L2) from the shape alone.
 
 The kernel computes the built-in densities of :data:`DENSITIES`, whose
 parameters it reads through pointers: the diagonal Gaussian over one
-latent, and three posteriors over several latents with the data they hold
+latent, and four posteriors over several latents with the data they hold
 (:class:`~zhusuan_tpu_torch.ops.densities.LatentDictDensity`: eight schools
-centred and non-centred, ordinal regression, Weibull AFT survival), which
+centred and non-centred, ordinal regression, Weibull AFT survival, and the
+LKJ covariance model, which holds its data as one scatter matrix), which
 the sampler ravels into one row a chain in sorted-name order. For those the
 kernel carries the edges' gradients (one density evaluation a leaf) and
 takes the C entry ``zs_fused_nuts_transition_data``; the diagonal Gaussian
@@ -52,6 +53,7 @@ from zhusuan_tpu_torch.ops._random import (
     philox_uniform_rows,
 )
 from zhusuan_tpu_torch.ops.densities import (
+    CovarianceEstimationLogJoint,
     DiagonalGaussianLogJoint,
     EightSchoolsLogJoint,
     LatentDictDensity,
@@ -96,7 +98,8 @@ MAX_TREE_DEPTH = 12
 DATA_ROWS_FOR_32_LANES = 32
 #: The built-in densities the NUTS kernel evaluates.
 DENSITIES = (DiagonalGaussianLogJoint, EightSchoolsLogJoint,
-             OrderedLogisticRegressionLogJoint, WeibullAFTLogJoint)
+             OrderedLogisticRegressionLogJoint, WeibullAFTLogJoint,
+             CovarianceEstimationLogJoint)
 
 
 def nuts_step_supported(q_shape, max_tree_depth: int,
