@@ -6,8 +6,8 @@ It needs one CUDA device and ``nvcc`` (it builds the kernels from
 ``zhusuan_tpu_torch/csrc``), imports nothing of JAX, and exits non-zero as
 soon as a phase fails (nothing is caught). Each phase prints its seconds.
 
-The phases that give no number to the kernels' record (19-23, 25, 27-30
-and 33: example runs whose host-bound loops leave the card idle most of
+The phases that give no number to the kernels' record (19-23, 25, 27-30,
+33 and 37: example runs whose host-bound loops leave the card idle most of
 their time) run last, in ``len(EXAMPLE_PHASES)`` child processes at once
 on the same card, after every other phase has run alone: the wall-clock
 figures they print are taken beside each other, and a failing child stops
@@ -461,6 +461,33 @@ the others. To time one alone, run it as the other phases are run alone
    GAN training-dynamics gates over ``GAN_SEEDS`` seeds: the DCGAN medians
    under the tests' bounds, and no number above the JAX package's spread
    in ``GAN_REFERENCE`` by a one-sided rank-sum test).
+
+37. the last modules (budget 70 s; it runs beside the other children and
+   ends before the slowest): ``testing.geweke_test`` of K1 and of
+   the NUTS kernel as raw transitions (``mu ~ N(0, I_100)``, three ``y ~
+   N(mu, 0.7^2 I)``; each chain shifted by its posterior mean, one kernel
+   step on ``DiagonalGaussianLogJoint(0, posterior std)``, shifted back) on
+   per-block statistics (``GEWEKE_BLOCK`` coordinates a block) at twice
+   ``tests/test_geweke.py``'s iterations and chains (4000, 128; 100,000
+   joint draws), ``max_abs_z < 5`` and one launch an iteration, and two
+   controls that must give ``max_abs_z > 8`` (the check can fail on the
+   card): the same kernels at 1.25x the posterior std on every coordinate,
+   and on the last ``GEWEKE_TAIL`` alone; ``sbc_test`` of HMC's plain path on
+   ``tests/test_sbc.py``'s model at the JAX defaults (256 sims, 63 draws,
+   thinning 10, 300 warm-up), ``min_p_value > 1e-3``; phase 27's AIS with
+   the built-ins (``prior_density=`` / ``target_density=``), within 3
+   spreads of ``AIS_REFERENCE`` with ``AIS_ADAPT + AIS_TEMPS`` K1 launches,
+   its wall time beside phase 27's plain run; a K1 run saved after
+   ``CKPT_ITERS[0]`` iterations, restored with ``like=`` and continued,
+   bit for bit the uninterrupted run, and ``CKPT_REFERENCE`` (written by
+   the JAX package, ``scripts/checkpoint_jax_reference.py``) restored into
+   the port's ``HMCState`` leaf for leaf and continued on K1; ``checked``
+   raising on a NaN made on the card, on a failing site and on a NaN that
+   K1 makes, a clean call unchanged, and HMC launching K1 inside it with
+   the output it gives outside; ``trace`` of five K1 iterations holding
+   five K1 device records and the scope; ``multi_device.main`` in a
+   world of 1 on NCCL (``MULTI_DEVICE_STEPS`` steps, cut from 100), and
+   ``data_parallel_grad`` equal to a plain value-and-grad bit for bit.
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -3747,18 +3774,8 @@ def phase_workflow(torch, dev):
     return kernel["launches"], max(errs.values()), timing
 
 
-def phase_ais(torch, dev):
-    """Phase 27 (budget 25 s): ``evaluation.AIS`` on the card at
-    ``AIS_CHAINS`` x ``AIS_DIM`` with ``AIS_TEMPS`` temperatures (the
-    tempered log-joint is a closure: the plain transition), gated on the
-    JAX package's CPU estimates of the same recipe
-    (``AIS_REFERENCE``, from ``scripts/ais_jax_reference.py``) and on the
-    analytic log Z."""
-    import zhusuan_tpu_torch as zt
-    from zhusuan_tpu_torch.evaluation import AIS
-    from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
-    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
-
+def _ais_reference():
+    """``AIS_REFERENCE``, checked to be made for phase 27's recipe."""
     with open(AIS_REFERENCE) as f:
         reference = json.load(f)
     want = {"n_chains": AIS_CHAINS, "dim": AIS_DIM,
@@ -3767,6 +3784,19 @@ def phase_ais(torch, dev):
             "seed": AIS_SEED}
     check(reference["recipe"] == want, "{} was made for another recipe; "
           "rerun scripts/ais_jax_reference.py".format(AIS_REFERENCE))
+    return reference
+
+
+def _ais_recipe(torch, dev, builtins=False):
+    """Phase 27's ``AIS``: ``z ~ N(0, I)``, ``x | z ~ N(z, I)`` with
+    ``ais_observation()`` observed, the proposal ``N(0, I)``. With
+    ``builtins`` the pair of built-in densities (the prior ``N(0, I)``,
+    the posterior ``N(x / 2, I / 2)``: the log-joint up to a constant)
+    puts every transition on K1's tempered bridge."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.evaluation import AIS
+    from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
+
     c, d = AIS_CHAINS, AIS_DIM
 
     @meta_bayesian_net()
@@ -3785,10 +3815,31 @@ def phase_ais(torch, dev):
 
     x_obs = torch.as_tensor(ais_observation(), dtype=torch.float32,
                             device=dev)
+    kwargs = {}
+    if builtins:
+        kwargs = dict(
+            prior_density=zt.DiagonalGaussianLogJoint(
+                "z", torch.zeros(d, device=dev), torch.ones(d, device=dev)),
+            target_density=zt.DiagonalGaussianLogJoint(
+                "z", x_obs / 2.0, torch.full((d,), math.sqrt(0.5),
+                                             device=dev)))
     hmc = zt.HMC(step_size=AIS_STEP, n_leapfrogs=AIS_LEAPFROGS,
                  adapt_step_size=True)
-    ais = AIS(model(), proposal(), hmc, observed={"x": x_obs}, latent=["z"],
-              n_temperatures=AIS_TEMPS, n_adapt=AIS_ADAPT)
+    return AIS(model(), proposal(), hmc, observed={"x": x_obs}, latent=["z"],
+               n_temperatures=AIS_TEMPS, n_adapt=AIS_ADAPT, **kwargs)
+
+
+def phase_ais(torch, dev):
+    """Phase 27 (budget 25 s): ``evaluation.AIS`` on the card at
+    ``AIS_CHAINS`` x ``AIS_DIM`` with ``AIS_TEMPS`` temperatures (the
+    tempered log-joint is a closure: the plain transition), gated on the
+    JAX package's CPU estimates of the same recipe
+    (``AIS_REFERENCE``, from ``scripts/ais_jax_reference.py``) and on the
+    analytic log Z."""
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+    reference = _ais_reference()
+    ais = _ais_recipe(torch, dev)
     torch.cuda.synchronize()
     fused_hmc_step.launches = 0
     t0 = time.perf_counter()
@@ -5896,6 +5947,435 @@ def phase_covariance_topics_gans(torch, dev):
     return launches, max_err, timing
 
 
+GEWEKE_DIM = 100  # mu ~ N(0, I_100), GEWEKE_OBS draws y ~ N(mu, SIGMA^2 I)
+GEWEKE_OBS = 3
+GEWEKE_SIGMA = 0.7
+# tests/test_geweke.py's 2000 x 64, doubled twice over: a per-block
+# statistic's standard error is sqrt(GEWEKE_DIM / GEWEKE_BLOCK) = 5 times
+# the default battery's, and the control that widens one block must still
+# fail well past GEWEKE_FAIL_Z (its z was 10-13 at 2000 x 64 and 4000 x 64
+# in CPU rehearsals on the kernel's plain version).
+GEWEKE_ITERS = 4000
+GEWEKE_CHAINS = 128
+GEWEKE_MC = 100000
+GEWEKE_STEP = 0.2  # K1 on N(0, post_std^2 I), post_std 0.3747
+GEWEKE_LEAPFROGS = 6
+GEWEKE_NUTS_STEP = 0.2
+GEWEKE_NUTS_DEPTH = 6
+GEWEKE_WIDE = 1.25  # the negative controls' std, in posterior stds
+GEWEKE_TAIL = 4  # the coordinates the second control widens: the last ones
+GEWEKE_BLOCK = 4  # coordinates a block of the statistics averages over
+GEWEKE_PASS_Z = 5.0
+GEWEKE_FAIL_Z = 8.0
+SBC_MIN_P = 1e-3  # tests/test_sbc.py's gate
+CKPT_CHAINS = 4096
+CKPT_ITERS = (4, 6)  # K1 iterations before the checkpoint and after
+CKPT_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "scripts", "checkpoint_jax_reference.npz")
+MULTI_DEVICE_STEPS = 5  # multi_device.main's 100 steps, cut for time
+MULTI_DEVICE_Z = 40
+
+
+def _geweke_transition(torch, dev, kernel, factor, widened):
+    """The raw Geweke transition of phase 37: each chain shifted by its
+    conjugate posterior mean, one step of ``kernel`` (``"k1"`` or
+    ``"nuts"``) on ``DiagonalGaussianLogJoint(0, posterior std)`` whose
+    last ``widened`` coordinates' std is ``factor`` times it, shifted
+    back."""
+    from zhusuan_tpu_torch.ops import DiagonalGaussianLogJoint
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+    from zhusuan_tpu_torch.ops.nuts_step import fused_nuts_transition
+
+    d, sig2 = GEWEKE_DIM, GEWEKE_SIGMA ** 2
+    prec = 1.0 + GEWEKE_OBS / sig2
+    scale = torch.full((d,), 1.0 / math.sqrt(prec), device=dev)
+    scale[d - widened:] *= factor
+    density = DiagonalGaussianLogJoint("mu", torch.zeros(d, device=dev),
+                                       scale)
+    ones = torch.ones(1, d, device=dev)
+
+    def transition(meta_bn, observed, latent, key):
+        m = observed["y"].sum(-2) / (sig2 * prec)
+        x = (latent["mu"] - m).contiguous()
+        if kernel == "k1":
+            out = fused_hmc_step(density, x, ones, GEWEKE_STEP,
+                                 GEWEKE_LEAPFROGS, key, 1)[0]
+        else:
+            out = fused_nuts_transition(density, x, ones, GEWEKE_NUTS_STEP,
+                                        GEWEKE_NUTS_DEPTH, 1000.0, key, 1)[0]
+        return {"mu": out + m}
+
+    return transition
+
+
+def _geweke_statistics(torch):
+    """Phase 37's Geweke statistics: over each block of ``GEWEKE_BLOCK``
+    coordinates, the first and second moments of mu and its cross moment
+    with the observations' mean. A fault confined to a few coordinates
+    (the last warp's lanes, a row's tail past a vector width) is diluted
+    ``GEWEKE_BLOCK``-fold at most, where the default battery's means over
+    all ``GEWEKE_DIM`` coordinates would dilute it ``GEWEKE_DIM``-fold.
+    One ``[..., 3 blocks]`` table an evaluation; each statistic is a
+    column of it."""
+    nb = GEWEKE_DIM // GEWEKE_BLOCK
+    memo = {}
+
+    def table(v):
+        if memo.get("v") is not v:
+            mu, ybar = v["mu"], v["y"].mean(-2)
+
+            def blocks(x):
+                return x.reshape(x.shape[:-1] + (nb, GEWEKE_BLOCK)).mean(-1)
+
+            memo["v"] = v
+            memo["t"] = torch.cat(
+                [blocks(mu), blocks(mu * mu), blocks(mu * ybar)], -1)
+        return memo["t"]
+
+    stats = {}
+    for k, kind in enumerate(("mean", "m2", "cross")):
+        for b in range(nb):
+            name = "{}[mu{}:{}]".format(kind, b * GEWEKE_BLOCK,
+                                        (b + 1) * GEWEKE_BLOCK)
+            stats[name] = lambda v, j=k * nb + b: table(v)[..., j]
+    return stats
+
+
+def _p37_geweke_sbc(torch, dev, rec):
+    """Geweke of K1 and the NUTS kernel (and their wide controls), then
+    SBC of HMC's plain path."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+    from zhusuan_tpu_torch.ops.nuts_step import fused_nuts_transition
+    from zhusuan_tpu_torch.testing import geweke_test, sbc_test
+
+    @meta_bayesian_net()
+    def geweke_model():
+        bn = BayesianNet()
+        mu = bn.normal("mu", torch.zeros(GEWEKE_DIM, device=dev), std=1.0,
+                       group_ndims=1)
+        bn.normal("y", mu.tensor[..., None, :]
+                  * torch.ones(GEWEKE_OBS, 1, device=dev),
+                  std=GEWEKE_SIGMA, group_ndims=2)
+        return bn
+
+    for seed, (name, wrapper) in enumerate((("k1", fused_hmc_step),
+                                            ("nuts", fused_nuts_transition))):
+        # The kernel, then the controls: every coordinate widened, and the
+        # last GEWEKE_TAIL alone.
+        for label, factor, widened in (
+                ("", 1.0, 0), ("_wide", GEWEKE_WIDE, GEWEKE_DIM),
+                ("_wide_tail", GEWEKE_WIDE, GEWEKE_TAIL)):
+            wrapper.launches = 0
+            res, sec = _wall(torch, lambda: geweke_test(
+                geweke_model(),
+                _geweke_transition(torch, dev, name, factor, widened),
+                ["mu"], ["y"], key=torch.Generator().manual_seed(370 + seed),
+                n_iters=GEWEKE_ITERS, n_chains=GEWEKE_CHAINS,
+                n_mc=GEWEKE_MC, statistics=_geweke_statistics(torch)))
+            key = "geweke_" + name + label
+            z = res.z_scores
+            worst = max(z, key=lambda s: abs(z[s]))
+            last = "mu{}:{}".format(GEWEKE_DIM - GEWEKE_BLOCK, GEWEKE_DIM)
+            rec[key] = {"max_abs_z": res.max_abs_z, "worst": worst,
+                        "last_block_z": {s: z[s] for s in z if last in s},
+                        "launches": wrapper.launches, "seconds": sec}
+            check(wrapper.launches == GEWEKE_ITERS,
+                  "{}: {} launches of {} iterations".format(
+                      key, wrapper.launches, GEWEKE_ITERS))
+            if not widened:
+                check(res.max_abs_z < GEWEKE_PASS_Z,
+                      "{} failed Geweke: {} at {}".format(
+                          key, res.max_abs_z, worst))
+            else:
+                check(res.max_abs_z > GEWEKE_FAIL_Z,
+                      "{} (std x {} on the last {} coordinates) passed "
+                      "Geweke: {} at {}".format(key, factor, widened,
+                                                res.max_abs_z, worst))
+
+    @meta_bayesian_net()
+    def sbc_model():  # tests/test_sbc.py's: mu ~ N(0, 1), 5 y ~ N(mu, 1)
+        bn = BayesianNet()
+        mu = bn.normal("mu", torch.zeros((), device=dev),
+                       std=torch.ones((), device=dev))
+        mean = mu.tensor[..., None].expand(mu.tensor.shape + (5,))
+        bn.normal("y", mean, std=torch.ones((), device=dev), group_ndims=1)
+        return bn
+
+    fused_hmc_step.launches = 0
+    res, sec = _wall(torch, lambda: sbc_test(
+        sbc_model(), zt.HMC(step_size=0.3, n_leapfrogs=8,
+                            adapt_step_size=True),
+        ["mu"], ["y"], key=torch.Generator().manual_seed(373)))
+    rec["sbc"] = {"min_p_value": res.min_p_value, "p_values": res.p_values,
+                  "n_sims": res.n_sims, "n_draws": res.n_draws,
+                  "seconds": sec, "k1_launches": fused_hmc_step.launches}
+    check(res.min_p_value > SBC_MIN_P, "SBC failed: {}".format(res.p_values))
+    check(fused_hmc_step.launches == 0, "SBC launched K1 on a model")
+
+
+def _p37_ais(torch, dev, rec):
+    """AIS on K1 through the built-ins, gated as phase 27."""
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+    reference = _ais_reference()
+    ais = _ais_recipe(torch, dev, builtins=True)
+    fused_hmc_step.launches = 0
+    est, sec = _wall(torch, lambda: float(ais.run(
+        torch.Generator().manual_seed(AIS_SEED))))
+    mean, spread = (reference["estimate"]["mean"],
+                    reference["estimate"]["spread"])
+    rec["ais_k1"] = {"estimate": est, "jax_mean": mean, "jax_spread": spread,
+                     "log_z": ais_log_z(), "wall_sec": sec,
+                     "ms_per_iteration": 1e3 * sec / (AIS_TEMPS + AIS_ADAPT),
+                     "k1_launches": fused_hmc_step.launches}
+    check(math.isfinite(est) and abs(est - mean) <= 3.0 * spread,
+          "AIS on K1: {} vs the JAX package's {} (tolerance {})".format(
+              est, mean, 3.0 * spread))
+    check(fused_hmc_step.launches == AIS_ADAPT + AIS_TEMPS,
+          "AIS on K1: {} launches, not {}".format(
+              fused_hmc_step.launches, AIS_ADAPT + AIS_TEMPS))
+    # K1 on this bridge against its plain version at the route's shape,
+    # from proposal draws at the ladder's midpoint, and both timed.
+    import zhusuan_tpu_torch as zt
+
+    g = torch.Generator(device=dev).manual_seed(AIS_SEED + 37)
+    bridge = zt.TemperedLogJoint(*ais._builtin_pair,
+                                 torch.tensor(0.5, device=dev))
+    q = torch.randn(AIS_CHAINS, AIS_DIM, generator=g, device=dev)
+    timing, worst = _k1_against_plain(
+        torch, bridge, q, torch.ones(1, AIS_DIM, device=dev), AIS_STEP,
+        AIS_LEAPFROGS, 1, g, "tempered_diagonal")
+    rec["ais_k1"]["k1_vs_plain"] = timing
+    check(not timing["decisions_differing_off_ties"] and worst <= Q_TOL,
+          "K1 on AIS's bridge against its plain version: {}".format(timing))
+
+
+def _p37_checkpoint(torch, dev, rec):
+    """K1 run, saved, restored with ``like=`` and continued, against the
+    uninterrupted run; the JAX package's file restored into the port's
+    ``HMCState`` and continued on K1."""
+    import tempfile
+
+    import numpy as np
+
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.checkpoint import (
+        _flatten,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from zhusuan_tpu_torch.ops import DiagonalGaussianLogJoint
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+    d = GEWEKE_DIM
+    density = DiagonalGaussianLogJoint(
+        "x", torch.zeros(d, device=dev),
+        torch.linspace(0.1, 1.0, d, device=dev))
+    hmc = zt.HMC(step_size=0.1, n_leapfrogs=5, adapt_step_size=True,
+                 adapt_mass=True)
+    s0 = hmc.init({"x": torch.zeros(CKPT_CHAINS, d, device=dev)},
+                  n_chain_dims=1)
+    k, rest = CKPT_ITERS
+    n_adapt = k + rest // 2
+    key = (37, 1)
+    fused_hmc_step.launches = 0
+    whole, _ = hmc.run(density, {}, s0, key, k + rest, n_adapt=n_adapt,
+                       collect=False)
+    half, _ = hmc.run(density, {}, s0, key, k, n_adapt=n_adapt,
+                      collect=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(os.path.join(tmp, "k1"), half, step=k)
+        restored, step = restore_checkpoint(path, like=s0)
+    resumed, _ = hmc.run(density, {}, restored, key, rest, n_adapt=n_adapt,
+                         collect=False)
+    same = all(torch.equal(a, b) for a, b in (
+        (resumed.q["x"], whole.q["x"]), (resumed.step_size, whole.step_size),
+        (resumed.mass["x"], whole.mass["x"])))
+    rec["checkpoint"] = {"bit_equal": same, "t": resumed.t, "step": step,
+                         "k1_launches": fused_hmc_step.launches}
+    check(step == k and restored.t == k and isinstance(restored.t, int),
+          "checkpoint: the counter did not round-trip")
+    check(same, "the resumed K1 run differs from the uninterrupted one")
+    check(fused_hmc_step.launches == 2 * (k + rest),
+          "checkpoint runs: {} K1 launches".format(fused_hmc_step.launches))
+
+    ref_hmc = zt.HMC(step_size=0.3, n_leapfrogs=3, adapt_step_size=True,
+                     adapt_mass=True, mass_collect_iters=2)
+    like = {"hmc": ref_hmc.init({"x": torch.zeros(4, 3, device=dev)},
+                                n_chain_dims=1),
+            "bf16": torch.zeros(2, 3, dtype=torch.bfloat16, device=dev)}
+    tree, step = restore_checkpoint(CKPT_REFERENCE, like=like)
+    leaves = [leaf for _, leaf, _ in _flatten(tree)]
+    with np.load(CKPT_REFERENCE, allow_pickle=False) as raw:
+        stored = [raw["leaf_%d" % i] for i in range(len(leaves))]
+    # The bfloat16 leaf is stored as raw bytes: checked by value below.
+    equal = all(
+        leaf == int(arr) if isinstance(leaf, int)
+        else leaf.device == dev and (leaf.dtype == torch.bfloat16
+                                     or torch.equal(leaf.cpu(),
+                                                    torch.as_tensor(arr)))
+        for leaf, arr in zip(leaves, stored))
+    st = tree["hmc"]
+    check(isinstance(st, zt.HMCState) and st.t == step == 3 and equal,
+          "the JAX package's checkpoint did not restore leaf for leaf")
+    check(torch.equal(tree["bf16"].float().cpu(),
+                      torch.arange(6.0).reshape(2, 3) / 2),
+          "the JAX package's bfloat16 leaf did not restore")
+    fused_hmc_step.launches = 0
+    st2, _ = ref_hmc.sample(DiagonalGaussianLogJoint(
+        "x", torch.zeros(3, device=dev),
+        torch.tensor([0.5, 1.0, 2.0], device=dev)), {}, st, (3, 7))
+    check(fused_hmc_step.launches == 1 and st2.t == 4
+          and bool(torch.isfinite(st2.q["x"]).all()),
+          "K1 did not continue from the JAX package's state")
+    rec["jax_checkpoint"] = {"leaves": len(leaves), "t": st.t,
+                             "continued_t": st2.t}
+
+
+def _p37_checked_trace(torch, dev, rec):
+    """``checked`` on the card, and a trace of five K1 iterations."""
+    import glob
+    import tempfile
+
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.ops import DiagonalGaussianLogJoint
+    from zhusuan_tpu_torch.ops.checks import (
+        check_numerics,
+        checked,
+        user_checks,
+    )
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+    from zhusuan_tpu_torch.profiling import named_scope, trace
+
+    x = torch.linspace(-1.0, 1.0, 4096, device=dev)
+    raised = {}
+    for name, fn, errors in (
+            ("float", lambda v: torch.log(v - 2.0).sum(), None),
+            ("user", lambda v: check_numerics(v / 0.0, "phase37 probe"),
+             user_checks)):
+        try:
+            checked(fn, errors=errors)(x)
+        except FloatingPointError as e:
+            raised[name] = str(e)
+    clean = lambda v: torch.softmax(torch.outer(v, v)[:512, :512], -1)
+    same = torch.equal(checked(clean)(x), clean(x))
+    d = GEWEKE_DIM
+    density = DiagonalGaussianLogJoint("x", torch.zeros(d, device=dev),
+                                       torch.ones(d, device=dev))
+    hmc = zt.HMC(step_size=0.1, n_leapfrogs=5)
+    state = hmc.init({"x": torch.zeros(CKPT_CHAINS, d, device=dev)},
+                     n_chain_dims=1)
+    # K1 inside checked(): launched as outside it, with the same output;
+    # then a NaN that K1 makes from finite inputs (the mean at +inf: the
+    # second sub-step's q - loc is inf - inf) raises with its name.
+    fused_hmc_step.launches = 0
+    inside, _ = checked(lambda s: hmc.sample(density, {}, s, (5, 6)))(state)
+    launches_inside = fused_hmc_step.launches
+    outside, _ = hmc.sample(density, {}, state, (5, 6))
+    far = DiagonalGaussianLogJoint(
+        "x", torch.full((d,), math.inf, device=dev), torch.ones(d, device=dev))
+    try:
+        checked(lambda s: hmc.sample(far, {}, s, (5, 6)))(state)
+    except FloatingPointError as e:
+        raised["kernel"] = str(e)
+    rec["checked"] = {"raised": raised, "clean_identical": same,
+                      "k1_launches_inside": launches_inside,
+                      "k1_identical": torch.equal(inside.q["x"],
+                                                  outside.q["x"])}
+    check("log" in raised.get("float", ""),
+          "checked() missed a NaN made on the card: {}".format(raised))
+    check("phase37 probe" in raised.get("user", ""),
+          "checked() missed a failing site: {}".format(raised))
+    check(same, "checked() changed a clean function's output")
+    check(launches_inside == 1 and rec["checked"]["k1_identical"],
+          "K1 inside checked(): {} launches, identical output {}".format(
+              launches_inside, rec["checked"]["k1_identical"]))
+    check("nan generated by kernel: fused_hmc_step" in raised.get(
+        "kernel", ""), "checked() missed a NaN made by K1: {}".format(raised))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            with named_scope("phase37_five_k1_iterations"):
+                for _ in range(5):
+                    state, _ = hmc.sample(density, {}, state, (5, 6))
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        check(len(files) == 1, "trace wrote {} files".format(len(files)))
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events]
+    k1 = [n for n, e in zip(names, events)
+          if e.get("cat") == "kernel" and "hmc_family_kernel" in n]
+    rec["trace"] = {"events": len(events), "k1_kernel_events": len(k1),
+                    "scope": "phase37_five_k1_iterations" in names}
+    check(rec["trace"]["scope"], "the trace lacks the named scope")
+    check(len(k1) == 5,
+          "the trace holds {} K1 device records, not 5".format(len(k1)))
+
+
+def _p37_multi_device(torch, dev, rec):
+    """``multi_device.main`` in a world of 1 on NCCL (``FileStore``),
+    ``MULTI_DEVICE_STEPS`` steps, then ``data_parallel_grad`` against a
+    plain value-and-grad, bit for bit."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+
+    from zhusuan_tpu_torch.examples.utils import multi_device
+    from zhusuan_tpu_torch.ops._random import child_key
+    from zhusuan_tpu_torch.parallel import chain_mesh, data_parallel_grad
+
+    store_dir = multi_device.init_world_of_one(dev)
+    try:
+        backend = dist.get_backend()
+        params, sec = _wall(torch, lambda: multi_device.main(
+            steps=MULTI_DEVICE_STEPS, z_dim=MULTI_DEVICE_Z, device=dev))
+        mesh = chain_mesh(axis_name="dp")
+        loss_fn = multi_device.vae_loss_fn(MULTI_DEVICE_Z)
+        g = torch.Generator(device=dev).manual_seed(37)
+        x = (torch.rand(64, 784, generator=g, device=dev) < 0.3).float()
+        loss, grads = data_parallel_grad(loss_fn, mesh, "dp")(params, x,
+                                                              (3, 7))
+        leaves, spec = pytree.tree_flatten(params)
+        leaves = [v.detach().clone().requires_grad_(True) for v in leaves]
+        want = loss_fn(pytree.tree_unflatten(leaves, spec), x,
+                       child_key((3, 7), 0))
+        want_grads = torch.autograd.grad(want, leaves)
+        bitwise = torch.equal(loss, want.detach()) and all(
+            torch.equal(a, b) for a, b in zip(pytree.tree_leaves(grads),
+                                              want_grads))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    rec["multi_device"] = {"backend": backend, "world": 1,
+                           "steps": MULTI_DEVICE_STEPS, "seconds": sec,
+                           "loss": float(loss), "bitwise": bitwise}
+    check(backend == "nccl", "the world of 1 is on {}".format(backend))
+    check(bitwise, "data_parallel_grad differs from a plain value-and-grad")
+
+
+def phase_testing_infra(torch, dev):
+    """Phase 37 (budget 70 s): the last modules on the card. Geweke tests
+    of K1 and the NUTS kernel (each the raw transition of a conjugate
+    model, shifted by the posterior mean) with their wide controls, SBC of
+    HMC's plain path at the JAX defaults, AIS on K1 through the built-ins,
+    a K1 run checkpointed and resumed bit for bit and the JAX package's
+    checkpoint restored, ``checked`` and ``trace`` on the card, and
+    ``multi_device.main`` in a world of 1 on NCCL."""
+    rec = {}
+    for part in (_p37_geweke_sbc, _p37_ais, _p37_checkpoint,
+                 _p37_checked_trace, _p37_multi_device):
+        t0 = time.perf_counter()
+        part(torch, dev, rec)
+        rec.setdefault("seconds", {})[part.__name__[5:]] = (
+            time.perf_counter() - t0)
+    print("phase37 " + json.dumps(rec))
+    return rec
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5906,7 +6386,7 @@ def run_phase(name, fn, *args):
 
 # The phases run last, a group a child process (see the module docstring),
 # grouped to take about the same time: 66, 76 and 73 s one after another
-# on an H100 host.
+# on an H100 host; phase 37 (30 s alone) takes a fourth.
 EXAMPLE_PHASES = (
     (("phase30", "phase_flows"), ("phase20", "phase_iwae_main_path"),
      ("phase21", "phase_sbn_main_path"),
@@ -5916,6 +6396,7 @@ EXAMPLE_PHASES = (
      ("phase25", "phase_example_trainings")),
     (("phase33", "phase_samplers_changepoint"), ("phase29", "phase_gp"),
      ("phase22", "phase_configs")),
+    (("phase37", "phase_testing_infra"),),
 )
 EXAMPLE_TIMEOUT = 600  # seconds for the children together
 

@@ -286,3 +286,84 @@ def test_ais_single_temperature_and_argument_checks():
     b = _t_ais(50, 10, n_adapt=3).run(torch.Generator().manual_seed(1))
     assert torch.equal(a, b)
 
+
+
+# --------------------------------------------------------------------- #
+# AIS through the built-in densities (the HMC kernel's route on the card)
+# --------------------------------------------------------------------- #
+AIS_D = 3
+X_VEC = torch.tensor([1.3, -0.4, 0.7], dtype=torch.float64)
+
+
+def _t_ais_vec(n_chains, n_temperatures, builtins, n_adapt=10,
+               target_scale=1.0):
+    """``z ~ N(0, I_3)``, ``x | z ~ N(z, SIGMA^2 I)``, one observed ``x``;
+    with ``builtins`` the prior ``N(0, I)`` and the posterior ``N(x / (1 +
+    SIGMA^2), SIGMA^2 / (1 + SIGMA^2))`` as built-ins (``target_scale``
+    widens the latter's std, a wrong target)."""
+    zeros = torch.zeros(n_chains, AIS_D, dtype=torch.float64)
+
+    @meta_bayesian_net()
+    def model():
+        bn = BayesianNet()
+        z = bn.normal("z", zeros, std=1.0, group_ndims=1)
+        bn.normal("x", z.tensor, std=SIGMA, group_ndims=1)
+        return bn
+
+    @meta_bayesian_net()
+    def proposal():
+        bn = BayesianNet()
+        bn.normal("z", zeros, std=1.0, group_ndims=1)
+        return bn
+
+    kwargs = {}
+    if builtins:
+        post_var = SIGMA ** 2 / (1 + SIGMA ** 2)
+        kwargs = dict(
+            prior_density=zt.DiagonalGaussianLogJoint(
+                "z", torch.zeros(AIS_D, dtype=torch.float64),
+                torch.ones(AIS_D, dtype=torch.float64)),
+            target_density=zt.DiagonalGaussianLogJoint(
+                "z", X_VEC / (1 + SIGMA ** 2),
+                torch.full((AIS_D,), target_scale * math.sqrt(post_var),
+                           dtype=torch.float64)))
+    hmc = zt.HMC(step_size=0.3, n_leapfrogs=5, adapt_step_size=True)
+    return te.AIS(model(), proposal(), hmc, observed={"x": X_VEC},
+                  latent=["z"], n_temperatures=n_temperatures,
+                  n_adapt=n_adapt, **kwargs)
+
+
+@pytest.mark.parametrize("n_chains,n_temps", [(256, 200), (16, 1)])
+def test_ais_builtins_match_the_closures(n_chains, n_temps):
+    """Under one key the built-in route gives the closure route's
+    estimate at 1e-10 (float64, CPU: both take the plain transition; the
+    built-ins drop the normalising constants, which cancel in every
+    increment, and the end terms come from the models)."""
+    want = _t_ais_vec(n_chains, n_temps, False).run(
+        torch.Generator().manual_seed(3))
+    got = _t_ais_vec(n_chains, n_temps, True).run(
+        torch.Generator().manual_seed(3))
+    assert got.dtype == torch.float64 and got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+    if n_temps > 1:
+        true = AIS_D * (-0.5 * math.log(2 * math.pi * (1 + SIGMA ** 2)))
+        true -= 0.5 * float(torch.sum(X_VEC ** 2)) / (1 + SIGMA ** 2)
+        np.testing.assert_allclose(float(got), true, atol=0.1)
+
+
+def test_ais_builtins_are_checked():
+    with pytest.raises(ValueError, match="more than a constant"):
+        _t_ais_vec(32, 5, True, target_scale=1.5).run(
+            torch.Generator().manual_seed(0))
+    prior = zt.DiagonalGaussianLogJoint("z", torch.zeros(AIS_D),
+                                        torch.ones(AIS_D))
+    base = _t_ais_vec(4, 2, False)
+    args = (base._log_joint, base._proposal, base._hmc, {"x": X_VEC})
+    with pytest.raises(ValueError, match="go together"):
+        te.AIS(*args, latent=["z"], prior_density=prior)
+    with pytest.raises(ValueError, match="single latent"):
+        te.AIS(*args, latent=["z", "w"], prior_density=prior,
+               target_density=prior)
+    with pytest.raises(TypeError, match="prior"):
+        te.AIS(*args, latent=["z"], prior_density=zt.Toy2DLogJoint("z"),
+               target_density=prior)

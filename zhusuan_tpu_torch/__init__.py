@@ -53,11 +53,18 @@ estimation example (NUTS on the kernel through
 :class:`.ops.densities.CovarianceEstimationLogJoint`), the matrix
 factorization, topic-model and GAN examples; and the deprecated
 self-registering wrappers of :mod:`.legacy`, re-exported flat here as the
-JAX package does (``zhusuan_tpu_torch.Normal`` is the legacy wrapper).
+JAX package does (``zhusuan_tpu_torch.Normal`` is the legacy wrapper); and
+the sampler checks of :mod:`.testing` (Geweke, SBC), checkpoints in the JAX
+package's npz format (:func:`save_checkpoint`, :func:`restore_checkpoint`),
+:mod:`.profiling`, :func:`.ops.checked`, :mod:`.parallel` on
+``torch.distributed`` and the data-parallel VAE of
+:mod:`.examples.utils.multi_device`. Every module of the JAX package has
+its counterpart here.
 """
 
 from zhusuan_tpu_torch import (
     bijectors,
+    checkpoint,
     diagnostics,
     distributions,
     evaluation,
@@ -67,12 +74,16 @@ from zhusuan_tpu_torch import (
     legacy,
     mcmc,
     ops,
+    parallel,
+    profiling,
     smc,
     ssm,
+    testing,
     transform,
     utils,
     variational,
 )
+from zhusuan_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
 from zhusuan_tpu_torch.fit import fit_scan, make_fit_epoch
 from zhusuan_tpu_torch.framework import (
     BayesianNet,
@@ -200,9 +211,12 @@ __all__ = [
     "gpu_normal",
     "gpu_uniform",
     "make_fit_epoch",
+    "restore_checkpoint",
+    "save_checkpoint",
     "whiten_log_joint",
 ] + smc.__all__ + ssm.__all__ + legacy.__all__ + [
     "bijectors",
+    "checkpoint",
     "diagnostics",
     "distributions",
     "evaluation",
@@ -212,8 +226,11 @@ __all__ = [
     "legacy",
     "mcmc",
     "ops",
+    "parallel",
+    "profiling",
     "smc",
     "ssm",
+    "testing",
     "transform",
     "utils",
     "variational",

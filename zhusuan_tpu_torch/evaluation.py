@@ -11,16 +11,19 @@ posterior draws, and :func:`compare` with the paired standard error.
 
 The JAX package anneals in one ``lax.scan`` and traces the tempered
 log-joint into its HMC kernel on a TPU. Here the annealing is a Python loop
-over ``HMC.sample``, and the tempered log-joint is a closure, which a CUDA
-kernel cannot take: AIS runs the sampler's plain transition on the card.
-The criteria compute in float64 on the input's device (the JAX package's
-host-side numpy), a few data points' tail fits at a time.
+over ``HMC.sample``. The tempered log-joint is a closure, which a CUDA
+kernel cannot take, unless :class:`AIS` gets the pair of built-in densities
+``prior_density=`` / ``target_density=``: each transition then targets their
+:class:`~zhusuan_tpu_torch.ops.densities.TemperedLogJoint` at a device-scalar
+temperature, which the HMC kernel evaluates on the card. The criteria compute
+in float64 on the input's device (the JAX package's host-side numpy), a few
+data points' tail fits at a time.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Union
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -29,6 +32,12 @@ from zhusuan_tpu_torch.fit import draw_keys
 from zhusuan_tpu_torch.framework.meta_bn import MetaBayesianNet
 from zhusuan_tpu_torch.mcmc.base import make_log_joint_fn
 from zhusuan_tpu_torch.mcmc.hmc import HMC
+from zhusuan_tpu_torch.ops.densities import (
+    BuiltinDensity,
+    TemperedLogJoint,
+    check_builtin_gaps,
+    check_tempered_pair,
+)
 from zhusuan_tpu_torch.utils import log_mean_exp, merge_dicts
 from zhusuan_tpu_torch.variational.monte_carlo import (
     ImportanceWeightedObjective,
@@ -85,6 +94,18 @@ class AIS:
     The weights telescope ``log f_T(x_{t-1}) - log f_T(x_t)`` from the
     sampler's own log-probs and end with ``+ log f_1(x_T)``.
 
+    With ``prior_density`` and ``target_density`` (the JAX package's closure
+    traced into its kernel, in the port's terms), every transition, warm-up
+    included, targets ``TemperedLogJoint(prior_density, target_density,
+    T)`` with ``T`` a device scalar, so HMC takes its CUDA kernel on the
+    card. A built-in may drop its density's normalising constant: each
+    increment is taken at one temperature, where the constant cancels, and
+    the two end terms come from the models, ``-log_prior(x_0)`` from the
+    proposal and ``+log_joint(x_T)`` from ``meta_bn`` under ``observed``, so
+    the estimate keeps the models' constants. :meth:`run` checks once, on
+    the initial chains, that each built-in differs from its model's
+    log-density by a constant.
+
     :param meta_bn: model (MetaBayesianNet or log-joint callable).
     :param proposal_meta_bn: proposal MetaBayesianNet; the chains start
         from its draws and ``log_prior`` is its log-joint.
@@ -93,11 +114,19 @@ class AIS:
     :param latent: list of latent node names (or a dict whose keys are).
     :param n_temperatures: annealing steps.
     :param n_adapt: step-size adaptation iterations before annealing.
+    :param prior_density: optional built-in density equal to the
+        proposal's log-density up to a constant, over the one latent (a
+        pair :class:`~zhusuan_tpu_torch.ops.densities.TemperedLogJoint`
+        takes, with ``target_density``).
+    :param target_density: optional built-in density equal to ``meta_bn``'s
+        log-joint under ``observed`` up to a constant, over the same latent.
     """
 
     def __init__(self, meta_bn, proposal_meta_bn: MetaBayesianNet, hmc: HMC,
                  observed: Dict, latent: Union[List[str], Dict],
-                 n_temperatures: int = 1000, n_adapt: int = 30):
+                 n_temperatures: int = 1000, n_adapt: int = 30, *,
+                 prior_density: Optional[BuiltinDensity] = None,
+                 target_density: Optional[BuiltinDensity] = None):
         self._log_joint = make_log_joint_fn(meta_bn, {})
         self._proposal = proposal_meta_bn
         self._log_prior = make_log_joint_fn(proposal_meta_bn, {})
@@ -109,6 +138,13 @@ class AIS:
             raise ValueError("n_temperatures must be >= 1.")
         self._n_temperatures = int(n_temperatures)
         self._n_adapt = int(n_adapt)
+        if (prior_density is None) != (target_density is None):
+            raise ValueError(
+                "prior_density and target_density go together.")
+        self._builtin_pair = None
+        if prior_density is not None:
+            self._builtin_pair = check_tempered_pair(
+                prior_density, target_density, self._latent_names)
 
     def _map_t(self, t):
         return 1.0 / (1.0 + np.exp(-4 * (2 * t / self._n_temperatures - 1)))
@@ -121,6 +157,9 @@ class AIS:
         return (mapped - mapped[0]) / (mapped[-1] - mapped[0])
 
     def _tempered_log_fn(self, temperature):
+        if self._builtin_pair is not None:
+            return TemperedLogJoint(*self._builtin_pair, temperature)
+
         def log_fn(obs):
             return (self._log_prior(obs) * (1.0 - temperature)
                     + self._log_joint(obs) * temperature)
@@ -156,15 +195,25 @@ class AIS:
         schedule = torch.as_tensor(self._schedule(), dtype=dtype,
                                    device=first.device)
 
+        # The built-ins hold their data: the sampler gets no observations.
+        builtin = self._builtin_pair is not None
+        observed = {} if builtin else self._observed
+        if builtin:
+            prior, target = self._builtin_pair
+            check_builtin_gaps(
+                [("prior_density", prior(q0), self._log_prior(q0)),
+                 ("target_density", target(q0),
+                  self._log_joint(merge_dicts(q0, self._observed)))],
+                "initial chains")
+
         # --- phase 1: step-size adaptation at a small temperature ------- #
         adp_t = schedule[2 if self._n_temperatures > 1 else 1]
         adapt_fn = self._tempered_log_fn(adp_t)
-        state = self._hmc.init(q0, log_joint=adapt_fn,
-                               observed=self._observed)
+        state = self._hmc.init(q0, log_joint=adapt_fn, observed=observed)
         adapt_enabled = self._hmc.adapt_step_size is not None
         for _ in range(self._n_adapt):
             state, _ = self._hmc.sample(
-                adapt_fn, self._observed, state, key_adapt,
+                adapt_fn, observed, state, key_adapt,
                 adapt_step_size=True if adapt_enabled else None)
 
         # --- phase 2: re-init the chains from the proposal -------------- #
@@ -172,14 +221,17 @@ class AIS:
         # would re-trigger the t-based step-size search).
         q = self._init_latent(s_reinit)
         state = state._replace(q=q)
-        log_weights = -self._tempered_log_fn(schedule[0])(
-            merge_dicts(q, self._observed))
+        if builtin:
+            log_weights = -self._log_prior(q)
+        else:
+            log_weights = -self._tempered_log_fn(schedule[0])(
+                merge_dicts(q, self._observed))
 
         # --- phase 3: annealing, every adaptation channel frozen -------- #
         log_prob = None
         for i in range(1, self._n_temperatures + 1):
             state, info = self._hmc.sample(
-                self._tempered_log_fn(schedule[i]), self._observed, state,
+                self._tempered_log_fn(schedule[i]), observed, state,
                 key_run,
                 adapt_step_size=False if adapt_enabled else None,
                 adapt_mass=(False if self._hmc.adapt_mass is not None
@@ -187,7 +239,10 @@ class AIS:
                 init_step_size_search=False)
             log_weights = log_weights + info.orig_log_prob - info.log_prob
             log_prob = info.log_prob
-        # Final correction: add back log f_1 at the last position.
+        # Final correction: add back log f_1 at the last position (the
+        # model's, whose constant a built-in may lack).
+        if builtin:
+            log_prob = self._log_joint(merge_dicts(state.q, self._observed))
         log_weights = log_weights + log_prob
         bound = log_mean_exp(log_weights, axis=0)
         return torch.mean(bound)

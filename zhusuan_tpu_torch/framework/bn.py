@@ -172,8 +172,10 @@ class BayesianNet(Context):
                  noise: Optional[Dict] = None):
         self._nodes: Dict[str, object] = {}
         self._log_joint_cache = None
-        self._noise = dict(noise) if noise else {}
         local = Local.try_get_context()
+        self._noise = dict(local.noise) if local is not None else {}
+        if noise:
+            self._noise.update(noise)
         if local is not None:
             self._observed = dict(local.observations)
             if observed:

@@ -70,6 +70,15 @@ class MetaBayesianNet:
         return self._run_with_local(
             Local(observations=observations, meta_bn=self, key=key))
 
+    def observe_with_noise(self, noise, key=None, **observations):
+        """:meth:`observe` with ``noise={name: eps}`` handed to the nets the
+        model function makes (``BayesianNet(noise=...)``'s testing hook: a
+        node's base draws replaced, so that two packages can be fed the
+        same numbers)."""
+        return self._run_with_local(
+            Local(observations=observations, meta_bn=self, key=key,
+                  noise=noise))
+
     def __repr__(self):
         return "<MetaBayesianNet f={}>".format(
             getattr(self._f, "__name__", self._f))

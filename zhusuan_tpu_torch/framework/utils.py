@@ -60,12 +60,15 @@ class Local(Context):
     observation dict, the owning meta net and the random key that
     ``BayesianNet`` instances constructed inside pick up (parity: reference
     ``framework/meta_bn.py:87-91``; the key is an int seed, see
-    :class:`~zhusuan_tpu_torch.framework.bn.BayesianNet`)."""
+    :class:`~zhusuan_tpu_torch.framework.bn.BayesianNet`), and optionally
+    the nets' ``noise`` (a testing hook)."""
 
-    def __init__(self, observations=None, meta_bn=None, key=None):
+    def __init__(self, observations=None, meta_bn=None, key=None,
+                 noise=None):
         self.observations = observations or {}
         self.meta_bn = meta_bn
         self.key = key
+        self.noise = noise or {}
 
 
 def reuse_variables(scope):

@@ -20,7 +20,7 @@ and the standalone samplers (:mod:`.random`: ``gpu_normal`` and
 ``tpu_uniform``). Every function of the JAX package that reaches
 ``pl.pallas_call`` has its counterpart here. The sampler and trainer kernels
 evaluate the built-in densities of :mod:`.densities`; :mod:`.checks` holds
-the numerics guard (no kernel). Kernels are built from
+the numerics guards (no kernel). Kernels are built from
 ``zhusuan_tpu_torch/csrc`` at first use, never at import.
 """
 
@@ -30,7 +30,7 @@ from zhusuan_tpu_torch.ops.advi_step import (
     fused_meanfield_advi,
     fused_meanfield_advi_reference,
 )
-from zhusuan_tpu_torch.ops.checks import check_numerics
+from zhusuan_tpu_torch.ops.checks import check_numerics, checked
 from zhusuan_tpu_torch.ops.chees_step import (
     chees_step_supported,
     fused_chees_step,
@@ -112,6 +112,7 @@ __all__ = [
     "advi_layout",
     "advi_step_supported",
     "check_numerics",
+    "checked",
     "chees_step_supported",
     "chol_inv_supported",
     "cholesky_inverse",

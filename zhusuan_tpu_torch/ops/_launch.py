@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` entry has the form ``int zs_<name>(..., void* stream)``
 and returns the CUDA error code of its launch. :func:`launch_kernel` calls
 one on the current stream of the tensors' device and does what every wrapper
 owes a launch: a non-zero code raises with the CUDA error string, a launch
-that went through adds one to the wrapper's ``launches``. Nothing
-synchronises and nothing is caught.
+that went through adds one to the wrapper's ``launches`` and records its
+float check inside :func:`~.checks.checked` (:func:`~.checks.record_kernel`).
+Nothing synchronises and nothing is caught.
 
 It is kept light, because a small kernel's back-to-back time is the host's
 time to launch it: the typed ctypes function is looked up once per entry,
@@ -16,6 +17,8 @@ device is switched only when it is not the current one.
 from __future__ import annotations
 
 import torch
+
+from zhusuan_tpu_torch.ops.checks import record_kernel
 
 __all__ = ["launch_kernel", "current_stream_pointer"]
 
@@ -42,7 +45,8 @@ def _entry(kernel_library, name):
     return fns
 
 
-def launch_kernel(wrapper, kernel_library, entry: str, device, *args):
+def launch_kernel(wrapper, kernel_library, entry: str, device, *args,
+                  inputs=(), outputs=()):
     """Call ``entry(*args, stream)`` of the library that ``kernel_library()``
     returns (``(cdll, build_record)``, argument types already set), on
     ``device``'s current stream.
@@ -50,6 +54,8 @@ def launch_kernel(wrapper, kernel_library, entry: str, device, *args):
     :param wrapper: the public function the launch is counted on
         (``wrapper.launches``) and named after in an error.
     :param device: the CUDA ``torch.device`` of the tensors in ``args``.
+    :param inputs, outputs: the tensors the kernel reads and writes (None
+        entries skipped), for :func:`~.checks.record_kernel`.
     :raises RuntimeError: when the entry returns a non-zero CUDA error code.
     """
     fn, error_string = _entry(kernel_library, entry)
@@ -64,3 +70,4 @@ def launch_kernel(wrapper, kernel_library, entry: str, device, *args):
         raise RuntimeError("{} launch failed: CUDA error {} ({}).".format(
             wrapper.__name__, rc, error_string(rc).decode()))
     wrapper.launches += 1
+    record_kernel(wrapper.__name__, inputs, outputs)

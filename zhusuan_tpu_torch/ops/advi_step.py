@@ -364,7 +364,10 @@ def fused_meanfield_advi(density, loc0, log_scale0, n_steps: int,
         None if noise_kept is None else noise_kept.data_ptr(), n_steps,
         n_particles, dim, cluster, warps,
         *_adam_constants(b1, b2, adam_eps, dim), k0, k1,
-        out_loc.data_ptr(), out_ls.data_ptr(), losses.data_ptr())
+        out_loc.data_ptr(), out_ls.data_ptr(), losses.data_ptr(),
+        inputs=(*density.kernel_args(dev), loc0, log_scale0, table,
+                noise_kept),
+        outputs=(out_loc, out_ls, losses))
     return out_loc, out_ls, losses
 
 

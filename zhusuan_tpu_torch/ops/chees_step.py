@@ -122,7 +122,9 @@ def fused_chees_step(density, q, mass, step_size, n_steps, key, t: int, *,
         fused_chees_step, kernel_library, "zs_fused_chees_step", dev,
         q.data_ptr(), mass.data_ptr(), *density_pointers(density, dev),
         ss.data_ptr(), n_steps.data_ptr(), eps_ptr, u_ptr, c, d, k0, k1,
-        int(t) & 0xFFFFFFFF, *[v.data_ptr() for v in mats + vecs])
+        int(t) & 0xFFFFFFFF, *[v.data_ptr() for v in mats + vecs],
+        inputs=(q, mass, *density.kernel_args(dev), ss, *(_kept or ())),
+        outputs=mats + vecs)
     return tuple(mats + vecs)
 
 

@@ -300,6 +300,50 @@ class TemperedLogJoint(BuiltinDensity):
         return w0 * v0 + self.beta * v1, w0 * g0 + self.beta * g1
 
 
+#: How far (relative to 1 + max |model log-density|) a built-in's gap to
+#: its model's log-density may vary over the chains it is checked on:
+#: float32 rounding of 100-term sums stays near 1e-6.
+BUILTIN_GAP_RTOL = 1e-4
+
+
+def check_tempered_pair(prior, target, latent_names, observed=()):
+    """Check that ``prior`` and ``target`` make a :class:`TemperedLogJoint`
+    (which raises on anything else) over the single latent
+    ``latent_names`` lists, and that the sampler that moves it is given no
+    observations ``observed`` (the built-ins hold their data); returns the
+    pair."""
+    TemperedLogJoint(prior, target, 0.0)
+    if list(latent_names) != [target.name] or observed:
+        raise ValueError(
+            "the built-in densities need the single latent {!r} and no "
+            "observations; got latent {} and observed {}.".format(
+                target.name, list(latent_names), sorted(observed)))
+    return prior, target
+
+
+def check_builtin_gaps(checks, where: str):
+    """Check, with one read of the device, that each built-in differs from
+    its model's log-density by a constant on the chains both were evaluated
+    at (:data:`BUILTIN_GAP_RTOL`).
+
+    :param checks: ``[(role, builtin_lp, model_lp)]``, ``[n]`` log-densities
+        of one set of chains each.
+    :param where: what the chains are, for the error message.
+    """
+    stats = []
+    for _, lp, model in checks:
+        gap = lp - model
+        stats += [gap.max() - gap.min(), model.abs().max()]
+    values = torch.stack([s.to(torch.float64) for s in stats]).tolist()
+    for k, (role, _, _) in enumerate(checks):
+        spread, scale = values[2 * k:2 * k + 2]
+        if not spread <= BUILTIN_GAP_RTOL * (1.0 + scale):
+            raise ValueError(
+                "{} differs from its model's log-density by more than a "
+                "constant: the gap spans {} over the {}.".format(
+                    role, spread, where))
+
+
 def _row_sum(x):
     """The sum over the last axis accumulated in float64 and rounded to
     ``x``'s dtype (as the kernels accumulate their row sums in double)."""

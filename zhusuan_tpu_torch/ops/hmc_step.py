@@ -245,16 +245,21 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
         entry = "zs_fused_tempered_hmc_step"
         dens = (*density_pointers(density.prior, dev),
                 *density_pointers(density.target, dev), beta.data_ptr())
+        params = (*density.prior.kernel_args(dev),
+                  *density.target.kernel_args(dev), beta)
     else:
         entry = "zs_fused_hmc_step"
         dens = density_pointers(density, dev)
+        params = density.kernel_args(dev)
     launch_kernel(
         fused_hmc_step, kernel_library, entry, dev,
         q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
         *dens, ss.data_ptr(), eps_ptr, u_ptr,
         c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
         out_q.data_ptr(), out_p.data_ptr(),
-        *[v.data_ptr() for v in vecs])
+        *[v.data_ptr() for v in vecs],
+        inputs=(q, mass, *params, ss, *(_kept or ())),
+        outputs=(out_q, out_p, *vecs))
     acc, old_lp, new_lp, old_h, new_h = vecs
     return out_q, out_p, acc, old_lp, new_lp, old_h, new_h
 

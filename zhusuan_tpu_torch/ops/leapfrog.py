@@ -98,7 +98,9 @@ def fused_leapfrog(density, q, p, step_size, n_leapfrogs: int, mass):
         q.data_ptr(), p.data_ptr(), mass.data_ptr(),
         int(mass.shape[0] != 1),
         *density_pointers(density, dev), ss.data_ptr(), c, d,
-        int(n_leapfrogs), out_q.data_ptr(), out_p.data_ptr())
+        int(n_leapfrogs), out_q.data_ptr(), out_p.data_ptr(),
+        inputs=(q, p, mass, *density.kernel_args(dev), ss),
+        outputs=(out_q, out_p))
     return out_q, out_p
 
 

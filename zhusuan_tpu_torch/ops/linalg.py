@@ -107,7 +107,7 @@ def _launch(a, blocks=0):
     linv = torch.empty_like(a)
     launch_kernel(cholesky_inverse, kernel_library, "zs_cholesky_inverse",
                   a.device, a.data_ptr(), n, l.data_ptr(), linv.data_ptr(),
-                  blocks)
+                  blocks, inputs=(a,), outputs=(l, linv))
     return l, linv
 
 

@@ -354,18 +354,21 @@ def _launch(density, q, inv_mass, step_size, max_tree_depth,
             out_q.data_ptr(), lp.data_ptr(), h.data_ptr(), acc.data_ptr(),
             depth.data_ptr(), n_leap.data_ptr(), turning.data_ptr(),
             divergent.data_ptr())
+    outs = (out_q, lp, h, acc, depth, n_leap, turning, divergent)
+    io = dict(inputs=(q, inv_mass, p0, p1, ss, *(noise or ())),
+              outputs=outs)
     if carried:
         launch_kernel(
             fused_nuts_transition, kernel_library,
             "zs_fused_nuts_transition_data", dev, density.kernel_id,
             p0.data_ptr(), p1.data_ptr(), density.n_rows, q.data_ptr(),
-            inv_mass.data_ptr(), *rest)
+            inv_mass.data_ptr(), *rest, **io)
     else:
         launch_kernel(
             fused_nuts_transition, kernel_library,
             "zs_fused_nuts_transition", dev, q.data_ptr(),
-            inv_mass.data_ptr(), p0.data_ptr(), p1.data_ptr(), *rest)
-    return out_q, lp, h, acc, depth, n_leap, turning, divergent
+            inv_mass.data_ptr(), p0.data_ptr(), p1.data_ptr(), *rest, **io)
+    return outs
 
 
 fused_nuts_transition.launches = 0

@@ -75,7 +75,9 @@ def fused_psgld_step(density, q, rms, lr, decay: float, epsilon: float, key,
         q.data_ptr(), rms.data_ptr(), *density_pointers(density, dev),
         lr_ptr, lr_host, decay, 1.0 - decay, epsilon, eps_ptr, c, d,
         *launch_key(key), int(t) & 0xFFFFFFFF, out_q.data_ptr(),
-        out_rms.data_ptr())
+        out_rms.data_ptr(),
+        inputs=(q, rms, *density.kernel_args(dev), _lr_kept, _eps_kept),
+        outputs=(out_q, out_rms))
     return out_q, out_rms
 
 

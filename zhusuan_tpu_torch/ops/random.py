@@ -92,7 +92,7 @@ def _device(device):
 def _launch(wrapper, entry, key, shape, device):
     out = torch.empty(shape, dtype=torch.float32, device=device)
     launch_kernel(wrapper, kernel_library, entry, device, out.data_ptr(),
-                  shape[0], shape[1], *key)
+                  shape[0], shape[1], *key, inputs=(), outputs=(out,))
     return out
 
 

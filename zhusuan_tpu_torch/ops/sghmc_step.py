@@ -111,7 +111,10 @@ def fused_sghmc_step(density, q, v, lr, alpha: float, beta: float,
         math.exp(-0.5 * alpha), int(bool(second_order)),
         int(bool(resample)), eps_ptr, eps_v_ptr, c, d, *launch_key(key),
         int(t) & 0xFFFFFFFF, out_q.data_ptr(), out_v.data_ptr(),
-        out_vsq.data_ptr())
+        out_vsq.data_ptr(),
+        inputs=(q, v, *density.kernel_args(dev), _lr_kept, _eps_kept,
+                _epsv_kept),
+        outputs=(out_q, out_v, out_vsq))
     return out_q, out_v, out_vsq
 
 

@@ -244,7 +244,9 @@ def fused_sgld_step(density, q, lr, key, t: int, *, noise=None,
     launch_kernel(
         fused_sgld_step, kernel_library, "zs_fused_sgld_step", dev,
         q.data_ptr(), dens_id, dens0, dens1, lr_ptr, lr_host, eps_ptr, c, d,
-        *launch_key(key), int(t) & 0xFFFFFFFF, int(flat), out_q.data_ptr())
+        *launch_key(key), int(t) & 0xFFFFFFFF, int(flat), out_q.data_ptr(),
+        inputs=(q, *density.kernel_args(dev), _lr_kept, eps_kept),
+        outputs=(out_q,))
     return out_q
 
 

@@ -95,7 +95,10 @@ def fused_sgnht_step(density, q, v, alpha, lr, a: float, tune_rate: float,
         tune_rate, 0.5 * tune_rate, int(bool(second_order)),
         int(bool(resample)), eps_ptr, eps_v_ptr, c, d, *launch_key(key),
         int(t) & 0xFFFFFFFF, out_q.data_ptr(), out_v.data_ptr(),
-        out_alpha.data_ptr())
+        out_alpha.data_ptr(),
+        inputs=(q, v, alpha, *density.kernel_args(dev), _lr_kept, _eps_kept,
+                _epsv_kept),
+        outputs=(out_q, out_v, out_alpha))
     return out_q, out_v, out_alpha
 
 

@@ -55,16 +55,14 @@ from zhusuan_tpu_torch.ops._random import (
 from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
     TemperedLogJoint,
+    check_builtin_gaps,
+    check_tempered_pair,
 )
 
 __all__ = ["AnnealedSMC", "SMCResult"]
 
 Latent = Dict[str, torch.Tensor]
 
-# How far (relative to 1 + max |log prior|) prior_density's gap to the
-# proposal's log-density may vary over the initial particles: float32
-# rounding of 100-term sums stays near 1e-6.
-PRIOR_DENSITY_RTOL = 1e-4
 
 class SMCResult(NamedTuple):
     """Output of :meth:`AnnealedSMC.run` / :meth:`~AnnealedSMC.run_adaptive`.
@@ -169,15 +167,8 @@ class AnnealedSMC:
             raise ValueError("resample_threshold must be in [0, 1].")
         self._resample_threshold = float(resample_threshold)
         if prior_density is not None:
-            # Checks the pair (TemperedLogJoint raises on anything else).
-            TemperedLogJoint(prior_density, meta_bn, 0.0)
-            if self._latent_names != [meta_bn.name] or self._observed:
-                raise ValueError(
-                    "prior_density needs the single latent {!r} of the "
-                    "built-in target and no observations; got latent {} and "
-                    "observed {}.".format(meta_bn.name, self._latent_names,
-                                          sorted(self._observed)))
-            self._builtin_pair = (prior_density, meta_bn)
+            self._builtin_pair = check_tempered_pair(
+                prior_density, meta_bn, self._latent_names, self._observed)
         else:
             self._builtin_pair = None
 
@@ -226,14 +217,9 @@ class AnnealedSMC:
             # One read a run: the built-in must differ from the proposal's
             # density by a constant on the initial particles.
             with torch.no_grad():
-                gap = self._builtin_pair[0](q0) - lp0
-            spread, scale = torch.stack(
-                [gap.max() - gap.min(), lp0.abs().max()]).tolist()
-            if not spread <= PRIOR_DENSITY_RTOL * (1.0 + scale):
-                raise ValueError(
-                    "prior_density differs from the proposal's log-density "
-                    "by more than a constant: the gap spans {} over the "
-                    "initial particles.".format(spread))
+                check_builtin_gaps(
+                    [("prior_density", self._builtin_pair[0](q0), lp0)],
+                    "initial particles")
         return q0, lp0
 
     def _move(self, log_f, q, key, noise):

@@ -67,10 +67,30 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-class AdagradState(NamedTuple):
-    """:func:`adagrad`'s state: the running sums of squared gradients."""
+class ScaleByRssState(NamedTuple):
+    """The running sums of squared gradients (optax's state of
+    ``scale_by_rss``)."""
 
     sum_of_squares: Latent
+
+
+class EmptyState(NamedTuple):
+    """A stateless transform's state (optax's ``EmptyState``)."""
+
+
+class AdagradState(tuple):
+    """:func:`adagrad`'s state, laid out as ``optax.adagrad``'s chain:
+    ``(ScaleByRssState, EmptyState)``, so that a checkpoint of it has the
+    JAX package's paths (:mod:`~zhusuan_tpu_torch.checkpoint`). The running
+    sums read as ``.sum_of_squares``."""
+
+    def __new__(cls, sum_of_squares: Latent):
+        return tuple.__new__(cls, (ScaleByRssState(sum_of_squares),
+                                   EmptyState()))
+
+    @property
+    def sum_of_squares(self) -> Latent:
+        return self[0].sum_of_squares
 
 
 def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
@@ -269,7 +289,8 @@ class SVGD:
 def state_from_numpy(numpy_state, device=None, dtype=None) -> SVGDState:
     """A port :class:`SVGDState` from a JAX one whose leaves went through
     ``np.asarray``: its ``optax.adagrad`` state (``(ScaleByRssState,
-    EmptyState)``) becomes an :class:`AdagradState`. On ``device`` (the
+    EmptyState)``) becomes an :class:`AdagradState` of the same layout. On
+    ``device`` (the
     card when None) in ``dtype`` (the arrays' own when None)."""
     device = torch.device("cuda", 0) if device is None \
         else torch.device(device)
