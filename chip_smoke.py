@@ -6,9 +6,9 @@ It needs one CUDA device and ``nvcc`` (it builds the kernels from
 ``zhusuan_tpu_torch/csrc``), imports nothing of JAX, and exits non-zero as
 soon as a phase fails (nothing is caught). Each phase prints its seconds.
 
-The phases that give no number to the kernels' record (19-23, 25, 27-30,
-33 and 37: example runs whose host-bound loops leave the card idle most of
-their time) run last, in ``len(EXAMPLE_PHASES)`` child processes at once
+The phases that give the kernels' record no number but launches (19-23,
+25, 27-30, 33 and 37: example runs whose host-bound loops leave the card
+idle most of their time) run last, in ``len(EXAMPLE_PHASES)`` child processes at once
 on the same card, after every other phase has run alone: the wall-clock
 figures they print are taken beside each other, and a failing child stops
 the others. To time one alone, run it as the other phases are run alone
@@ -16,12 +16,14 @@ the others. To time one alone, run it as the other phases are run alone
 
 1. device: the card, as ``nvidia-smi`` reports its name and power limit;
 2. build: compiles ``csrc/hmc_step.cu`` (the HMC step, ChEES step and
-   trajectory kernels), ``csrc/nuts_step.cu``, ``csrc/sgmcmc_step.cu``
-   (the SGLD, PSGLD, SGHMC and SGNHT kernels), ``csrc/linalg.cu`` (the
-   Cholesky-plus-inverse kernel), ``csrc/advi_step.cu`` (the whole-fit ADVI
-   trainer) and ``csrc/random.cu`` (the standalone samplers), one ``nvcc``
-   each, started together, timing the build and printing ptxas' register
-   and spill report;
+   trajectory kernels), ``csrc/hmc_builtins.cu`` (the HMC step on the
+   built-ins it alone evaluates, the same body), ``csrc/nuts_step.cu``,
+   ``csrc/sgmcmc_step.cu`` (the SGLD, PSGLD, SGHMC and SGNHT kernels),
+   ``csrc/linalg.cu`` (the Cholesky-plus-inverse kernel),
+   ``csrc/advi_step.cu`` (the whole-fit ADVI trainer) and
+   ``csrc/random.cu`` (the standalone samplers), one ``nvcc`` each,
+   started together, timing the build and printing ptxas' register and
+   spill report;
 3. kernel vs plain: the HMC step kernel (diagonal density) against its
    plain torch version on the same
    injected noise (the main path's 32768 x 100, 4096 x 100 and a ragged
@@ -78,16 +80,21 @@ the others. To time one alone, run it as the other phases are run alone
    energies within ``LP_TOL``. Then each timed against its plain version at
    4096 x 100 (the ChEES step at 100 and 190 leapfrogs), back to back and
    from a CUDA graph;
-11. mixing: ``bench.py``'s ``measure_mixing`` through the port, 4096 chains
-   x 100 dims of the equicorrelated Gaussian (rho 0.95), 300 adaptive then
+11. mixing (budget 30 s): ``bench.py``'s ``measure_mixing`` through the
+   port, 4096 chains x 100 dims of the equicorrelated Gaussian (rho 0.95),
+   300 adaptive then
    3 timed runs of 300 sampling iterations per arm: (a) fixed-L HMC with
    step-size and mass adaptation (the HMC step kernel), (a') the same with
    ``experimental_fused_step=False, experimental_fused_leapfrog=True`` (the
    trajectory kernel), (b) ChEES (the ChEES kernel), (c) pilot ->
-   ``fit_dense_preconditioner`` -> ``whiten_log_joint`` -> HMC (a plain
-   callable: the plain path, 0 launches); (a) and (b) again on the plain
-   path (one timed run each and no untimed one; (b) starts from the
-   kernel arm's adapted state, whose 300 adaptive iterations would take
+   ``fit_dense_preconditioner`` -> ``whiten_log_joint`` -> HMC (the
+   built-in ``WhitenedLogJoint``: the HMC step kernel, one launch an
+   iteration, counted apart from arm (a)'s; then K1 against its plain
+   version from the adapted whitened chains at 4096 x 100: no chain takes
+   the other MH decision, q', p0 and the log-densities to the bit, and
+   both timed: an entry of its own in the kernels' record); (a) and (b)
+   again on the plain path (one timed run each and no untimed one; (b)
+   starts from the kernel arm's adapted state, whose 300 adaptive iterations would take
    ~25 s on the plain path, and samples ``MIX_PLAIN_CHEES_ITERS``, both
    cut for time). Each
    reports min-coordinate and slow-projection ESS and their rates; gated
@@ -287,9 +294,9 @@ the others. To time one alone, run it as the other phases are run alone
    estimates over 8 keys (``AIS_REFERENCE``) and below the analytic log Z
    plus three spreads;
 28. the checking examples (budget 35 s): ``model_comparison/loo_compare``
-   at its defaults but its HMC fits cut to ``LOO_RECIPE`` (250 of 500
-   iterations, 125 adapting; ~1.9 ms a leapfrog on the host) (degree 0
-   behind by more than ``LOO_LOSS_SES`` paired
+   at its defaults (``LOO_RECIPE``; each of its three HMC fits on K1
+   through the regression built-in, one launch an iteration, counted)
+   (degree 0 behind by more than ``LOO_LOSS_SES`` paired
    SEs, degrees 1 and 2 within ``LOO_TIE_SES``, every ``pareto_k`` below
    ``LOO_MAX_K``), ``toy_examples/evidence_sandwich`` at its defaults
    (``L_0.5 <= log Z <= CUBO_2``), and ``sigmoid_belief_nets/
@@ -315,15 +322,12 @@ the others. To time one alone, run it as the other phases are run alone
    width (784-500-500-40, batch 128, 10 planar flows) cut to one epoch of
    its 10 (390 steps): steps/s, the bound finite and rising (last
    ``EXAMPLE_TAIL`` steps over the first); ``toy_examples/
-   neal_funnel_neutra`` at its defaults (512 chains, 2000 fit steps) but
-   its HMC runs cut to 300 iterations of which 150 adapt
-   (``FUNNEL_RECIPE``; from the defaults' 1000 and 500 the run took 90.6 s
-   of the phase on one H100, most of it the two plain HMC runs, and at
-   its JAX test's 600 and 300 it took 50-91 s): NeuTra's
-   ``std(v)`` above plain HMC's by ``FUNNEL_MARGIN`` and within
-   ``FUNNEL_TOL`` of 3.
-   The lifted density is a closure: its HMC takes the plain transition, K1
-   counted 0.
+   neal_funnel_neutra`` at its defaults (512 chains, 2000 fit steps,
+   HMC runs of 1000 iterations of which 500 adapt: ``FUNNEL_RECIPE``):
+   NeuTra's ``std(v)`` above plain HMC's by ``FUNNEL_MARGIN`` and within
+   ``FUNNEL_TOL`` of 3; both HMC runs on K1, the first through
+   ``NealFunnelLogJoint``, the second through the lifted
+   ``NeuTraLogJoint``, one launch an iteration each, counted.
 31. SVGD and the toy samplers (budget 55 s): ``stein_variational/
    blr_svgd`` at its defaults (100 particles, 2000 iterations): test
    accuracy above the majority class by ``EXAMPLE_MARGIN``;
@@ -384,11 +388,13 @@ the others. To time one alone, run it as the other phases are run alone
    every adjacent pair swapping; ``state_space/changepoint.run`` on the
    JAX example's counts (``CHANGEPOINT_REFERENCE``, from
    ``scripts/changepoint_jax_reference.py``) at ``CHANGEPOINT_RECIPE``
-   (its 2000 sweeps, 500 burn-in, halved for time): the same ``tau`` mode
-   as the JAX example's defaults and both rates' posterior means within
-   ``CHANGEPOINT_LAM_TOL`` of them. No
-   hand-written kernel: these samplers and the example's closure take the
-   plain path (neither package has a kernel for them).
+   (its 2000 sweeps, 500 burn-in, halved for time), float32 on the card:
+   the same ``tau`` mode as the JAX example's defaults and both rates'
+   posterior means within ``CHANGEPOINT_LAM_TOL`` of them; its HMC block
+   on K1 through ``PoissonChangepointLogJoint`` (the change point read per
+   chain from the block's observations), one launch a sweep, counted. The
+   other samplers reach no hand-written kernel (neither package has one
+   for them).
 
 34. SMC and state-space models (budget 90 s): ``AnnealedSMC`` on
    ``bench.py``'s target at 32768 particles x 100 dims (proposal N(0, I); HMC
@@ -488,6 +494,16 @@ the others. To time one alone, run it as the other phases are run alone
    five K1 device records and the scope; ``multi_device.main`` in a
    world of 1 on NCCL (``MULTI_DEVICE_STEPS`` steps, cut from 100), and
    ``data_parallel_grad`` equal to a plain value-and-grad bit for bit.
+
+38. K1's built-in routes (budget 25 s; ``phase_builtin_routes``): K1
+   against its plain version and both timed on the built-ins that phases
+   28, 30 and 33 drive, at their examples' shapes from chains warmed on K1
+   (Neal's funnel and its NeuTra lift at 512 x 5, the three regressions at
+   32 x 1-3, the change-point block at 64 x 2 with each chain's change
+   point): no chain takes the other MH decision, q', p0 and the
+   log-densities to the bit; an entry of the kernels' record each, whose
+   launches are those the children's example runs count (their
+   ``k1_routes`` lines).
 
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
@@ -618,8 +634,8 @@ def phase_device(torch):
 def phase_build():
     from zhusuan_tpu_torch.ops._build import build_libraries
 
-    libs = build_libraries(["hmc_step", "nuts_step", "sgmcmc_step",
-                            "linalg", "advi_step", "random"])
+    libs = build_libraries(["hmc_step", "hmc_builtins", "nuts_step",
+                            "sgmcmc_step", "linalg", "advi_step", "random"])
     for name, (_, record) in libs.items():
         ptxas = [ln.strip() for ln in record["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1558,6 +1574,8 @@ def _mixing_dense(torch, dev, warm_state, pilot_traj, trials):
     torch.cuda.synchronize()
     fit_sec = time.perf_counter() - t0
     wlj, to_w, from_w = zt.whiten_log_joint(dens, "z", chol)
+    check(isinstance(wlj, zt.WhitenedLogJoint),
+          "whiten_log_joint of a built-in gave no WhitenedLogJoint")
     phmc = zt.HMC(step_size=0.5, n_leapfrogs=5, adapt_step_size=True)
     fns = (fused_hmc_step, fused_leapfrog, fused_chees_step)
     before = [f.launches for f in fns]
@@ -1568,10 +1586,14 @@ def _mixing_dense(torch, dev, warm_state, pilot_traj, trials):
         torch, lambda seed: phmc.run(
             wlj, {}, pst, torch.Generator().manual_seed(seed), MIX_ITERS,
             collect_fields=("samples", "acceptance_rate"))[1], trials,
-        postmap=from_w)
-    rec["launches"] = sum(f.launches - b for f, b in zip(fns, before))
-    rec["why_no_launches"] = ("the whitened density is a plain callable, "
-                              "not a built-in, so it takes the plain path")
+        postmap=from_w, launch_fns=(fused_hmc_step,))
+    torch.cuda.synchronize()
+    k1, k2, k7 = (f.launches - b for f, b in zip(fns, before))
+    check(k1 == MIX_ITERS * (trials + 2) and k2 == 0 and k7 == 0,
+          "the whitened arm launched K1 {} times (expected {}), K2 {}, K7 "
+          "{}".format(k1, MIX_ITERS * (trials + 2), k2, k7))
+    rec["launches"] = k1
+    rec["launch_counters"] = ["fused_hmc_step"]
     rec["mean_acceptance"] = _acceptance(out)[0]
     rec["step_size"] = float(pst.step_size)
     rec["pilot_fit_sec"] = fit_sec
@@ -1579,7 +1601,15 @@ def _mixing_dense(torch, dev, warm_state, pilot_traj, trials):
     budget = 3000 / float(MIX_ITERS)
     rec["ess_per_sec_amortized_3k_iters"] = (
         rec["min_coord_ess"] * budget / (fit_sec + rec["sample_sec"] * budget))
-    return rec
+    # K1 on the whitened density against its plain version from the adapted
+    # whitened chains, at the arm's step and leapfrogs: 0 chains differ.
+    kvp, worst = _k1_against_plain(
+        torch, wlj, pst.q["z"], pst.mass["z"], pst.step_size, 5, 1,
+        torch.Generator(device=dev).manual_seed(32), None,
+        bound=_builtin_step_bound("whitened", wlj, MIX_CHAINS, 5))
+    _hold_builtin("whitened (mixing arm (c))", kvp, worst)
+    kvp["shape"] = [MIX_CHAINS, DIM]
+    return rec, kvp, worst
 
 
 def phase_mixing(torch, dev):
@@ -1597,15 +1627,19 @@ def phase_mixing(torch, dev):
     arms["hmc_fixed_L_leapfrog_kernel"], _, _ = _mixing_hmc(
         torch, dev, False, True, N_TRIALS)
     arms["chees"], chees_warm = _mixing_chees(torch, dev, True, N_TRIALS)
-    arms["hmc_dense_precond"] = _mixing_dense(torch, dev, warm, pilot,
-                                              N_TRIALS)
+    check(fused_hmc_step.launches == k1,
+          "arm (a') or (b) launched the HMC step kernel")
+    arms["hmc_dense_precond"], white_kvp, white_err = _mixing_dense(
+        torch, dev, warm, pilot, N_TRIALS)
+    # Arm (a)'s K1 launches (the equicorrelated record) apart from arm
+    # (c)'s (the whitened record, counted in _mixing_dense); the
+    # kernel-vs-plain launches in neither.
+    fused_hmc_step.launches = k1
     launches = {f.__name__: f.launches for f in kernels}
+    launches["fused_hmc_step_whitened"] = arms["hmc_dense_precond"][
+        "launches"]
     for name, n in launches.items():
         check(n > 0, "the mixing run launched {} no time".format(name))
-    check(launches["fused_hmc_step"] == k1,
-          "an arm other than (a) launched the HMC step kernel")
-    check(arms["hmc_dense_precond"]["launches"] == 0,
-          "the whitened arm launched a kernel")
     # (a) and (b) on the plain path: one timed run each.
     arms["hmc_fixed_L_plain"], _, _ = _mixing_hmc(torch, dev, False, False, 1,
                                                   untimed=False)
@@ -1616,7 +1650,8 @@ def phase_mixing(torch, dev):
         "target": "equicorrelated Gaussian rho={} dim={}".format(MIX_RHO,
                                                                  DIM),
         "n_chains": MIX_CHAINS, "n_adapt": MIX_ITERS, "n_iters": MIX_ITERS,
-        "launches": launches, "arms": arms}))
+        "launches": launches, "arms": arms,
+        "whitened_kernel_vs_plain": white_kvp}))
     check(all(f.launches == launches[f.__name__] for f in kernels),
           "a plain-path arm launched a kernel")
     for name, rec in arms.items():
@@ -1632,7 +1667,7 @@ def phase_mixing(torch, dev):
     check(arms["chees"]["slow_proj_ess"]
           > arms["hmc_fixed_L"]["slow_proj_ess"],
           "ChEES's slow-projection ESS is not above fixed-L HMC's")
-    return launches
+    return launches, white_kvp, white_err
 
 
 # --------------------------------------------------------------------- #
@@ -1671,6 +1706,44 @@ def _hmc_step_bound(c, d, n_leapfrogs, density):
     ops = (OPS_NORMAL + 2 + 6 + 2 * OPS_LOG_PROB[density] + 1
            + (n_leapfrogs + 1) * (5 + OPS_GRAD[density]))
     return _bound(4 * (3 * c * d + 5 * c + 3 * d), c * d * ops)
+
+
+def _builtin_step_bound(kind, dens, c, n_leapfrogs):
+    """K1 on a built-in it alone evaluates: K1's bytes plus the density's
+    parameters (and a chain's held value) read once, and
+    ``_hmc_step_bound``'s work with the density's own gradient and
+    log-density per chain, counted from ``csrc/densities.cuh``: the
+    whitened density's ``L y`` and ``L^T g`` are ``2 d^2`` multiply-adds a
+    gradient (``d^2`` a log-density) beside the base's; NeuTra's net is
+    ``H (n_in + 2 n_out)`` multiply-adds a coupling each way (``H`` the
+    flow's hidden width) with about 10 more operations an output; a data
+    row of the regression ``2 d + 4`` operations a log-density and ``2 d``
+    more a gradient, of the change point 4 and 2."""
+    d = dens.dim
+    if kind == "whitened":
+        base = "diagonal" if dens.base.kernel_id == 0 else "equicorrelated"
+        grad = 4 * d * d + d * OPS_GRAD[base]
+        lp = 2 * d * d + d * OPS_LOG_PROB[base]
+        params = d * d + d
+    elif kind in ("funnel", "neutra"):
+        grad, lp, params = 8 * d, 6 * d, 1
+        if kind == "neutra":
+            h = dens.hidden
+            for i in range(len(dens.flows)):
+                n_in, n_out = dens.halves(i)
+                net = 2 * h * (n_in + 2 * n_out) + 10 * n_out
+                grad += 2 * net
+                lp += net
+                params += h * (n_in + 2 * n_out + 1) + 2 * n_out
+    elif kind == "regression":
+        n = dens.x.shape[0]
+        grad, lp, params = n * (4 * d + 4), n * (2 * d + 4), n * (d + 1)
+    else:  # the change point
+        n = dens.y.shape[0]
+        grad, lp, params = 6 * n, 4 * n, n + c
+    ops = c * (d * (OPS_NORMAL + 9) + 2 * lp
+               + (n_leapfrogs + 1) * (5 * d + grad))
+    return _bound(4 * (3 * c * d + 5 * c + 3 * d + params), ops)
 
 
 def _leapfrog_bound(c, d, n_leapfrogs, density):
@@ -3537,7 +3610,7 @@ AIS_LEAPFROGS = 5
 AIS_SEED = 27
 AIS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "scripts", "ais_jax_reference.json")
-LOO_RECIPE = ["--n_iters", "250", "--n_adapt", "125"]
+LOO_RECIPE = ["--n_iters", "500", "--n_adapt", "250"]  # the defaults
 LOO_LOSS_SES = 4.0  # degree 0 loses by more than this many paired SEs
 LOO_TIE_SES = 2.0  # degrees 1 and 2 tie within this many
 LOO_MAX_K = 0.7
@@ -3559,14 +3632,17 @@ def ais_log_z():
 
 
 def _k1_against_plain(torch, dens, q, mass, step, n_leapfrogs, t, gen,
-                      kind):
+                      kind, observed=None, bound=None):
     """K1 against its plain version on one step from ``q`` with noise drawn
     from the device generator ``gen``, and both timed: ``(record, worst)``,
     ``worst`` the largest output error over ``1 + |ref|``, taken for q'
-    and new_lp over the chains whose MH decisions agree. The record counts
-    the chains whose decisions differ, and of them those off a near-tie
-    (``|u - acc| >= TOL``, as phase 3 holds K1). ``kind`` names the density
-    in ``OPS_GRAD`` for the bound."""
+    and new_lp over the chains whose MH decisions agree, and over the
+    entries finite on both sides (the record counts the entries finite on
+    one side only). The record counts the chains whose decisions differ,
+    and of them those off a near-tie (``|u - acc| >= TOL``, as phase 3
+    holds K1). ``kind`` names the density in ``OPS_GRAD`` for the bound,
+    unless ``bound`` (a ``_bound`` record) is given; ``observed`` goes to
+    both sides (a built-in's per-chain values)."""
     from zhusuan_tpu_torch.ops.hmc_step import (
         fused_hmc_step, fused_hmc_step_reference,
     )
@@ -3576,39 +3652,66 @@ def _k1_against_plain(torch, dens, q, mass, step, n_leapfrogs, t, gen,
     noise = (torch.randn(c, d, generator=gen, device=dev),
              torch.rand(c, generator=gen, device=dev))
     got = fused_hmc_step(dens, q, mass, step, n_leapfrogs, (1, 2), t,
-                         noise=noise)
+                         noise=noise, observed=observed)
     torch.cuda.synchronize()
     want = fused_hmc_step_reference(dens, q, mass, step, n_leapfrogs,
-                                    (1, 2), t, noise=noise)
+                                    (1, 2), t, noise=noise,
+                                    observed=observed)
     u = noise[1]
     agree = (u < got[2]) == (u < want[2])
     near = (u - want[2]).abs() < TOL
     names = ("q'", "p0", "acc", "old_lp", "new_lp", "old_h", "new_h")
-    errs, worst = {}, 0.0
+    errs, worst, one_sided = {}, 0.0, 0
     for n, a, b in zip(names, got, want):
         if n in ("q'", "new_lp"):
             a, b = a[agree], b[agree]
-        errs[n] = float((a.float() - b.float()).abs().max())
-        worst = max(worst, errs[n] / (1.0 + float(b.float().abs().max())))
+        a, b = a.float(), b.float()
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        one_sided += int((fa != fb).sum())
+        both = fa & fb
+        errs[n] = float((a - b).abs()[both].max()) if both.any() else 0.0
+        scale = float(b.abs()[both].max()) if both.any() else 0.0
+        worst = max(worst, errs[n] / (1.0 + scale))
     plain_gen = torch.Generator(device=dev).manual_seed(5)
 
     def plain():
         return fused_hmc_step_reference(
             dens, q, mass, step, n_leapfrogs, None, 1,
             noise=(torch.randn(c, d, generator=plain_gen, device=dev),
-                   torch.rand(c, generator=plain_gen, device=dev)))
+                   torch.rand(c, generator=plain_gen, device=dev)),
+            observed=observed)
+
+    def kernel():
+        return fused_hmc_step(dens, q, mass, step, n_leapfrogs, (3, 4), 1,
+                              observed=observed)
 
     return {
-        "kernel_ms": _time_ms(torch, lambda: fused_hmc_step(
-            dens, q, mass, step, n_leapfrogs, (3, 4), 1), 200),
-        "kernel_graph_ms": _graph_ms(torch, lambda: fused_hmc_step(
-            dens, q, mass, step, n_leapfrogs, (3, 4), 1), 20),
+        "kernel_ms": _time_ms(torch, kernel, 200),
+        "kernel_graph_ms": _graph_ms(torch, kernel, 20),
         "plain_ms": _time_ms(torch, plain, 20),
-        **_hmc_step_bound(c, d, n_leapfrogs, kind),
+        **(bound or _hmc_step_bound(c, d, n_leapfrogs, kind)),
         "decisions_differing": int((~agree).sum()),
         "decisions_differing_off_ties": int((~agree & ~near).sum()),
+        "nonfinite_one_side": one_sided,
         "max_abs_err": errs,
         "accept_rate": float((u < want[2]).float().mean())}, worst
+
+
+def _hold_builtin(label, rec, worst):
+    """Phase 38's hold of K1 against its plain version on a built-in of its
+    own (and phase 11's, on the whitened density): the plain version sums
+    in the kernel's order, so no chain takes the other MH decision, and the
+    positions, momenta and log-densities agree to the bit; the energies
+    and acceptance (the kinetic energy's row sum in torch's order) within
+    ``Q_TOL`` of ``1 + |ref|``."""
+    errs = rec["max_abs_err"]
+    check(rec["decisions_differing"] == 0 and rec["nonfinite_one_side"] == 0,
+          "{}: {} chains take the other MH decision, {} entries finite on "
+          "one side".format(label, rec["decisions_differing"],
+                            rec["nonfinite_one_side"]))
+    check(all(errs[n] == 0.0 for n in ("q'", "p0", "old_lp", "new_lp"))
+          and worst <= Q_TOL,
+          "{}: K1 and its plain version differ: {}".format(label, errs))
 
 
 def phase_workflow(torch, dev):
@@ -3875,6 +3978,30 @@ def _timed_steps(torch, step, n):
     return values.cpu(), time.perf_counter() - t0
 
 
+class _count_k1:
+    """Counts K1's launches in each call of ``module.<name>`` (patched in
+    place until :meth:`restore`), and the first argument's type."""
+
+    def __init__(self, module, name):
+        from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.counts, self.args = [], []
+
+        def counted(*args, **kwargs):
+            before = fused_hmc_step.launches
+            out = self.orig(*args, **kwargs)
+            self.counts.append(fused_hmc_step.launches - before)
+            self.args.append(type(args[0]).__name__)
+            return out
+
+        setattr(module, name, counted)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
 def _rises(torch, values, name, failures):
     """The mean of the first and last ``EXAMPLE_TAIL`` of ``values`` (a
     bound a step); a failure unless every value is finite and the mean
@@ -3914,14 +4041,26 @@ def phase_checking_examples(torch, dev):
     failures, recs = [], {}
     argv = ["--device", str(dev)]
 
-    # loo_compare at its defaults, its fits cut to LOO_RECIPE.
+    # loo_compare at its defaults: each of its three HMC fits on K1 through
+    # the regression built-in, one launch an iteration.
+    fits = _count_k1(loo_compare, "fit_and_score")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results, rows = loo_compare.main(argv + LOO_RECIPE)
+    try:
+        results, rows = loo_compare.main(argv + LOO_RECIPE)
+    finally:
+        fits.restore()
     rec = {"wall_sec": time.perf_counter() - t0,
            "rows": [r._asdict() for r in rows],
            "max_pareto_k": max(float(r.pareto_k.max())
-                               for r in results.values())}
+                               for r in results.values()),
+           "k1_launches_per_fit": fits.counts}
+    n_iters = int(LOO_RECIPE[1])
+    if fits.counts != [n_iters] * 3:
+        failures.append("loo_compare: K1 launched {} times in its fits "
+                        "(expected {} each)".format(fits.counts, n_iters))
+    print("k1_routes " + json.dumps({"loo_compare": sum(fits.counts)}),
+          flush=True)
     recs["loo_compare"] = rec
     by_name = {r.name: r for r in rows}
     zero = by_name["degree 0"]
@@ -4003,9 +4142,9 @@ def phase_checking_examples(torch, dev):
 
 
 # Phases 29-31: Gaussian processes, flows and NeuTra, SVGD and the toy
-# samplers (budgets 35, 110 and 55 s: they ran to 32.5, 107.8 and 51.3 on
-# an H100 at 700 W, phase 30 mostly neal_funnel_neutra's two HMC runs on
-# the plain transition).
+# samplers (budgets 35, 80 and 55 s: they ran to 32.5, 107.8 and 51.3 on
+# an H100 at 700 W when phase 30's funnel HMC ran on the plain
+# transition; 59.6 s with both runs on K1 at the example's defaults).
 GP_DIABETES_JAX = {"exact": (55.8, 5.441), "sgpr": (56.1, 5.445),
                    "svgp": (55.8, 5.441)}  # RESULTS.md: test RMSE, NLL
 GP_RMSE_RTOL = 0.02
@@ -4018,12 +4157,11 @@ SGPR_TIMED = 10
 EXAMPLE_MARGIN = 0.2  # accuracy above the majority class (ESS, SVGD)
 FLOW_MIN_ELBO = -0.15  # tests/test_examples.py:225
 FUNNEL_MARGIN, FUNNEL_TOL = 0.2, 0.45  # tests/test_examples.py:77-78
-# Half the HMC runs of tests/test_examples.py:73-74 (600 iterations, 300
-# adapting, took 50-91 s on one H100, most of it the two plain HMC runs;
-# the example's defaults, 1000 and 500, 90.6 s); the chains and the fit as
-# the defaults. On the CPU at seeds 0-2, at 600 / 300: plain 2.47-2.54,
-# NeuTra 2.93-2.94; at 300 / 150: plain 2.44-2.49, NeuTra 2.93-2.96.
-FUNNEL_RECIPE = {"n_iters": 300, "n_adapt": 150}
+# The example's defaults (both HMC runs on K1 through the built-ins; on
+# the plain transition they took most of a 90.6 s run on one H100, so they
+# were cut to 300 / 150 before the built-ins). On the CPU at seeds 0-2 (the
+# closures), at 600 / 300: plain 2.47-2.54, NeuTra 2.93-2.94.
+FUNNEL_RECIPE = {"n_iters": 1000, "n_adapt": 500}
 SVGD_TIMED = (4096, 25)  # particles x dims of SVGD.update's timing
 CHEES_REL_STD = 0.15  # tests/test_examples.py:39
 CHEES_MODEL_RECIPE = {"n_iters": 400, "n_adapt": 200}
@@ -4127,9 +4265,8 @@ def phase_gp(torch, dev):
 
 def phase_flows(torch, dev):
     """Phase 30 (budget 80 s): ``toy2d_flow`` at its defaults, ``vae_nf``
-    at full width cut to one epoch, ``neal_funnel_neutra`` with its HMC
-    runs at its JAX test's iterations (on the plain transition: K1 not
-    launched)."""
+    at full width cut to one epoch, ``neal_funnel_neutra`` at its defaults
+    with both HMC runs on K1 (one launch an iteration each, counted)."""
     from zhusuan_tpu_torch.examples.normalizing_flows import toy2d_flow, vae_nf
     from zhusuan_tpu_torch.examples.toy_examples import neal_funnel_neutra
     from zhusuan_tpu_torch.examples.utils.dataset import load_binary_mnist
@@ -4158,22 +4295,33 @@ def phase_flows(torch, dev):
                       "steps_per_sec": lbs.shape[0] / seconds,
                       **_rises(torch, lbs, "vae_nf", failures)}
 
-    fused_hmc_step.launches = 0
-    (std_plain, std_neutra, fit), seconds = _wall(
-        torch, lambda: neal_funnel_neutra.run(dev, verbose=False,
-                                              **FUNNEL_RECIPE))
+    runs = _count_k1(neal_funnel_neutra, "run_hmc")
+    try:
+        (std_plain, std_neutra, fit), seconds = _wall(
+            torch, lambda: neal_funnel_neutra.run(dev, verbose=False,
+                                                  **FUNNEL_RECIPE))
+    finally:
+        runs.restore()
     losses = fit.losses.cpu()
     recs["neal_funnel_neutra"] = {
         "wall_sec": seconds, "std_plain": std_plain,
-        "std_neutra": std_neutra, "k1_launches": fused_hmc_step.launches,
+        "std_neutra": std_neutra, "k1_launches_per_run": runs.counts,
+        "densities": runs.args,
         "fit_loss_first100": float(losses[:100].mean()),
         "fit_loss_last100": float(losses[-100:].mean())}
     if not (std_neutra > std_plain + FUNNEL_MARGIN
             and abs(std_neutra - 3.0) < FUNNEL_TOL):
         failures.append("neal_funnel_neutra: std(v) plain {} NeuTra {}"
                         .format(std_plain, std_neutra))
-    if fused_hmc_step.launches:
-        failures.append("neal_funnel_neutra launched K1")
+    # Both runs on K1, one launch an iteration, adaptation included.
+    if (runs.counts != [FUNNEL_RECIPE["n_iters"]] * 2
+            or runs.args != ["NealFunnelLogJoint", "NeuTraLogJoint"]):
+        failures.append("neal_funnel_neutra: K1 launched {} times on {}"
+                        .format(runs.counts, runs.args))
+    else:
+        print("k1_routes " + json.dumps({"neal_funnel": runs.counts[0],
+                                         "neutra": runs.counts[1]}),
+              flush=True)
     for name, r in recs.items():
         print("phase30 {} {}".format(name, json.dumps(r)), flush=True)
     check(not failures, "flow examples: " + "; ".join(failures))
@@ -4681,6 +4829,11 @@ def phase_samplers_changepoint(torch, dev):
 
     with open(CHANGEPOINT_REFERENCE) as f:
         ref = json.load(f)
+    from zhusuan_tpu_torch.ops.hmc_step import fused_hmc_step
+
+    # The HMC block on K1 through the built-in, one launch a sweep, in
+    # float32 on the card as the JAX example runs.
+    fused_hmc_step.launches = 0
     res, seconds = _wall(torch, lambda: changepoint.run(
         y=torch.tensor(ref["y"], dtype=torch.float64, device=dev),
         **CHANGEPOINT_RECIPE))
@@ -4688,12 +4841,19 @@ def phase_samplers_changepoint(torch, dev):
            "ms_per_sweep": seconds / CHANGEPOINT_RECIPE["n_iters"] * 1e3,
            "tau_mode": res["tau_mode"], "tau_mean": res["tau_mean"],
            "lam_mean": [float(v) for v in res["lam_mean"]],
+           "k1_launches": fused_hmc_step.launches,
            "jax": {k: ref[k] for k in ("tau_mode", "tau_mean", "lam_mean")}}
     recs["changepoint"] = rec
     if not (rec["tau_mode"] == ref["tau_mode"] and max(
             abs(a - b) for a, b in zip(rec["lam_mean"], ref["lam_mean"]))
             <= CHANGEPOINT_LAM_TOL):
         failures.append("changepoint: {}".format(rec))
+    if rec["k1_launches"] != CHANGEPOINT_RECIPE["n_iters"]:
+        failures.append("changepoint: K1 launched {} times in {} sweeps"
+                        .format(rec["k1_launches"],
+                                CHANGEPOINT_RECIPE["n_iters"]))
+    print("k1_routes " + json.dumps({"changepoint": rec["k1_launches"]}),
+          flush=True)
     for name, rec in recs.items():
         print("phase33 {} {}".format(name, json.dumps(rec)), flush=True)
     check(not failures, "samplers and changepoint: " + "; ".join(failures))
@@ -6376,6 +6536,107 @@ def phase_testing_infra(torch, dev):
     return rec
 
 
+ROUTE_WARM = 100  # K1 iterations (adapting) to the chains compared
+ROUTE_FIT_STEPS = 100  # fit_neutra steps of phase 38's flow (of 2000)
+
+
+def phase_builtin_routes(torch, dev):
+    """Phase 38 (budget 25 s): K1 against its plain version, and both
+    timed, on the built-ins K1 alone evaluates, at the shapes the examples
+    give it and from chains warmed on K1 at the examples' samplers
+    (``ROUTE_WARM`` adapting iterations; each route's seconds in its
+    record): Neal's funnel and its NeuTra lift at ``neal_funnel_neutra``'s
+    512 x 5, 8 leapfrogs (the flow of the example's shape, 8 couplings of
+    hidden width 32, fitted for ``ROUTE_FIT_STEPS`` steps);
+    ``loo_compare``'s three regressions at 32 x 1, 2, 3 (40 rows, 10
+    leapfrogs); ``changepoint``'s HMC block at 64 x 2 (60 counts, 6
+    leapfrogs) with each chain's change point from a Gibbs run of the
+    example's sampler. Each held as ``_hold_builtin`` says. Returns
+    ``(records, worst)``."""
+    import zhusuan_tpu_torch as zt
+    from zhusuan_tpu_torch.examples.model_comparison import loo_compare
+    from zhusuan_tpu_torch.examples.toy_examples import neal_funnel_neutra
+    from zhusuan_tpu_torch.mcmc import fit_neutra, neutra_log_joint
+
+    recs, worst = {}, 0.0
+    gen = torch.Generator(device=dev).manual_seed(38)
+
+    def warm(hmc, dens, q, n_leapfrogs, kind, key, observed=None):
+        t0 = time.perf_counter()
+        st = hmc.init({dens.name: q}, n_chain_dims=1)
+        st, _ = hmc.run(dens, observed or {}, st, (38, key), ROUTE_WARM,
+                        n_adapt=ROUTE_WARM, collect=False)
+        rec, err = _k1_against_plain(
+            torch, dens, st.q[dens.name], st.mass[dens.name], st.step_size,
+            n_leapfrogs, 1, gen, None, observed=observed,
+            bound=_builtin_step_bound(kind, dens, q.shape[0], n_leapfrogs))
+        rec["shape"] = list(q.shape)
+        rec["step_size"] = float(st.step_size)
+        rec["seconds"] = time.perf_counter() - t0
+        _hold_builtin(kind, rec, err)
+        return rec, err
+
+    funnel = neal_funnel_neutra.log_joint
+    z0 = torch.zeros(512, funnel.dim, device=dev)
+    recs["funnel"], err = warm(neal_funnel_neutra.make_hmc(), funnel, z0, 8,
+                               "funnel", 1)
+    worst = max(worst, err)
+    t0 = time.perf_counter()
+    fit = fit_neutra(funnel, "z", funnel.dim,
+                     torch.Generator(device=dev).manual_seed(38),
+                     n_flows=8, n_iters=ROUTE_FIT_STEPS, n_particles=64,
+                     learning_rate=2e-3)
+    fit_sec = time.perf_counter() - t0
+    lifted, _, _ = neutra_log_joint(funnel, "z", fit.params)
+    check(isinstance(lifted, zt.NeuTraLogJoint),
+          "neutra_log_joint of the funnel gave no NeuTraLogJoint")
+    recs["neutra"], err = warm(neal_funnel_neutra.make_hmc(), lifted, z0, 8,
+                               "neutra", 2)
+    recs["neutra"]["fit_seconds"] = fit_sec
+    worst = max(worst, err)
+
+    x, y = loo_compare.make_data()
+    for degree in (0, 1, 2):
+        dens = loo_compare.regression_builtin(
+            loo_compare.make_design(x, degree), y)
+        hmc = zt.HMC(step_size=0.1, n_leapfrogs=10, adapt_step_size=True)
+        recs["regression_deg{}".format(degree)], err = warm(
+            hmc, dens, torch.zeros(32, degree + 1, device=dev), 10,
+            "regression", 3 + degree)
+        worst = max(worst, err)
+
+    t0 = time.perf_counter()
+    with open(CHANGEPOINT_REFERENCE) as f:
+        counts = torch.tensor(json.load(f)["y"], dtype=torch.float32,
+                              device=dev)
+    cp = zt.PoissonChangepointLogJoint(counts)
+    t = counts.shape[0]
+    gibbs = zt.Gibbs([
+        (zt.DiscreteGibbs({"tau": torch.arange(1, t, dtype=torch.float32)}),
+         ["tau"]),
+        (zt.HMC(step_size=0.1, n_leapfrogs=6, adapt_step_size=True),
+         ["log_lam"])])
+    gst = gibbs.init({"tau": torch.full((64, 1), float(t // 2), device=dev),
+                      "log_lam": torch.zeros(64, 2, device=dev)}, 1)
+    gst, _ = gibbs.run(cp, {}, gst, (38, 9), ROUTE_WARM, n_adapt=ROUTE_WARM,
+                       collect=False)
+    tau = gst.sub_states[0].q["tau"]
+    hst = gst.sub_states[1]
+    rec, err = _k1_against_plain(
+        torch, cp, hst.q["log_lam"], hst.mass["log_lam"], hst.step_size, 6,
+        1, gen, None, observed={"tau": tau},
+        bound=_builtin_step_bound("changepoint", cp, 64, 6))
+    rec["shape"] = [64, 2]
+    rec["step_size"] = float(hst.step_size)
+    rec["tau_values"] = sorted({int(v) for v in tau.flatten().tolist()})
+    rec["seconds"] = time.perf_counter() - t0
+    _hold_builtin("changepoint", rec, err)
+    recs["changepoint"] = rec
+    worst = max(worst, err)
+    print("phase38 builtin_routes " + json.dumps(recs), flush=True)
+    return recs, worst
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6404,7 +6665,8 @@ EXAMPLE_TIMEOUT = 600  # seconds for the children together
 def run_example_phases(torch):
     """Every group of ``EXAMPLE_PHASES``, each in a child process
     (``--worker``), all at once; their output is printed after they end,
-    in group order."""
+    in group order. Returns the K1 launches the children's example routes
+    printed (their ``k1_routes`` lines), by route."""
     torch.cuda.empty_cache()  # leave the card's memory to the children
     procs, outs, threads = [], [], []
     try:
@@ -6435,16 +6697,20 @@ def run_example_phases(torch):
             p.wait()
     for t in threads:
         t.join()
-    failed = []
+    failed, routes = [], {}
     for group, p, (out, err) in zip(EXAMPLE_PHASES, procs, outs):
         sys.stdout.write(out)
         sys.stderr.write(err)
         if p.returncode:
             failed.append("{} (exit code {})".format(
                 ",".join(name for name, _ in group), p.returncode))
+        for line in out.splitlines():
+            if line.startswith("k1_routes "):
+                routes.update(json.loads(line[len("k1_routes "):]))
     sys.stdout.flush()
     check(not failed, "example phases failed or were stopped: {}".format(
         "; ".join(failed)))
+    return routes
 
 
 def _setup():
@@ -6487,7 +6753,8 @@ def main():
     run_phase("phase9", phase_nuts_deep, torch, dev)
     fam_err, fam_timing = run_phase("phase10", phase_family_vs_plain, torch,
                                     dev)
-    mix_launches = run_phase("phase11", phase_mixing, torch, dev)
+    mix_launches, white_t, white_err = run_phase("phase11", phase_mixing,
+                                                 torch, dev)
     sg_err, sg_timing = run_phase("phase12", phase_sgmcmc_vs_plain, torch,
                                   dev)
     sg_launches, _ = run_phase("phase13", phase_sgmcmc_main_path, torch, dev)
@@ -6513,10 +6780,15 @@ def main():
                                              torch, dev)
     cov_launches, cov_err, cov_t = run_phase(
         "phase36", phase_covariance_topics_gans, torch, dev)
+    route_t, route_err = run_phase("phase38", phase_builtin_routes, torch,
+                                   dev)
     t0 = time.perf_counter()
-    run_example_phases(torch)
+    routes = run_example_phases(torch)
     print("example phases seconds {:.3f} ({} children)".format(
         time.perf_counter() - t0, len(EXAMPLE_PHASES)), flush=True)
+    for name in ("loo_compare", "neal_funnel", "neutra", "changepoint"):
+        check(routes.get(name, 0) > 0,
+              "the {} route launched K1 no time".format(name))
     chees_t = fam_timing["chees_step_equicorrelated_n190"]
     nuts6 = nuts_timing["depth6"]
 
@@ -6775,7 +7047,37 @@ def main():
         "ms_back_to_back": cov_t["kernel_ms"],
         "plain_ms": cov_t["plain_ms"],
         **bound(cov_t),
-    }] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
+    }] + [{
+        "name": "fused_hmc_step ({})".format(label),
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/hmc_step.cu",
+        "replaces": "zhusuan_tpu/ops/hmc_step.py:206",
+        "launches": n,
+        "max_abs_err": err,
+        "ms": rec["kernel_graph_ms"],
+        "ms_back_to_back": rec["kernel_ms"],
+        "plain_ms": rec["plain_ms"],
+        **bound(rec),
+        "shape": rec["shape"],
+        "decisions_differing": rec["decisions_differing"],
+        **extra,
+    } for label, n, rec, err, extra in (
+        ("whitened equicorrelated Gaussian, mixing arm (c)",
+         mix_launches["fused_hmc_step_whitened"], white_t, white_err, {}),
+        ("Neal's funnel, neal_funnel_neutra", routes["neal_funnel"],
+         route_t["funnel"], route_err, {}),
+        ("NeuTra-lifted funnel, 8 couplings of width 32, "
+         "neal_funnel_neutra", routes["neutra"], route_t["neutra"],
+         route_err, {}),
+        ("linear regression, loo_compare, 40 rows", routes["loo_compare"],
+         route_t["regression_deg2"], route_err,
+         {"{}_deg{}".format(k, d): route_t["regression_deg%d" % d][v]
+          for d in (0, 1) for k, v in (("ms", "kernel_graph_ms"),
+                                       ("plain_ms", "plain_ms"),
+                                       ("bound_ms", "bound_ms"))}),
+        ("change point held per chain, changepoint, 60 counts",
+         routes["changepoint"], route_t["changepoint"], route_err, {}))
+    ] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -187,3 +187,105 @@ def test_chees_divergent_step(density):
     torch.cuda.synchronize()
     assert torch.equal(torch.isfinite(got[1]), torch.isfinite(want[1]))
     assert torch.equal(got[0], want[0])
+
+
+# --------------------------------------------------------------------- #
+# The built-ins K1 alone evaluates (zs_fused_builtin_hmc_step)
+# --------------------------------------------------------------------- #
+# Widths of each: the whitened density at 1 to 128 (its rows on 32 lanes,
+# L in shared memory), the funnel at 1, 2 and 4 groups a lane, NeuTra at 2
+# to 32 with hidden widths 7 and 32, the regression at 1 to 8.
+BUILTIN_CASES = ([("whitened", d) for d in (1, 37, 100, 128)]
+                 + [("funnel", d) for d in (2, 5, 200, 511)]
+                 + [("neutra", d) for d in (2, 5, 32)]
+                 + [("regression", d) for d in (1, 3, 8)]
+                 + [("changepoint", 2)])
+SHARED_BYTES = 227 * 1024  # a block's shared memory on sm_90
+
+
+def _flow(d, n_flows, hidden, rs, t):
+    d1 = d // 2
+    out = []
+    for i in range(n_flows):
+        n_in, n_out = (d1, d - d1) if i % 2 == 0 else (d - d1, d1)
+        out.append({"w1": t(rs.randn(n_in, hidden) * (2.0 / n_in) ** 0.5),
+                    "b1": t(0.05 * rs.randn(hidden)),
+                    "w2": t(0.05 * rs.randn(hidden, 2 * n_out)),
+                    "b2": t(0.05 * rs.randn(2 * n_out))})
+    return out
+
+
+def _builtin_problem(kind, dim, dev, seed=0):
+    """A built-in of K1's own at ``dim``, positions, a mass, the injected
+    noise and the observations it reads."""
+    from zhusuan_tpu_torch.ops import densities as zd
+
+    rs = np.random.RandomState(seed + dim)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    observed, step = {}, 0.15
+    q = t(0.5 * rs.randn(CHAINS, dim))
+    if kind == "whitened":
+        a = rs.randn(dim, dim)
+        chol = np.linalg.cholesky(0.5 * np.eye(dim) + a @ a.T / dim)
+        dens = zd.WhitenedLogJoint(EquicorrelatedGaussianLogJoint(
+            "x", dim, 0.5), t(chol))
+    elif kind == "funnel":
+        dens = zd.NealFunnelLogJoint("x", dim)
+    elif kind == "neutra":
+        dens = zd.NeuTraLogJoint(zd.NealFunnelLogJoint("x", dim),
+                                 _flow(dim, 5, 7 if dim < 32 else 32, rs, t))
+        step = 0.1
+    elif kind == "regression":
+        x = rs.randn(45, dim)
+        dens = zd.GaussianLinearRegressionLogJoint(
+            "x", x, x @ rs.randn(dim) + 0.3 * rs.randn(45), 1.0, 0.3)
+        q, step = t(0.05 * rs.randn(CHAINS, dim)), 0.02
+    else:
+        y = rs.poisson(np.where(np.arange(70) < 30, 3.0, 0.8))
+        dens = zd.PoissonChangepointLogJoint(t(y))
+        observed = {"tau": t(rs.randint(1, 70, (CHAINS, 1)))}
+        q = t(np.log([3.0, 0.8]) + 0.2 * rs.randn(CHAINS, 2))
+    mass = t(0.5 + 1.5 * rs.rand(1, dim))
+    noise = (t(rs.randn(CHAINS, dim)), t(rs.rand(CHAINS)))
+    return dens, q, mass, noise, observed, step
+
+
+@pytest.mark.parametrize("kind,dim", BUILTIN_CASES)
+def test_builtin_shared_memory_fits_the_card(kind, dim):
+    """A block's dynamic shared memory for each built-in at its widths
+    (and at its limits) stays within sm_90's 227 KB."""
+    dens, *_ = _builtin_problem(kind, dim, torch.device("cpu"))
+    assert dens.kernel_ineligible() is None
+    _, aux, n_rows, block, warp = hmc_step._builtin_layout(
+        dens, torch.device("cpu"))
+    assert 4 * (block + 8 * warp) <= SHARED_BYTES
+    assert (n_rows > 0) == (kind in ("regression", "changepoint"))
+    assert (aux[0] is not None) == (kind in ("whitened", "neutra"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dim", BUILTIN_CASES)
+def test_builtin_step_matches_plain_version(kind, dim):
+    """K1 on a built-in of its own against its plain version, which sums
+    in the kernel's order: q', p0 and both log-densities bit for bit, no
+    MH decision flipped; the energies within ``LP_TOL`` (the kinetic
+    energy's row sum in another order)."""
+    dev = _cuda()
+    dens, q, mass, noise, observed, step = _builtin_problem(kind, dim, dev)
+    want = hmc_step.fused_hmc_step_reference(
+        dens, q, mass, step, 5, (1, 2), 1, noise=noise, observed=observed)
+    before = hmc_step.fused_hmc_step.launches
+    got = hmc_step.fused_hmc_step(dens, q, mass, step, 5, (1, 2), 1,
+                                  noise=noise, observed=observed)
+    torch.cuda.synchronize()
+    assert hmc_step.fused_hmc_step.launches == before + 1
+    u = noise[1]
+    assert torch.equal(u < got[2], u < want[2])
+    for i in (0, 1, 3, 4):  # q', p0, old and new log p
+        assert torch.equal(got[i], want[i])
+    fin = torch.isfinite(want[5]) & torch.isfinite(want[6])
+    for i in (2, 5, 6):
+        assert _close(got[i][fin], want[i][fin])

@@ -21,7 +21,10 @@ from zhusuan_tpu_torch.mcmc import whiten_log_joint as t_whiten
 from zhusuan_tpu_torch.mcmc.chees import ChEESHMC as TChEES
 from zhusuan_tpu_torch.mcmc.hmc import HMC as THMC
 from zhusuan_tpu_torch.mcmc.hmc import state_from_numpy, state_to_numpy
-from zhusuan_tpu_torch.ops.densities import EquicorrelatedGaussianLogJoint
+from zhusuan_tpu_torch.ops.densities import (
+    EquicorrelatedGaussianLogJoint,
+    WhitenedLogJoint,
+)
 
 torch.set_num_threads(1)
 
@@ -93,8 +96,13 @@ def test_whiten_log_joint_matches_jax():
     want_g = jax.grad(lambda v: jnp.sum(jw({"z": v})))(jnp.asarray(y[0]))
     got_g = tbase.make_grad_fn(tbase.make_log_joint_fn(tw, {}))({"z": yc})
     _close(got_g["z"], want_g, TOL)
-    # The whitened density is a plain callable (the kernels do not take it).
-    assert not isinstance(tw, EquicorrelatedGaussianLogJoint)
+    # Whitening a built-in gives the built-in the HMC kernel takes; any
+    # other log-joint stays a plain callable.
+    assert isinstance(tw, WhitenedLogJoint)
+    closure_w, _, _ = t_whiten(lambda obs: tlj(obs), "z", _t(chol))
+    assert callable(closure_w) and not isinstance(closure_w,
+                                                  WhitenedLogJoint)
+    _close(closure_w({"z": yc}), jw({"z": jnp.asarray(y[0])}), TOL)
 
 
 # --------------------------------------------------------------------- #

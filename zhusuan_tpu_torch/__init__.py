@@ -132,11 +132,16 @@ from zhusuan_tpu_torch.ops import (
     DiagonalGaussianLogJoint,
     EightSchoolsLogJoint,
     EquicorrelatedGaussianLogJoint,
+    GaussianLinearRegressionLogJoint,
     LatentDictDensity,
+    NealFunnelLogJoint,
+    NeuTraLogJoint,
     OrderedLogisticRegressionLogJoint,
+    PoissonChangepointLogJoint,
     TemperedLogJoint,
     Toy2DLogJoint,
     WeibullAFTLogJoint,
+    WhitenedLogJoint,
     fused_chees_step,
     fused_leapfrog,
     fused_meanfield_advi,
@@ -195,13 +200,18 @@ __all__ = [
     "DiagonalGaussianLogJoint",
     "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "GaussianLinearRegressionLogJoint",
     "LatentDictDensity",
+    "NealFunnelLogJoint",
+    "NeuTraLogJoint",
     "OrderedLogisticRegressionLogJoint",
+    "PoissonChangepointLogJoint",
     "FullRankGuide",
     "MeanFieldGuide",
     "TemperedLogJoint",
     "Toy2DLogJoint",
     "WeibullAFTLogJoint",
+    "WhitenedLogJoint",
     "advi",
     "fit_dense_preconditioner",
     "fit_scan",

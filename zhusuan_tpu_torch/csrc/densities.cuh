@@ -42,7 +42,12 @@ enum DensityId {
   kEightSchoolsCentred = 4,
   kOrderedLogisticRegression = 5,
   kWeibullAFT = 6,
-  kCovarianceEstimation = 7
+  kCovarianceEstimation = 7,
+  kWhitened = 8,
+  kNealFunnel = 9,
+  kNeuTra = 10,
+  kGaussianLinearRegression = 11,
+  kPoissonChangepoint = 12
 };
 
 // A lane's partial sum of a row: summed over the warp that shares the row,
@@ -791,6 +796,534 @@ struct CovarianceEstimation {
     }
     own_elements(G, r, g);
     return bad ? -INFINITY : static_cast<float>(lp);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Built-ins of the HMC transition's kernel alone (K1: csrc/hmc_step.cu's
+// zs_fused_builtin_hmc_step), in K1's layout: lane `lane` of the chain's warp
+// holds the K groups of 4 elements of densities above, and grad / log_prob
+// are called by every lane of the warp. Each sum is taken in the order of
+// the plain version (ops/densities.py):
+//   - a product of a matrix and a vector adds its products pairwise over the
+//     columns, ((0 + 1) + (2 + 3)) + ..., zero columns skipped past `dim`
+//     (the plain version pads with zeros to a power of two: the same sums);
+//   - a sum over the 32 lanes of a warp is warp_sum's butterfly (halves
+//     first), as the plain version's _butterfly_sum;
+//   - a sum over a row's elements or the data rows is accumulated in double
+//     and rounded once, exact for float32 terms of these sizes.
+// K = 1 for every one but the funnel: the row lies on lanes 0 .. 31 at 4
+// elements a lane (element i of lane l is column 4 l + i).
+
+// Neal's funnel over z = [v, x_1 .. x_{dim-1}]:
+//   log p = -0.5 (v s^-1)^2 + sum_i (-0.5 (x_i e^{-v/2})^2 - v/2),
+//   d/dx_i = -(x_i e^{-v/2}) e^{-v/2},
+//   d/dv = -(v s^-1) s^-1 + sum_i (0.5 (x_i e^{-v/2})^2 - 0.5).
+// p0 = (1 / s); p1 unused.
+template <int K>
+struct NealFunnel {
+  static constexpr int E = 4 * K;
+  float inv_s;
+  int lane, dim;
+
+  __device__ __forceinline__ void load(const float* p0, const float*,
+                                       int lane_, int dim_) {
+    inv_s = p0[0];
+    lane = lane_;
+    dim = dim_;
+  }
+
+  template <bool kGrad>
+  __device__ __forceinline__ float eval(const float (&x)[E],
+                                        float (&g)[E]) const {
+    const float v = __shfl_sync(0xffffffffu, x[0], 0);
+    const float h = 0.5f * v;
+    const float ev = expf(-h);
+    double lp = 0.0, gv = 0.0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = 4 * (32 * (e / 4) + lane) + e % 4;
+      g[e] = 0.0f;
+      if (j >= 1 && j < dim) {
+        const float r = x[e] * ev;
+        const float rr = r * r;
+        lp += static_cast<double>(-0.5f * rr - h);
+        if (kGrad) {
+          gv += static_cast<double>(0.5f * rr - 0.5f);
+          g[e] = -(r * ev);
+        }
+      }
+    }
+    const float w = v * inv_s;
+    const float value =
+        static_cast<float>(warp_sum(lp) + static_cast<double>(-0.5f * (w * w)));
+    if (kGrad) {
+      const float g_v = static_cast<float>(
+          warp_sum(gv) + static_cast<double>(-(w * inv_s)));
+      if (lane == 0) g[0] = g_v;
+    }
+    return value;
+  }
+
+  __device__ __forceinline__ void grad(const float (&x)[E],
+                                       float (&g)[E]) const {
+    eval<true>(x, g);
+  }
+
+  __device__ __forceinline__ float log_prob(const float (&x)[E]) const {
+    float g[E];
+    return eval<false>(x, g);
+  }
+
+  template <bool kWholeRow = false>
+  __device__ __forceinline__ float value_and_grad(const float (&x)[E],
+                                                  float (&g)[E]) const {
+    static_assert(!kWholeRow, "NealFunnel: a warp holds the row");
+    return eval<true>(x, g);
+  }
+};
+
+// The sum over k in [k0, k0 + N) of m[k * step] * v[k], pairwise; a part
+// that lies at or past `dim` is 0 (uniform across the warp).
+template <int N>
+__device__ __forceinline__ float pairwise_dot(const float* m, int step,
+                                              const float* v, int k0,
+                                              int dim) {
+  if (k0 >= dim) return 0.0f;
+  if constexpr (N == 1) {
+    return m[k0 * step] * v[k0];
+  } else {
+    return pairwise_dot<N / 2>(m, step, v, k0, dim) +
+           pairwise_dot<N / 2>(m, step, v, k0 + N / 2, dim);
+  }
+}
+
+// log p_base(L y), gradient L^T grad p_base(L y) (WhitenedLogJoint), dim <=
+// 128. L is staged once a block in shared memory, rows of stride dim | 1 (odd:
+// the 32 rows or columns a step reads fall in 32 banks); a warp's row goes
+// through two rows of 128 floats of its own: lane l forms elements l + 32 r
+// of L y (a row of L each) or of L^T g (a column each), all lanes reading the
+// vector by broadcast. The base is a built-in of K1 (p0, p1 its parameters);
+// its value is its value_and_grad's (row sums in double), as the plain
+// version's.
+template <int K, template <int> class Base>
+struct Whitened {
+  static_assert(K == 1, "Whitened: dim <= 128");
+  static constexpr int E = 4;
+  static constexpr int kMaxDim = 128;
+  Base<K> base;
+  const float* chol;  // shared [dim][stride]
+  float* vin;         // this warp's [128]
+  float* vout;        // this warp's [128]
+  int lane, dim, stride;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       const float* chol_s, float* warp_buf,
+                                       int lane_, int dim_) {
+    base.load(p0, p1, lane_, dim_);
+    chol = chol_s;
+    vin = warp_buf;
+    vout = warp_buf + kMaxDim;
+    lane = lane_;
+    dim = dim_;
+    stride = dim_ | 1;
+  }
+
+  template <bool kTranspose>
+  __device__ __forceinline__ void apply(const float (&in)[E],
+                                        float (&out)[E]) const {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = 4 * lane + i;
+      if (j < dim) vin[j] = in[i];
+    }
+    __syncwarp();
+#pragma unroll 1
+    for (int r = 0; r < kMaxDim / 32; ++r) {
+      const int j = lane + 32 * r;
+      if (j < dim)
+        vout[j] = kTranspose
+                      ? pairwise_dot<kMaxDim>(chol + j, stride, vin, 0, dim)
+                      : pairwise_dot<kMaxDim>(chol + j * stride, 1, vin, 0, dim);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = 4 * lane + i;
+      out[i] = j < dim ? vout[j] : 0.0f;
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void grad(const float (&y)[E],
+                                       float (&g)[E]) const {
+    float x[E], gx[E];
+    apply<false>(y, x);
+    base.grad(x, gx);
+    apply<true>(gx, g);
+  }
+
+  __device__ __forceinline__ float log_prob(const float (&y)[E]) const {
+    float x[E], gx[E];
+    apply<false>(y, x);
+    return base.template value_and_grad<false>(x, gx);
+  }
+};
+
+// A built-in pulled back through a RealNVP affine-coupling flow
+// (NeuTraLogJoint): log p_base(f(y)) + log|det J_f(y)|, dim <= 32, the hidden
+// width padded to 32 (lane u is hidden unit u). The couplings are staged once
+// a block in shared memory, packed as the plain version packs them: for each
+// coupling, W1 [n_in][32], b1 [32], W2^T [2 n_out][32], b2 [2 n_out]. A warp
+// keeps its row (zrow), its gradient (grow) and each coupling's input (hist)
+// in shared memory of its own. Forward, coupling f: pre_u = (c W1)_u + b1_u on
+// lane u, shift_o and raw_o by butterfly sums over the units, then lane o <
+// n_out moves a_o to a_o e^{ls_o} + shift_o, ls_o = 2 tanh(raw_o / 2), and
+// adds ls_o to its log-det. Backward, written out (the net recomputed from
+// hist, to the same bits): d/da = g e^ls, d/dls = (g a) e^ls + 1, d/draw =
+// d/dls (1 - t^2), (d/dh)_u added over the outputs in order, the
+// conditioning half's gradient plus a butterfly sum over the units.
+template <int K, template <int> class Base>
+struct NeuTra {
+  static_assert(K == 1, "NeuTra: dim <= 32");
+  static constexpr int E = 4;
+  static constexpr int kMaxIn = 16, kMaxOut = 16;
+  Base<K> base;
+  const float* w;  // shared: the packed couplings
+  float* zrow;     // this warp's [32]
+  float* grow;     // this warp's [32]
+  float* hist;     // this warp's [n_flows][32]
+  int lane, dim, d1, n_flows;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       const float* w_s, float* warp_buf,
+                                       int n_flows_, int lane_, int dim_) {
+    base.load(p0, p1, lane_, dim_);
+    w = w_s;
+    zrow = warp_buf;
+    grow = warp_buf + 32;
+    hist = warp_buf + 64;
+    lane = lane_;
+    dim = dim_;
+    d1 = dim_ / 2;
+    n_flows = n_flows_;
+  }
+
+  // Coupling f's weights and halves: conditioning from c0, active from a0.
+  __device__ __forceinline__ void layout(int f, const float*& w1,
+                                         const float*& b1, const float*& w2t,
+                                         const float*& b2, int& n_in,
+                                         int& n_out, int& c0, int& a0) const {
+    const int d2 = dim - d1;
+    const int size_even = d1 * 32 + 32 + 2 * d2 * 32 + 2 * d2;
+    const int size_odd = d2 * 32 + 32 + 2 * d1 * 32 + 2 * d1;
+    const bool even = (f & 1) == 0;
+    n_in = even ? d1 : d2;
+    n_out = even ? d2 : d1;
+    c0 = even ? 0 : d1;
+    a0 = even ? d1 : 0;
+    w1 = w + (f / 2) * (size_even + size_odd) + (even ? 0 : size_even);
+    b1 = w1 + n_in * 32;
+    w2t = b1 + 32;
+    b2 = w2t + 2 * n_out * 32;
+  }
+
+  __device__ __forceinline__ void net(const float* c, const float* w1,
+                                      const float* b1, const float* w2t,
+                                      const float* b2, int n_in, int n_out,
+                                      float& pre, float (&shift)[kMaxOut],
+                                      float (&raw)[kMaxOut]) const {
+    float acc = c[0] * w1[lane];
+#pragma unroll
+    for (int a = 1; a < kMaxIn; ++a)
+      if (a < n_in) acc = acc + c[a] * w1[a * 32 + lane];
+    pre = acc + b1[lane];
+    const float h = pre > 0.0f ? pre : 0.0f;
+#pragma unroll
+    for (int o = 0; o < kMaxOut; ++o) {
+      if (o < n_out) {
+        shift[o] = warp_sum(h * w2t[o * 32 + lane]) + b2[o];
+        raw[o] = warp_sum(h * w2t[(n_out + o) * 32 + lane]) + b2[n_out + o];
+      }
+    }
+  }
+
+  // f(y) into x and the log-det (every lane), each coupling's input saved.
+  __device__ __forceinline__ void forward(const float (&y)[E], float (&x)[E],
+                                          double& logdet) const {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = 4 * lane + i;
+      if (j < dim) zrow[j] = y[i];
+    }
+    __syncwarp();
+    double ld = 0.0;
+    for (int f = 0; f < n_flows; ++f) {
+      const float *w1, *b1, *w2t, *b2;
+      int n_in, n_out, c0, a0;
+      layout(f, w1, b1, w2t, b2, n_in, n_out, c0, a0);
+      if (lane < dim) hist[f * 32 + lane] = zrow[lane];
+      float pre, shift[kMaxOut], raw[kMaxOut];
+      net(zrow + c0, w1, b1, w2t, b2, n_in, n_out, pre, shift, raw);
+      float my_shift = 0.0f, my_raw = 0.0f;
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        if (o < n_out && lane == o) {
+          my_shift = shift[o];
+          my_raw = raw[o];
+        }
+      }
+      __syncwarp();
+      if (lane < n_out) {
+        const float t = tanhf(my_raw * 0.5f);
+        const float ls = 2.0f * t;
+        const float e = expf(ls);
+        const float a = zrow[a0 + lane];
+        zrow[a0 + lane] = a * e + my_shift;
+        ld += static_cast<double>(ls);
+      }
+      __syncwarp();
+    }
+    logdet = warp_sum(ld);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = 4 * lane + i;
+      x[i] = j < dim ? zrow[j] : 0.0f;
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ float log_prob(const float (&y)[E]) const {
+    float x[E], g[E];
+    double logdet;
+    forward(y, x, logdet);
+    const float v = base.template value_and_grad<false>(x, g);
+    return static_cast<float>(static_cast<double>(v) + logdet);
+  }
+
+  __device__ __forceinline__ void grad(const float (&y)[E],
+                                       float (&g)[E]) const {
+    float x[E], gx[E];
+    double logdet;
+    forward(y, x, logdet);
+    base.grad(x, gx);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = 4 * lane + i;
+      if (j < dim) grow[j] = gx[i];
+    }
+    __syncwarp();
+    for (int f = n_flows - 1; f >= 0; --f) {
+      const float *w1, *b1, *w2t, *b2;
+      int n_in, n_out, c0, a0;
+      layout(f, w1, b1, w2t, b2, n_in, n_out, c0, a0);
+      const float* hz = hist + f * 32;
+      float pre, shift[kMaxOut], raw[kMaxOut];
+      net(hz + c0, w1, b1, w2t, b2, n_in, n_out, pre, shift, raw);
+      float gs[kMaxOut], gr[kMaxOut];
+      float my_ga = 0.0f;
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        gs[o] = 0.0f;
+        gr[o] = 0.0f;
+        if (o < n_out) {
+          const float gn = grow[a0 + o];
+          const float a = hz[a0 + o];
+          const float t = tanhf(raw[o] * 0.5f);
+          const float e = expf(2.0f * t);
+          const float g_ls = (gn * a) * e + 1.0f;
+          gs[o] = gn;
+          gr[o] = g_ls * (1.0f - t * t);
+          if (lane == o) my_ga = gn * e;
+        }
+      }
+      float gh = gs[0] * w2t[lane];
+#pragma unroll
+      for (int o = 1; o < kMaxOut; ++o)
+        if (o < n_out) gh = gh + gs[o] * w2t[o * 32 + lane];
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o)
+        if (o < n_out) gh = gh + gr[o] * w2t[(n_out + o) * 32 + lane];
+      const float gp = pre > 0.0f ? gh : 0.0f;
+      float my_gc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < kMaxIn; ++a) {
+        if (a < n_in) {
+          const float s = warp_sum(gp * w1[a * 32 + lane]);
+          if (lane == a) my_gc = grow[c0 + a] + s;
+        }
+      }
+      __syncwarp();
+      if (lane < n_in) grow[c0 + lane] = my_gc;
+      if (lane < n_out) grow[a0 + lane] = my_ga;
+      __syncwarp();
+    }
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = 4 * lane + i;
+      g[i] = j < dim ? grow[j] : 0.0f;
+    }
+    __syncwarp();
+  }
+};
+
+// The Bayesian linear regression of examples/model_comparison/loo_compare.py
+// (GaussianLinearRegressionLogJoint) over w [dim <= 8], normalising constants
+// included: rows i = lane, lane + 32, ... of the table (x_i [dim], y_i), z_i =
+// (y_i - x_i^T w) / noise, log p = sum_i -z_i^2 / 2 + sum_j -(w_j/prior)^2 / 2
+// + C, d/dw_j = sum_i x_ij z_i / noise - w_j / prior^2. p0 the table, p1 the
+// constants (dim, 1 / noise, 1 / prior, C).
+template <int K>
+struct GaussianLinearRegression {
+  static_assert(K == 1, "GaussianLinearRegression: dim <= 8");
+  static constexpr int E = 4, kMax = 8;
+  const float* tab;
+  int n, d, lane;
+  float inv_n, inv_p, c0;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       int lane_, int n_rows) {
+    tab = p0;
+    n = n_rows;
+    lane = lane_;
+    d = static_cast<int>(p1[0]);
+    inv_n = p1[1];
+    inv_p = p1[2];
+    c0 = p1[3];
+  }
+
+  template <bool kGrad>
+  __device__ __forceinline__ float eval(const float (&x)[E],
+                                        float (&g)[E]) const {
+    float P[kMax];
+    gather_row<32>(x, P);
+    double acc[1 + kMax];
+#pragma unroll
+    for (int s = 0; s <= kMax; ++s) acc[s] = 0.0;
+    const int stride = d + 1;
+    for (int i = lane; i < n; i += 32) {
+      const float* row = tab + static_cast<size_t>(i) * stride;
+      float eta = P[0] * row[0];
+#pragma unroll
+      for (int j = 1; j < kMax; ++j)
+        if (j < d) eta = eta + P[j] * row[j];
+      const float z = (row[d] - eta) * inv_n;
+      acc[0] += static_cast<double>(-0.5f * (z * z));
+      if (kGrad) {
+        const float r = z * inv_n;
+#pragma unroll
+        for (int j = 0; j < kMax; ++j)
+          if (j < d)
+            acc[1 + j] += static_cast<double>(row[j]) * static_cast<double>(r);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) {  // the prior, on j's lane
+      if ((j >> 2) == lane && j < d) {
+        const float ws = P[j] * inv_p;
+        acc[0] += static_cast<double>(-0.5f * (ws * ws));
+        acc[1 + j] += static_cast<double>(-(ws * inv_p));
+      }
+    }
+    if (lane == 0) acc[0] += static_cast<double>(c0);
+    if (!kGrad) return static_cast<float>(warp_sum(acc[0]));
+    group_sums_double<32>(acc);
+    float G[kMax];
+#pragma unroll
+    for (int j = 0; j < kMax; ++j)
+      G[j] = j < d ? static_cast<float>(acc[1 + j]) : 0.0f;
+    own_elements(G, lane, g);
+    return static_cast<float>(acc[0]);
+  }
+
+  __device__ __forceinline__ void grad(const float (&x)[E],
+                                       float (&g)[E]) const {
+    eval<true>(x, g);
+  }
+
+  __device__ __forceinline__ float log_prob(const float (&x)[E]) const {
+    float g[E];
+    return eval<false>(x, g);
+  }
+};
+
+// The change-point posterior of examples/state_space/changepoint.py
+// (PoissonChangepointLogJoint) over log_lam [2], the change point tau read
+// for the chain (its [n_chains, 1] observation): rows t = lane, lane + 32,
+// ... of the counts y_t, lr_t = log_lam_0 for t < tau else log_lam_1,
+//   log p = sum_t (y_t lr_t - e^{lr_t}) + sum_k -(log_lam_k / prior)^2 / 2,
+//   d/dlog_lam_k = sum_{t on k's side} (y_t - e^{lr_t})
+//                  - (log_lam_k / prior) / prior.
+// p0 the counts, p1 the constants (T, 1 / prior).
+template <int K>
+struct PoissonChangepoint {
+  static_assert(K == 1, "PoissonChangepoint: dim 2");
+  static constexpr int E = 4;
+  const float* tab;
+  int n, lane;
+  float inv_p, tau;
+
+  __device__ __forceinline__ void load(const float* p0, const float* p1,
+                                       const float* chain_row, int lane_,
+                                       int n_rows) {
+    tab = p0;
+    n = n_rows;
+    lane = lane_;
+    inv_p = p1[1];
+    tau = chain_row[0];
+  }
+
+  template <bool kGrad>
+  __device__ __forceinline__ float eval(const float (&x)[E],
+                                        float (&g)[E]) const {
+    const float l0 = __shfl_sync(0xffffffffu, x[0], 0);
+    const float l1 = __shfl_sync(0xffffffffu, x[1], 0);
+    const float e0 = expf(l0), e1 = expf(l1);
+    double lp = 0.0, g0 = 0.0, g1 = 0.0;
+    for (int t = lane; t < n; t += 32) {
+      const float y = tab[t];
+      const bool before = static_cast<float>(t) < tau;
+      const float lr = before ? l0 : l1;
+      const float e = before ? e0 : e1;
+      lp += static_cast<double>(y * lr - e);
+      if (kGrad) {
+        const double dr = static_cast<double>(y - e);
+        if (before) {
+          g0 += dr;
+        } else {
+          g1 += dr;
+        }
+      }
+    }
+    const float lh0 = l0 * inv_p, lh1 = l1 * inv_p;
+    if (lane == 0) {
+      lp += static_cast<double>(-0.5f * (lh0 * lh0));
+      lp += static_cast<double>(-0.5f * (lh1 * lh1));
+    }
+    const float value = static_cast<float>(warp_sum(lp));
+    if (kGrad) {
+      const float gl0 = static_cast<float>(
+          warp_sum(g0) + static_cast<double>(-(lh0 * inv_p)));
+      const float gl1 = static_cast<float>(
+          warp_sum(g1) + static_cast<double>(-(lh1 * inv_p)));
+#pragma unroll
+      for (int e = 0; e < E; ++e) g[e] = 0.0f;
+      if (lane == 0) {
+        g[0] = gl0;
+        g[1] = gl1;
+      }
+    }
+    return value;
+  }
+
+  __device__ __forceinline__ void grad(const float (&x)[E],
+                                       float (&g)[E]) const {
+    eval<true>(x, g);
+  }
+
+  __device__ __forceinline__ float log_prob(const float (&x)[E]) const {
+    float g[E];
+    return eval<false>(x, g);
   }
 };
 

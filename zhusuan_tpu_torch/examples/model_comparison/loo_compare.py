@@ -8,6 +8,12 @@ by the expected log predictive density (Vehtari, Gelman & Gabry 2017) of
 the 8000 kept draws: degree 0 loses decisively, degrees 1 and 2 tie within
 error, and every ``pareto_k`` stays below 0.7.
 
+HMC fits each regression on its built-in density
+(:class:`~zhusuan_tpu_torch.ops.densities.GaussianLinearRegressionLogJoint`,
+held against the model once at the chains' first state), so on the card
+each iteration is one launch of the HMC kernel, as the JAX package traces
+the model into its Pallas kernel on a TPU; the scores come from the model.
+
 Run (on the card; ``--device cpu`` for the CPU)::
 
     python -m zhusuan_tpu_torch.examples.model_comparison.loo_compare
@@ -29,9 +35,14 @@ from zhusuan_tpu_torch.evaluation import (
 from zhusuan_tpu_torch.examples.utils.cli import add_device_arg, resolve_device
 from zhusuan_tpu_torch.framework import BayesianNet, meta_bayesian_net
 from zhusuan_tpu_torch.mcmc import HMC
+from zhusuan_tpu_torch.mcmc.base import make_log_joint_fn
+from zhusuan_tpu_torch.ops.densities import (
+    GaussianLinearRegressionLogJoint,
+    check_builtin_gaps,
+)
 
 __all__ = ["NOISE", "make_design", "make_model", "make_data",
-           "fit_and_score", "main"]
+           "regression_builtin", "check_builtin", "fit_and_score", "main"]
 
 NOISE = 0.3
 
@@ -61,6 +72,23 @@ def make_model(X, y_group_ndims, dtype=torch.float32, device=None):
     return model()
 
 
+def regression_builtin(X, y):
+    """The model of :func:`make_model` as a built-in density over ``w``
+    (its data held, normalising constants included)."""
+    return GaussianLinearRegressionLogJoint("w", X, y, 1.0, NOISE)
+
+
+def check_builtin(builtin, X, y, w):
+    """Hold ``builtin`` against the model's log joint at ``w [n, d]`` (one
+    read of the device); raises where they differ."""
+    model = make_log_joint_fn(
+        make_model(X, 1, w.dtype, w.device),
+        {"y": torch.as_tensor(y, dtype=w.dtype, device=w.device)})
+    check_builtin_gaps([("the regression built-in", builtin({"w": w}),
+                         model({"w": w}))], "chains' first state",
+                       equal=True)
+
+
 def make_data(n_data=40, seed=0):
     """``(x, y)``: 40 points of ``0.3 + 1.2 x`` plus noise 0.3."""
     rng = np.random.RandomState(seed)
@@ -76,12 +104,13 @@ def fit_and_score(X, y, key, n_chains=32, n_iters=500, n_adapt=250,
 
     :param key: the sampler's key (a ``torch.Generator`` or a pair).
     """
-    meta_bn = make_model(X, 1, dtype, device)
     observed = {"y": torch.as_tensor(y, dtype=dtype, device=device)}
+    builtin = regression_builtin(X, y)
     hmc = HMC(step_size=0.1, n_leapfrogs=10, adapt_step_size=True)
     state = hmc.init({"w": torch.zeros(n_chains, X.shape[1], dtype=dtype,
                                        device=device)}, n_chain_dims=1)
-    _, out = hmc.run(meta_bn, observed, state, key, n_iters=n_iters,
+    check_builtin(builtin, X, y, state.q["w"])
+    _, out = hmc.run(builtin, {}, state, key, n_iters=n_iters,
                      n_adapt=n_adapt, collect_fields=("samples",))
     draws = out["samples"]["w"][n_adapt:]
     ll = pointwise_log_likelihood(make_model(X, 0, dtype, device),

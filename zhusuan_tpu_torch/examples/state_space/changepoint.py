@@ -12,10 +12,14 @@ log-rates one :class:`~zhusuan_tpu_torch.mcmc.HMC` block, composed by
                                 \\lambda_2\\,[t\\ge\\tau]).
 
 The discrete update enumerates all T-1 candidate change points exactly in
-one batched density call a sweep; the log-joint is a closure, so the HMC
-block takes the plain transition (no built-in density reaches the HMC
-kernel). Synthetic counts from known parameters (flagged ``synthetic``),
-drawn from torch's Poisson sampler; ``run(y=...)`` takes given counts
+one batched density call a sweep. The log joint is the built-in
+:class:`~zhusuan_tpu_torch.ops.densities.PoissonChangepointLogJoint`,
+which reads the change point per chain from the HMC block's observations:
+on the card the block is one launch of the HMC kernel a sweep, as the JAX
+package traces the closure into its Pallas kernel on a TPU. On the card
+the counts and chains are float32 (the JAX example runs without x64), on
+the CPU float64. Synthetic counts from known parameters (flagged
+``synthetic``), drawn from torch's Poisson sampler; ``run(y=...)`` takes given counts
 instead (e.g. the JAX example's, from
 ``scripts/changepoint_jax_reference.json``).
 
@@ -33,6 +37,7 @@ import torch
 
 from zhusuan_tpu_torch.examples.utils.cli import add_device_arg, resolve_device
 from zhusuan_tpu_torch.mcmc import HMC, DiscreteGibbs, Gibbs
+from zhusuan_tpu_torch.ops.densities import PoissonChangepointLogJoint
 
 __all__ = ["TRUE", "make_data", "build_log_joint", "run", "main"]
 
@@ -48,21 +53,10 @@ def make_data(t, generator, device=None):
 
 
 def build_log_joint(y):
-    t = y.shape[0]
-    grid = torch.arange(t, dtype=y.dtype, device=y.device)
-
-    def log_joint(obs):
-        tau = obs["tau"][..., 0]  # [..., 1] -> [...]
-        log_lam = obs["log_lam"]  # [..., 2]
-        prior = torch.sum(-0.5 * (log_lam / 2.0) ** 2, dim=-1)
-        # Piecewise rate; tau is a VALUE in {1..T-1}, so the indicator is
-        # data, not a shape.
-        before = grid < tau[..., None]
-        log_rate = torch.where(before, log_lam[..., :1], log_lam[..., 1:])
-        lik = torch.sum(y * log_rate - torch.exp(log_rate), dim=-1)
-        return prior + lik
-
-    return log_joint
+    """The log joint over ``{"tau": [..., 1], "log_lam": [..., 2]}`` as the
+    built-in (``log_lam ~ N(0, 2^2)``, the piecewise Poisson rate; ``tau``
+    a value in {1..T-1}, so the indicator is data, not a shape)."""
+    return PoissonChangepointLogJoint(y, prior_std=2.0)
 
 
 def run(t=60, n_chains=64, n_iters=2000, burnin=500, seed=0, y=None,
@@ -74,17 +68,19 @@ def run(t=60, n_chains=64, n_iters=2000, burnin=500, seed=0, y=None,
     :param y: optional ``[t]`` counts (taken as they are; ``t`` then
         follows them); else synthetic counts from ``seed``.
     :param device: the device (the counts' when ``y`` is a tensor, else
-        the card).
+        the card); the counts and chains are float32 on the card, float64
+        on the CPU.
     """
     if device is None:
         device = y.device if isinstance(y, torch.Tensor) else "cuda:0"
     device = torch.device(device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
     if y is None:
         y, synthetic = make_data(t, torch.Generator().manual_seed(seed),
                                  device)
     else:
-        y, synthetic = torch.as_tensor(y, dtype=torch.float64).to(device), \
-            False
+        y, synthetic = torch.as_tensor(y, dtype=torch.float64), False
+    y = y.to(device=device, dtype=dtype)
     t = y.shape[0]
     log_joint = build_log_joint(y)
     sampler = Gibbs([

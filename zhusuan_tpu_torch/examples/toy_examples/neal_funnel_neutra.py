@@ -8,9 +8,11 @@ diagonal-mass HMC cannot enter the funnel's neck and underestimates
 standard normal; HMC in the flow's latent coordinates explores the whole
 funnel (Hoffman et al. 2019, arXiv:1903.03704).
 
-The lifted density is a closure, which the CUDA HMC step cannot take
-(built-in densities only): both HMC runs take the plain transition on the
-card (the JAX package traces the closure into its Pallas kernel).
+The funnel is the built-in :class:`~zhusuan_tpu_torch.ops.densities.
+NealFunnelLogJoint` and its lift through the fitted flow the built-in
+:class:`~zhusuan_tpu_torch.ops.densities.NeuTraLogJoint`, so on the card
+both HMC runs take the HMC kernel, one launch an iteration, as the JAX
+package traces the closures into its Pallas kernel on a TPU.
 
 Run (on the card; ``--device cpu`` for the CPU)::
 
@@ -26,21 +28,15 @@ import torch
 
 from zhusuan_tpu_torch.examples.utils.cli import add_device_arg, resolve_device
 from zhusuan_tpu_torch.mcmc import HMC, fit_neutra, neutra_log_joint
+from zhusuan_tpu_torch.ops.densities import NealFunnelLogJoint
 
 __all__ = ["D", "log_joint", "make_hmc", "run_hmc", "run", "main"]
 
 D = 5  # v + 4 funnel coordinates
 
-
-def log_joint(obs):
-    z = obs["z"]
-    v = z[..., 0]
-    x = z[..., 1:]
-    lp_v = -0.5 * (v / 3.0) ** 2
-    lp_x = torch.sum(
-        -0.5 * (x / torch.exp(v[..., None] / 2.0)) ** 2 - v[..., None] / 2.0,
-        dim=-1)
-    return lp_v + lp_x
+#: ``log p = -0.5 (v / 3)^2 + sum_i (-0.5 (x_i / e^{v/2})^2 - v / 2)``
+#: over ``z = [v, x_1 .. x_4]``, a built-in the HMC kernel evaluates.
+log_joint = NealFunnelLogJoint("z", D, v_scale=3.0)
 
 
 def make_hmc():

@@ -22,9 +22,14 @@ its loop syncs only where a window's re-search runs.
 On a CUDA device, a single ``[n_chains, dim]`` float32/bfloat16 latent
 under a built-in density (:mod:`~zhusuan_tpu_torch.ops.densities`: the
 diagonal or the equicorrelated Gaussian, or the tempered bridge between
-two of them) takes the hand-written CUDA
+two of them; on float32 also the whitened Gaussians, Neal's funnel,
+NeuTra's lifted density, the linear regression and the change-point
+posterior, whose change point comes per chain from ``observed``) takes the
+hand-written CUDA
 kernel (:func:`~zhusuan_tpu_torch.ops.hmc_step.fused_hmc_step`) for the
-whole transition. With ``experimental_fused_leapfrog=True``, a transition
+whole transition. A closure takes the plain transition: pass a built-in
+(or ``whiten_log_joint`` / ``neutra_log_joint`` of one) to reach the
+kernel. With ``experimental_fused_leapfrog=True``, a transition
 that does not take it runs its trajectory through the trajectory kernel
 (:func:`~zhusuan_tpu_torch.ops.leapfrog.fused_leapfrog`) when that is
 eligible. Everything else takes the plain torch path.
@@ -195,10 +200,15 @@ class HMC:
     def _fused_ineligible(meta_bn, observed, q, mass, n_chain_dims):
         """Why the kernel cannot take this transition's inputs (None if it
         can)."""
+        # The built-ins K1 alone evaluates take float32 only.
+        f32 = isinstance(meta_bn, hmc_step.BUILTIN_DENSITIES)
+        dtypes = (torch.float32,) if f32 else hmc_step.KERNEL_DTYPES
         return builtin_density_ineligible(
-            meta_bn, observed, q, mass, n_chain_dims, hmc_step_supported,
-            hmc_step.STEP_DENSITIES,
-            "float32/bfloat16 with dim <= {}".format(MAX_DIM))
+            meta_bn, observed, q, mass, n_chain_dims,
+            lambda shape, dtype: (dtype in dtypes
+                                  and hmc_step_supported(shape, dtype)),
+            hmc_step.STEP_DENSITIES, "{} with dim <= {}".format(
+                "float32" if f32 else "float32/bfloat16", MAX_DIM))
 
     def _use_fused_step(self, meta_bn, observed, q, mass, n_chain_dims):
         def ineligible():
@@ -445,7 +455,8 @@ class HMC:
              new_h) = fused_hmc_step(
                 meta_bn, x, mass[name], trajectory_step, self.n_leapfrogs,
                 key, new_t,
-                noise=None if noise is None else (eps[name], u_in))
+                noise=None if noise is None else (eps[name], u_in),
+                observed=observed)
             accepted_q = {name: out_q}
             p = {name: p0}
             new_cache = (new_log_prob, None)
@@ -776,7 +787,8 @@ def builtin_density_ineligible(meta_bn, observed, q, mass, n_chain_dims,
         return "the log-joint must be one of the built-in densities {}".format(
             ", ".join(c.__name__ for c in densities))
     ((name, x),) = q.items()
-    if meta_bn.name != name or name in (observed or {}):
+    observed = observed or {}
+    if meta_bn.name != name or name in observed:
         return "the built-in density must be over the latent {!r}".format(
             name)
     if n_chain_dims != 1 or not supported(x.shape, x.dtype):
@@ -788,7 +800,24 @@ def builtin_density_ineligible(meta_bn, observed, q, mass, n_chain_dims,
         return "the mass must be [1, dim] float32"
     if meta_bn.dim != d:
         return "the density's dim differs from the latent's"
-    return None
+    # Values of each chain: the density's own chain_observed leaves, as
+    # [n_chains, 1] tensors on the latent's device, and no other.
+    for k, v in observed.items():
+        per_chain = (isinstance(v, torch.Tensor) and v.ndim >= 1
+                     and v.shape[0] == x.shape[0])
+        if k in meta_bn.chain_observed:
+            if not (per_chain and tuple(v.shape) == (x.shape[0], 1)
+                    and v.device == x.device):
+                return ("the observation {!r} must be [n_chains, 1] on the "
+                        "latent's device".format(k))
+        elif per_chain:
+            return ("the built-in density does not read the per-chain "
+                    "observation {!r}".format(k))
+    missing = [k for k in meta_bn.chain_observed if k not in observed]
+    if missing:
+        return "the built-in density reads the observations {}".format(
+            missing)
+    return meta_bn.kernel_ineligible()
 
 
 def use_kernel(flag, q, ineligible) -> bool:

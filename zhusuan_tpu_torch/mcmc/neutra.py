@@ -15,9 +15,13 @@ The fit is a Python loop of ``torch.optim.Adam`` steps (the JAX package's
 is one ``lax.scan`` of ``optax.adam``) with the port's own
 :func:`~zhusuan_tpu_torch.variational.advi.cosine_decay_schedule` (to 10%)
 set as the learning rate before each step; the losses go into a device
-vector that the caller reads once. The lifted density is a closure, so on
-the card HMC runs its plain transition on it (the CUDA kernels take
-built-in densities only).
+vector that the caller reads once. Lifting a built-in (Neal's funnel, a
+diagonal or equicorrelated Gaussian) through a flow that fits the HMC
+kernel's limits gives the built-in
+:class:`~zhusuan_tpu_torch.ops.densities.NeuTraLogJoint`, which the HMC
+transition's kernel evaluates on the card (the JAX package traces the
+lifted closure into its Pallas kernel); lifting any other log-joint gives a
+closure, on which HMC runs its plain transition.
 
 Typical use::
 
@@ -37,6 +41,12 @@ from typing import NamedTuple
 import torch
 
 from zhusuan_tpu_torch.mcmc.base import make_log_joint_fn
+from zhusuan_tpu_torch.ops.densities import (
+    DiagonalGaussianLogJoint,
+    EquicorrelatedGaussianLogJoint,
+    NealFunnelLogJoint,
+    NeuTraLogJoint,
+)
 from zhusuan_tpu_torch.transform import (
     affine_coupling_flow,
     init_affine_coupling,
@@ -142,9 +152,19 @@ def neutra_log_joint(log_joint, name: str, params):
     :param name: the transported latent (data shape ``[d]``).
     :param params: fitted coupling parameters (:attr:`NeuTraResult.params`).
     :return: ``(latent_log_joint, to_latent, from_latent)``: the lifted
-        density over ``{name: y}`` and the maps ``x -> y`` (the exact
-        coupling inverse) and ``y -> x`` on ``[..., d]`` tensors.
+        density over ``{name: y}`` (a :class:`~zhusuan_tpu_torch.ops.
+        densities.NeuTraLogJoint` when ``log_joint`` is a built-in funnel
+        or Gaussian over ``name`` and the flow fits the kernel, else a
+        closure) and the maps ``x -> y`` (the exact coupling inverse) and
+        ``y -> x`` on ``[..., d]`` tensors.
     """
+    lifted = None
+    if (isinstance(log_joint, (NealFunnelLogJoint, DiagonalGaussianLogJoint,
+                               EquicorrelatedGaussianLogJoint))
+            and log_joint.name == name):
+        lifted = NeuTraLogJoint(log_joint, params)
+        if lifted.kernel_ineligible() is not None:
+            lifted = None
     lj = make_log_joint_fn(log_joint, {})
 
     def _flow(arr, inverse):
@@ -173,4 +193,4 @@ def neutra_log_joint(log_joint, name: str, params):
     def to_latent(x):
         return _flow(x, inverse=True)
 
-    return latent_log_joint, to_latent, from_latent
+    return lifted or latent_log_joint, to_latent, from_latent

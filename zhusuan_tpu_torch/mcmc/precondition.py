@@ -4,9 +4,12 @@
 Estimate the posterior covariance ``Sigma = L L^T`` from warm-up draws,
 then sample ``y = L^{-1} q`` under ``log p(L y)`` with identity mass:
 identity-mass HMC on ``y`` is dense-mass HMC on ``q`` with
-``M = (L L^T)^{-1}``, and every sampler stays unchanged. The whitened
-density is a plain callable, so on the card it takes the samplers' plain
-path, as any log-joint that is not a built-in does.
+``M = (L L^T)^{-1}``, and every sampler stays unchanged. Whitening a
+built-in Gaussian gives the built-in
+:class:`~zhusuan_tpu_torch.ops.densities.WhitenedLogJoint`, which the HMC
+transition's kernel evaluates on the card (the JAX package traces the
+whitened closure into its Pallas kernel); whitening any other log-joint
+gives a plain callable, which takes the samplers' plain path.
 
 Typical use::
 
@@ -23,6 +26,11 @@ from __future__ import annotations
 import torch
 
 from zhusuan_tpu_torch.mcmc.base import make_log_joint_fn
+from zhusuan_tpu_torch.ops.densities import (
+    DiagonalGaussianLogJoint,
+    EquicorrelatedGaussianLogJoint,
+    WhitenedLogJoint,
+)
 
 __all__ = ["fit_dense_preconditioner", "whiten_log_joint"]
 
@@ -62,10 +70,17 @@ def whiten_log_joint(log_joint, name: str, chol):
     :param chol: ``[d, d]`` lower Cholesky factor from
         :func:`fit_dense_preconditioner`.
     :return: ``(white_log_joint, to_white, from_white)``: the density over
-        ``{name: y}`` and the maps ``q -> y`` and ``y -> q`` on ``[..., d]``
-        tensors.
+        ``{name: y}`` (a :class:`~zhusuan_tpu_torch.ops.densities.
+        WhitenedLogJoint` when ``log_joint`` is a built-in diagonal or
+        equicorrelated Gaussian over ``name``, else a closure) and the maps
+        ``q -> y`` and ``y -> q`` on ``[..., d]`` tensors.
     """
     chol = torch.as_tensor(chol)
+    builtin = (isinstance(log_joint, (DiagonalGaussianLogJoint,
+                                      EquicorrelatedGaussianLogJoint))
+               and log_joint.name == name
+               and tuple(chol.shape) == (log_joint.dim, log_joint.dim))
+    white = WhitenedLogJoint(log_joint, chol) if builtin else None
     log_joint = make_log_joint_fn(log_joint, {})
 
     def from_white(y):
@@ -83,4 +98,4 @@ def whiten_log_joint(log_joint, name: str, chol):
         obs[name] = from_white(obs[name])
         return log_joint(obs)
 
-    return white_log_joint, to_white, from_white
+    return white or white_log_joint, to_white, from_white

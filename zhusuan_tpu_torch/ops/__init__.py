@@ -42,11 +42,16 @@ from zhusuan_tpu_torch.ops.densities import (
     DiagonalGaussianLogJoint,
     EightSchoolsLogJoint,
     EquicorrelatedGaussianLogJoint,
+    GaussianLinearRegressionLogJoint,
     LatentDictDensity,
+    NealFunnelLogJoint,
+    NeuTraLogJoint,
     OrderedLogisticRegressionLogJoint,
+    PoissonChangepointLogJoint,
     TemperedLogJoint,
     Toy2DLogJoint,
     WeibullAFTLogJoint,
+    WhitenedLogJoint,
 )
 from zhusuan_tpu_torch.ops.hmc_step import (
     fused_hmc_step,
@@ -104,11 +109,16 @@ __all__ = [
     "DiagonalGaussianLogJoint",
     "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "GaussianLinearRegressionLogJoint",
     "LatentDictDensity",
+    "NealFunnelLogJoint",
+    "NeuTraLogJoint",
     "OrderedLogisticRegressionLogJoint",
+    "PoissonChangepointLogJoint",
     "TemperedLogJoint",
     "Toy2DLogJoint",
     "WeibullAFTLogJoint",
+    "WhitenedLogJoint",
     "advi_layout",
     "advi_step_supported",
     "check_numerics",

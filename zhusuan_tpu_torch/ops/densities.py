@@ -25,6 +25,20 @@ kernel takes (``DENSITIES``); any other log-joint takes the plain path.
   ``survival_regression.py`` and ``examples/hierarchical/
   covariance_estimation.py``, over several latents and with the data they
   hold; the NUTS kernel alone evaluates them.
+- :class:`WhitenedLogJoint`: ``log p(L y)`` of a diagonal or equicorrelated
+  Gaussian under a dense preconditioner's Cholesky factor ``L``
+  (``mcmc/precondition.py::whiten_log_joint`` of one).
+- :class:`NealFunnelLogJoint`: Neal's funnel of
+  ``examples/toy_examples/neal_funnel_neutra.py``.
+- :class:`NeuTraLogJoint`: a Gaussian or the funnel pulled back through a
+  RealNVP coupling flow, log-det included
+  (``mcmc/neutra.py::neutra_log_joint`` of one).
+- :class:`GaussianLinearRegressionLogJoint` (the regressions of
+  ``examples/model_comparison/loo_compare.py``) and
+  :class:`PoissonChangepointLogJoint` (``examples/state_space/
+  changepoint.py``, the change point held per chain): data built-ins over
+  one latent.
+  The HMC transition's kernel (K1) alone evaluates these five.
 
 Beside ``log_prob`` (plain torch ops, differentiable by autograd) each has
 ``value_and_grad``: the log-density and its gradient written out in the
@@ -47,11 +61,16 @@ __all__ = [
     "DiagonalGaussianLogJoint",
     "EightSchoolsLogJoint",
     "EquicorrelatedGaussianLogJoint",
+    "GaussianLinearRegressionLogJoint",
     "LatentDictDensity",
+    "NealFunnelLogJoint",
+    "NeuTraLogJoint",
     "OrderedLogisticRegressionLogJoint",
+    "PoissonChangepointLogJoint",
     "TemperedLogJoint",
     "Toy2DLogJoint",
     "WeibullAFTLogJoint",
+    "WhitenedLogJoint",
 ]
 
 
@@ -65,11 +84,15 @@ class BuiltinDensity:
 
     #: The density's id in the kernels' C interface (``csrc/densities.cuh``).
     kernel_id: int = -1
+    #: Observed leaves the density reads per chain (``[n_chains, 1]`` each,
+    #: a sampler's ``observed``), beside its latent.
+    chain_observed: Tuple[str, ...] = ()
 
     def __init__(self, name: str, dim: int):
         self.name = name
         self.dim = int(dim)
         self._kernel_args = {}
+        self._tables = {}
 
     def log_prob(self, x):
         raise NotImplementedError
@@ -82,20 +105,44 @@ class BuiltinDensity:
         the kernels' arithmetic (no autograd graph is built or needed)."""
         raise NotImplementedError
 
+    def kernel_ineligible(self) -> Optional[str]:
+        """Why a kernel cannot evaluate this instance (None if it can): the
+        limits of its device side (``csrc/densities.cuh``)."""
+        return None
+
     def _params(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The kernel's two parameter arrays (the second may be None)."""
         raise NotImplementedError
 
-    def kernel_args(self, device) -> Tuple[torch.Tensor,
-                                           Optional[torch.Tensor]]:
-        """The kernel's parameter arrays, float32 and contiguous on
-        ``device`` (cached per device)."""
-        key = str(device)
+    def _table(self, dtype, device):
+        """The data table and constants in ``dtype`` on ``device``
+        (cached): the float32 values the kernel reads, at float32 (the
+        built-ins with data)."""
+        key = (str(device), dtype)
+        if key not in self._tables:
+            table, consts = self._params()
+            self._tables[key] = (
+                table.to(device=device, dtype=dtype),
+                [float(torch.tensor(float(c), dtype=dtype))
+                 for c in consts])
+        return self._tables[key]
+
+    def aux_params(self) -> Tuple[Optional[torch.Tensor],
+                                  Optional[torch.Tensor]]:
+        """Two more parameter arrays of a composite built-in (a factor, a
+        flow's weights), beside its base's :meth:`_params`; None here."""
+        return None, None
+
+    def kernel_args(self, device, aux: bool = False) -> Tuple[
+            Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """The kernel's parameter arrays (``aux``: :meth:`aux_params`'),
+        float32 and contiguous on ``device`` (cached per device)."""
+        key = (str(device), aux)
         if key not in self._kernel_args:
             self._kernel_args[key] = tuple(
                 None if v is None else
                 v.to(device=device, dtype=torch.float32).contiguous()
-                for v in self._params())
+                for v in (self.aux_params() if aux else self._params()))
         return self._kernel_args[key]
 
 
@@ -321,27 +368,31 @@ def check_tempered_pair(prior, target, latent_names, observed=()):
     return prior, target
 
 
-def check_builtin_gaps(checks, where: str):
+def check_builtin_gaps(checks, where: str, equal: bool = False):
     """Check, with one read of the device, that each built-in differs from
-    its model's log-density by a constant on the chains both were evaluated
-    at (:data:`BUILTIN_GAP_RTOL`).
+    its model's log-density by a constant (``equal``: by nothing) on the
+    chains both were evaluated at (:data:`BUILTIN_GAP_RTOL`).
 
     :param checks: ``[(role, builtin_lp, model_lp)]``, ``[n]`` log-densities
         of one set of chains each.
     :param where: what the chains are, for the error message.
+    :param equal: hold the values themselves, for a built-in that keeps its
+        model's normalising constants.
     """
     stats = []
     for _, lp, model in checks:
         gap = lp - model
-        stats += [gap.max() - gap.min(), model.abs().max()]
+        stats += [gap.abs().max() if equal else gap.max() - gap.min(),
+                  model.abs().max()]
     values = torch.stack([s.to(torch.float64) for s in stats]).tolist()
     for k, (role, _, _) in enumerate(checks):
         spread, scale = values[2 * k:2 * k + 2]
         if not spread <= BUILTIN_GAP_RTOL * (1.0 + scale):
             raise ValueError(
-                "{} differs from its model's log-density by more than a "
-                "constant: the gap spans {} over the {}.".format(
-                    role, spread, where))
+                "{} differs from its model's log-density{}: the gap {} {} "
+                "over the {}.".format(
+                    role, "" if equal else " by more than a constant",
+                    "reaches" if equal else "spans", spread, where))
 
 
 def _row_sum(x):
@@ -444,17 +495,11 @@ class LatentDictDensity(BuiltinDensity):
         self.shapes = {k: tuple(shapes[k]) for k in names}
         self.sizes = sizes
         self.held = dict(held or {})
-        self._tables = {}
 
     @property
     def n_rows(self) -> int:
         """Rows of the data table."""
         return int(self._params()[0].shape[0])
-
-    def kernel_ineligible(self) -> Optional[str]:
-        """Why the NUTS kernel cannot evaluate this instance (None if it
-        can): the limits of its device side (``csrc/densities.cuh``)."""
-        return None
 
     def holds(self, name, value) -> bool:
         """Whether ``value`` is the observation ``name`` this density
@@ -484,34 +529,33 @@ class LatentDictDensity(BuiltinDensity):
     def log_prob(self, x):
         return _LatentDictLogProb.apply(x, self)
 
-    def _table(self, dtype, device):
-        """The data table and constants in ``dtype`` on ``device``
-        (cached): the float32 values the kernel reads, at float32."""
-        key = (str(device), dtype)
-        if key not in self._tables:
-            table, consts = self._params()
-            self._tables[key] = (
-                table.to(device=device, dtype=dtype),
-                [float(torch.tensor(float(c), dtype=dtype))
-                 for c in consts])
-        return self._tables[key]
-
 
 class _LatentDictLogProb(torch.autograd.Function):
-    """``density.value_and_grad``'s value, with its written-out gradient as
-    the backward."""
+    """``density.value_and_grad(x, *extra)``'s value, with its written-out
+    gradient (with respect to ``x`` alone) as the backward."""
 
     @staticmethod
-    def forward(ctx, x, density):
-        lp, g = density.value_and_grad(x)
+    def forward(ctx, x, density, *extra):
+        lp, g = density.value_and_grad(x, *extra)
         ctx.save_for_backward(g)
+        ctx.n_extra = len(extra)
         return lp
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
         (g,) = ctx.saved_tensors
-        return gout[..., None] * g, None
+        return (gout[..., None] * g, None) + (None,) * ctx.n_extra
+
+
+def _written_out(density, x, *extra):
+    """``density``'s log-density at ``x``: through
+    :class:`_LatentDictLogProb` where autograd records (the gradient is
+    the kernel's), else plainly (so that ``torch.func.vmap`` may batch
+    it)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LatentDictLogProb.apply(x, density, *extra)
+    return density.value_and_grad(x, *extra)[0]
 
 
 class EightSchoolsLogJoint(LatentDictDensity):
@@ -998,3 +1042,423 @@ class CovarianceEstimationLogJoint(LatentDictDensity):
         lp = torch.where(bad, torch.full_like(lp, -math.inf), lp)
         grad = torch.where(bad[..., None], torch.zeros_like(grad), grad)
         return lp.to(x.dtype), grad
+
+
+# -- built-ins of the HMC transition's kernel alone (K1) ----------------- #
+# Each sum is taken in the kernel's order (csrc/densities.cuh), so that a
+# float32 evaluation on the card gives the kernel's bits: a product of a
+# matrix and a vector adds its products pairwise over the columns padded
+# with zeros to a power of two, ((0 + 1) + (2 + 3)) + ..., as the kernel's
+# recursive tree does; a sum over a warp's 32 lanes adds the halves, lane
+# u to lane u + 16 first, as the kernel's butterfly does; a sum over a
+# chain's elements or data rows is accumulated in float64 and rounded once.
+
+
+def _pairwise_matvec(mat, v):
+    """``sum_k mat[j, k] v[..., k]`` for every row ``j``: the products
+    rounded in ``v``'s dtype, then added pairwise (see above)."""
+    p = mat * v[..., None, :]
+    n_in = p.shape[-1]
+    width = 1 << max(n_in - 1, 0).bit_length()
+    if width > n_in:
+        p = torch.nn.functional.pad(p, (0, width - n_in))
+    while p.shape[-1] > 1:
+        p = p[..., 0::2] + p[..., 1::2]
+    return p[..., 0]
+
+
+def _butterfly_sum(p):
+    """The sum over the last axis of 32 (a warp's lanes), halves first."""
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
+def _rounded(values, dtype):
+    """Host constants rounded to ``dtype`` (what the kernel reads, in
+    float32)."""
+    return [float(torch.tensor(float(v), dtype=dtype)) for v in values]
+
+
+class WhitenedLogJoint(BuiltinDensity):
+    """``log p_base(L y)`` over the whitened latent ``y``, with gradient
+    ``L^T grad p_base(L y)``: dense-mass HMC on ``q = L y`` as identity-mass
+    HMC on ``y`` (:func:`~zhusuan_tpu_torch.mcmc.whiten_log_joint`).
+
+    ``L y`` and ``L^T g`` are taken in the kernel's pairwise order
+    (:func:`_pairwise_matvec`); the base's value and gradient are its
+    :meth:`~BuiltinDensity.value_and_grad` (its row sums in float64), so
+    the kernel and this plain version evaluate the same float32 values.
+
+    :param base: a :class:`DiagonalGaussianLogJoint` or
+        :class:`EquicorrelatedGaussianLogJoint` over the latent.
+    :param chol: ``[dim, dim]`` lower-triangular Cholesky factor ``L``
+        (read whole: an upper triangle is used as given, as by ``y @ L^T``).
+    """
+
+    #: The kernel keeps ``L`` and a chain's row in shared memory.
+    MAX_DIM = 128
+
+    kernel_id = 8
+
+    def __init__(self, base: BuiltinDensity, chol):
+        parts = (DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint)
+        if not isinstance(base, parts):
+            raise TypeError("the base must be one of {}; got {!r}.".format(
+                [c.__name__ for c in parts], type(base)))
+        chol = torch.as_tensor(chol)
+        if tuple(chol.shape) != (base.dim, base.dim):
+            raise ValueError("chol must be [{0}, {0}]; got {1}.".format(
+                base.dim, tuple(chol.shape)))
+        super().__init__(base.name, base.dim)
+        self.base = base
+        self.chol = chol
+
+    def kernel_ineligible(self):
+        if self.dim > self.MAX_DIM:
+            return "the whitened density takes dim <= {}; got {}".format(
+                self.MAX_DIM, self.dim)
+        return None
+
+    def log_prob(self, y):
+        return _written_out(self, y)
+
+    def value_and_grad(self, y):
+        chol = self.chol.to(device=y.device, dtype=y.dtype)
+        lp, g = self.base.value_and_grad(_pairwise_matvec(chol, y))
+        return lp, _pairwise_matvec(chol.T, g)
+
+    def _params(self):
+        return self.base._params()
+
+    def aux_params(self):
+        return self.chol, None
+
+
+class NealFunnelLogJoint(BuiltinDensity):
+    """Neal's funnel over one latent ``z = [v, x_1 .. x_{dim-1}]``
+    (``examples/toy_examples/neal_funnel_neutra.py:23-33``):
+    ``log p = -0.5 (v / s)^2 + sum_i (-0.5 (x_i e^{-v/2})^2 - v / 2)``, no
+    normalising constant. Gradient: ``d/dx_i = -x_i e^{-v}``,
+    ``d/dv = -v / s^2 + sum_i (0.5 (x_i e^{-v/2})^2 - 0.5)``; ``1 / s`` is
+    a constant the kernel reads in float32, and the sums over ``i`` are
+    accumulated in float64 and rounded once.
+
+    :param name: the latent's name in the latent dict.
+    :param dim: the size of the latent's last axis (>= 2).
+    :param v_scale: the standard deviation ``s`` of ``v``.
+    """
+
+    kernel_id = 9
+
+    def __init__(self, name: str, dim: int, v_scale: float = 3.0):
+        dim, v_scale = int(dim), float(v_scale)
+        if dim < 2:
+            raise ValueError("the funnel needs dim >= 2; got {}.".format(dim))
+        if not v_scale > 0.0:
+            raise ValueError("v_scale must be positive; got {}.".format(
+                v_scale))
+        super().__init__(name, dim)
+        self.v_scale = v_scale
+
+    def log_prob(self, z):
+        return _written_out(self, z)
+
+    def value_and_grad(self, z):
+        (inv_s,) = _rounded([1.0 / self.v_scale], z.dtype)
+        v, x = z[..., 0], z[..., 1:]
+        w = v * inv_s
+        h = 0.5 * v
+        e = torch.exp(-h)
+        r = x * e[..., None]
+        rr = r * r
+        lp = (_sum64(-0.5 * rr - h[..., None])
+              + (-0.5 * (w * w)).double()).to(z.dtype)
+        g_v = (_sum64(0.5 * rr - 0.5) + (-(w * inv_s)).double()).to(z.dtype)
+        return lp, torch.cat([g_v[..., None], -(r * e[..., None])], dim=-1)
+
+    def _params(self):
+        return torch.tensor([1.0 / self.v_scale], dtype=torch.float64), None
+
+
+class NeuTraLogJoint(BuiltinDensity):
+    """A built-in pulled back through a RealNVP affine-coupling flow ``f``
+    (``zhusuan_tpu_torch.transform.affine_coupling_flow``):
+    ``log p_base(f(y)) + log|det J_f(y)|``, the NeuTra-lifted density of
+    :func:`~zhusuan_tpu_torch.mcmc.neutra_log_joint`.
+
+    Coupling ``i`` conditions one half of the row on the other (even ``i``
+    the first ``dim // 2`` elements) through ``h = relu(c W1 + b1)``,
+    ``(shift, raw) = h W2 + b2``, ``ls = 2 tanh(raw / 2)``, and moves the
+    other half to ``a e^ls + shift``; the log-det is the sum of every
+    ``ls``. The gradient is written out backward through the couplings
+    (not autograd). Each hidden unit is one lane of the kernel's warp, so
+    the hidden width is padded with zeros to 32: ``c W1`` adds its terms in
+    order, ``h W2`` and the conditioning half's gradient are butterfly sums
+    over the 32 units, ``(d/dh)_u = sum_o d/dout_o W2[u, o]`` adds in
+    order.
+
+    :param base: a :class:`NealFunnelLogJoint`,
+        :class:`DiagonalGaussianLogJoint` or
+        :class:`EquicorrelatedGaussianLogJoint` over the latent.
+    :param params: the flow's ``[{"w1", "b1", "w2", "b2"}]`` (e.g.
+        :attr:`~zhusuan_tpu_torch.mcmc.NeuTraResult.params`); copied.
+    """
+
+    #: The kernel's limits: the row and the hidden width within a warp.
+    MAX_DIM, MAX_HIDDEN = 32, 32
+
+    kernel_id = 10
+
+    def __init__(self, base: BuiltinDensity, params):
+        parts = (NealFunnelLogJoint, DiagonalGaussianLogJoint,
+                 EquicorrelatedGaussianLogJoint)
+        if not isinstance(base, parts):
+            raise TypeError("the base must be one of {}; got {!r}.".format(
+                [c.__name__ for c in parts], type(base)))
+        d = base.dim
+        if d < 2:
+            raise ValueError("couplings need dim >= 2; got {}.".format(d))
+        super().__init__(base.name, d)
+        self.base = base
+        self.d1 = d // 2
+        flows = []
+        for i, p in enumerate(params):
+            n_in, n_out = self.halves(i)
+            w1, b1, w2, b2 = (_host64(p[k]) for k in ("w1", "b1", "w2", "b2"))
+            hidden = w1.shape[-1]
+            if (tuple(w1.shape) != (n_in, hidden) or tuple(b1.shape)
+                    != (hidden,) or tuple(w2.shape) != (hidden, 2 * n_out)
+                    or tuple(b2.shape) != (2 * n_out,)):
+                raise ValueError(
+                    "coupling {} does not fit dim {}: w1 {}, b1 {}, w2 {}, "
+                    "b2 {}.".format(i, d, tuple(w1.shape), tuple(b1.shape),
+                                    tuple(w2.shape), tuple(b2.shape)))
+            flows.append((w1, b1, w2, b2))
+        if not flows:
+            raise ValueError("the flow needs at least one coupling.")
+        self.hidden = flows[0][0].shape[-1]
+        if any(f[0].shape[-1] != self.hidden for f in flows):
+            raise ValueError("every coupling must have one hidden width.")
+        self.flows = flows
+        self._couplings = {}
+
+    def halves(self, i):
+        """``(n_in, n_out)`` of coupling ``i``."""
+        d1, d2 = self.d1, self.dim - self.d1
+        return (d1, d2) if i % 2 == 0 else (d2, d1)
+
+    def _slices(self, i):
+        """``(conditioning, active)`` slices of coupling ``i``."""
+        lo, hi = slice(0, self.d1), slice(self.d1, self.dim)
+        return (lo, hi) if i % 2 == 0 else (hi, lo)
+
+    def kernel_ineligible(self):
+        if self.dim > self.MAX_DIM or self.hidden > self.MAX_HIDDEN:
+            return ("the NeuTra density takes dim <= {} and hidden <= {}; "
+                    "got {} and {}".format(self.MAX_DIM, self.MAX_HIDDEN,
+                                           self.dim, self.hidden))
+        return None
+
+    def _padded(self):
+        """Each coupling's ``(W1 [n_in, 32], b1 [32], W2^T [2 n_out, 32],
+        b2 [2 n_out])`` in float64, the hidden width padded with zeros (to
+        a power of two past 32, where the kernel does not take it)."""
+        width = max(self.MAX_HIDDEN, 1 << (self.hidden - 1).bit_length())
+        pad = width - self.hidden
+        out = []
+        for w1, b1, w2, b2 in self.flows:
+            out.append((torch.nn.functional.pad(w1, (0, pad)),
+                        torch.nn.functional.pad(b1, (0, pad)),
+                        torch.nn.functional.pad(w2.T, (0, pad)), b2))
+        return out
+
+    def couplings(self, dtype, device):
+        """:meth:`_padded` in ``dtype`` on ``device`` (cached)."""
+        key = (str(device), dtype)
+        if key not in self._couplings:
+            self._couplings[key] = [
+                tuple(v.to(device=device, dtype=dtype) for v in c)
+                for c in self._padded()]
+        return self._couplings[key]
+
+    def log_prob(self, y):
+        return _written_out(self, y)
+
+    @staticmethod
+    def _net(c, w1, b1, w2t, b2):
+        pre = c[..., 0:1] * w1[0]
+        for a in range(1, c.shape[-1]):
+            pre = pre + c[..., a:a + 1] * w1[a]
+        pre = pre + b1
+        h = torch.where(pre > 0, pre, torch.zeros_like(pre))
+        return pre, _butterfly_sum(h[..., None, :] * w2t) + b2
+
+    def value_and_grad(self, y):
+        layers = self.couplings(y.dtype, y.device)
+        z, saved, logdet = y, [], []
+        for i, (w1, b1, w2t, b2) in enumerate(layers):
+            cs, as_ = self._slices(i)
+            n_out = self.halves(i)[1]
+            c, a = z[..., cs], z[..., as_]
+            pre, out = self._net(c, w1, b1, w2t, b2)
+            t = torch.tanh(out[..., n_out:] * 0.5)
+            ls = 2.0 * t
+            e = torch.exp(ls)
+            new = a * e + out[..., :n_out]
+            saved.append((c, a, pre, t, e))
+            logdet.append(ls)
+            z = torch.cat([c, new] if i % 2 == 0 else [new, c], dim=-1)
+        v, g = self.base.value_and_grad(z)
+        lp = (v.double() + _sum64(torch.cat(logdet, -1))).to(y.dtype)
+        for i in range(len(layers) - 1, -1, -1):
+            w1, _, w2t, _ = layers[i]
+            cs, as_ = self._slices(i)
+            c, a, pre, t, e = saved[i]
+            g_new = g[..., as_]
+            g_ls = (g_new * a) * e + 1.0
+            g_out = torch.cat([g_new, g_ls * (1.0 - t * t)], dim=-1)
+            g_h = g_out[..., 0:1] * w2t[0]
+            for o in range(1, g_out.shape[-1]):
+                g_h = g_h + g_out[..., o:o + 1] * w2t[o]
+            g_pre = torch.where(pre > 0, g_h, torch.zeros_like(g_h))
+            g_c = g[..., cs] + _butterfly_sum(g_pre[..., None, :] * w1)
+            g_a = g_new * e
+            g = torch.cat([g_c, g_a] if i % 2 == 0 else [g_a, g_c], dim=-1)
+        return lp, g
+
+    def _params(self):
+        return self.base._params()
+
+    def aux_params(self):
+        """The packed couplings (:meth:`_padded`, each flattened in order)
+        and ``(n_couplings, hidden)``."""
+        flat = torch.cat([v.reshape(-1) for c in self._padded() for v in c])
+        return flat, torch.tensor([len(self.flows), self.hidden],
+                                  dtype=torch.float64)
+
+
+class GaussianLinearRegressionLogJoint(BuiltinDensity):
+    """The Bayesian linear regression ``w ~ N(0, prior_std^2 I)``,
+    ``y_i ~ N(x_i^T w, noise_std^2)`` over the latent ``w [dim]``, with
+    its data: ``examples/model_comparison/loo_compare.py``'s model,
+    normalising constants included, so it equals the model's log joint.
+
+    Data table ``[n, dim + 1]``: ``x_i`` and ``y_i``; constants ``(dim,
+    1 / noise_std, 1 / prior_std, C)``.
+
+    :param name: the latent's name.
+    :param x: ``[n, dim]`` design matrix.
+    :param y: ``[n]`` responses.
+    """
+
+    #: The kernel's limit: the row on the first two lanes of the chain.
+    MAX_DIM = 8
+
+    kernel_id = 11
+
+    def __init__(self, name: str, x, y, prior_std: float = 1.0,
+                 noise_std: float = 1.0):
+        x, y = _host64(x), _host64(y)
+        if x.ndim != 2 or y.shape != x.shape[:1] or x.shape[0] < 1:
+            raise ValueError("x must be [n, dim] and y [n]; got {} and "
+                             "{}.".format(tuple(x.shape), tuple(y.shape)))
+        prior_std, noise_std = float(prior_std), float(noise_std)
+        if not (prior_std > 0.0 and noise_std > 0.0):
+            raise ValueError("the standard deviations must be positive.")
+        super().__init__(name, x.shape[1])
+        self.x, self.y = x, y
+        self.prior_std, self.noise_std = prior_std, noise_std
+        n, d = x.shape
+        self.const = (-0.5 * (n + d) * math.log(2.0 * math.pi)
+                      - d * math.log(prior_std) - n * math.log(noise_std))
+
+    def kernel_ineligible(self):
+        if self.dim > self.MAX_DIM:
+            return "the regression takes dim <= {}; got {}".format(
+                self.MAX_DIM, self.dim)
+        return None
+
+    def _params(self):
+        return (torch.cat([self.x, self.y[:, None]], -1),
+                torch.tensor([self.dim, 1.0 / self.noise_std,
+                              1.0 / self.prior_std, self.const],
+                             dtype=torch.float64))
+
+    def log_prob(self, w):
+        return _written_out(self, w)
+
+    def value_and_grad(self, w):
+        table, (_, inv_n, inv_p, const) = self._table(w.dtype, w.device)
+        d = self.dim
+        xt, yv = table[:, :d], table[:, d]
+        eta = w[..., 0, None] * xt[:, 0]
+        for j in range(1, d):
+            eta = eta + w[..., j, None] * xt[:, j]
+        z = (yv - eta) * inv_n
+        ws = w * inv_p
+        lp = (_sum64(-0.5 * (z * z)) + _sum64(-0.5 * (ws * ws))
+              + const).to(w.dtype)
+        g = (_x_dot64(xt, z * inv_n) + (-(ws * inv_p)).double()).to(w.dtype)
+        return lp, g
+
+
+class PoissonChangepointLogJoint(BuiltinDensity):
+    """The change-point posterior of ``examples/state_space/
+    changepoint.py`` over ``{"tau", "log_lam"}``: ``log_lam_k ~ N(0,
+    prior_std^2)`` (without constants), ``y_t ~ Poisson(exp(log_lam_0))``
+    for ``t < tau`` and ``Poisson(exp(log_lam_1))`` after (without
+    ``log y_t!``). ``log_lam [2]`` is the latent; ``tau [1]`` is read per
+    chain (:attr:`chain_observed`): a Gibbs sweep's HMC block gets it as an
+    observation, its discrete block scores candidate values of it.
+
+    Data table ``[T, 1]``: ``y_t``; constants ``(T, 1 / prior_std)``.
+
+    :param y: ``[T]`` counts.
+    """
+
+    kernel_id = 12
+    chain_observed = ("tau",)
+
+    def __init__(self, y, prior_std: float = 2.0):
+        y = _host64(y)
+        if y.ndim != 1 or y.shape[0] < 1:
+            raise ValueError("y must be [T]; got {}.".format(tuple(y.shape)))
+        prior_std = float(prior_std)
+        if not prior_std > 0.0:
+            raise ValueError("prior_std must be positive.")
+        super().__init__("log_lam", 2)
+        self.y, self.prior_std = y, prior_std
+
+    def _params(self):
+        return (self.y[:, None],
+                torch.tensor([self.y.shape[0], 1.0 / self.prior_std],
+                             dtype=torch.float64))
+
+    def __call__(self, obs):
+        return self.log_prob(torch.as_tensor(obs["log_lam"]),
+                             torch.as_tensor(obs["tau"])[..., 0])
+
+    def log_prob(self, log_lam, tau):
+        """At ``log_lam [..., 2]`` and the change points ``tau [...]``."""
+        return _written_out(self, log_lam, tau)
+
+    def value_and_grad(self, log_lam, tau):
+        table, (_, inv_p) = self._table(log_lam.dtype, log_lam.device)
+        yv = table[:, 0]
+        grid = torch.arange(yv.shape[0], dtype=log_lam.dtype,
+                            device=log_lam.device)
+        l0, l1 = log_lam[..., 0:1], log_lam[..., 1:2]
+        before = grid < tau.to(log_lam.dtype)[..., None]
+        lr = torch.where(before, l0, l1)
+        e = torch.where(before, torch.exp(l0), torch.exp(l1))
+        d_row = yv - e
+        zero = torch.zeros_like(d_row)
+        lh = log_lam * inv_p
+        lp = (_sum64(yv * lr - e) + _sum64(-0.5 * (lh * lh))).to(
+            log_lam.dtype)
+        prior_g = (-(lh * inv_p)).double()
+        g0 = _sum64(torch.where(before, d_row, zero)) + prior_g[..., 0]
+        g1 = _sum64(torch.where(before, zero, d_row)) + prior_g[..., 1]
+        return lp, torch.stack([g0, g1], dim=-1).to(log_lam.dtype)

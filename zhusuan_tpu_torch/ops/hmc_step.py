@@ -20,7 +20,14 @@ cannot, so the kernel computes the built-in densities of
 through pointers, and the tempered bridge between two of them
 (:class:`~.densities.TemperedLogJoint`, the temperature a device scalar;
 ``csrc/hmc_step.cu``'s ``zs_fused_tempered_hmc_step``): annealed SMC's
-HMC moves. Any other log-joint takes the sampler's plain path.
+HMC moves; and the built-ins of :data:`BUILTIN_DENSITIES`, float32 only
+(``csrc/hmc_builtins.cu``'s ``zs_fused_builtin_hmc_step``, the same kernel
+body in a library of its own): the whitened Gaussians of dense
+preconditioning, Neal's funnel and NeuTra's lifted density, and the
+regression and change-point posteriors with their data, the latter reading
+each chain's change point from the sampler's ``observed`` (a pointer the
+launch passes, set anew at every launch). Any other log-joint takes the
+sampler's plain path.
 
 Random numbers: Philox4x32-10 written into the kernel, keyed by a pair of
 ints drawn once from a ``torch.Generator`` and counted by (iteration,
@@ -51,15 +58,22 @@ from zhusuan_tpu_torch.ops.densities import (
     BuiltinDensity,
     DiagonalGaussianLogJoint,
     EquicorrelatedGaussianLogJoint,
+    GaussianLinearRegressionLogJoint,
+    NealFunnelLogJoint,
+    NeuTraLogJoint,
+    PoissonChangepointLogJoint,
     TemperedLogJoint,
+    WhitenedLogJoint,
 )
 
 __all__ = [
+    "BUILTIN_DENSITIES",
     "DENSITIES",
     "DiagonalGaussianLogJoint",
     "EquicorrelatedGaussianLogJoint",
     "STEP_DENSITIES",
     "TemperedLogJoint",
+    "builtin_library",
     "fused_hmc_step",
     "fused_hmc_step_reference",
     "hmc_step_supported",
@@ -71,9 +85,13 @@ MAX_DIM = 512
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: The built-in densities the HMC-family kernels evaluate.
 DENSITIES = (DiagonalGaussianLogJoint, EquicorrelatedGaussianLogJoint)
-#: What the whole-step kernel (K1) takes: those and the tempered bridge
-#: between two of them.
-STEP_DENSITIES = DENSITIES + (TemperedLogJoint,)
+#: The built-ins K1 alone evaluates, float32 only.
+BUILTIN_DENSITIES = (WhitenedLogJoint, NealFunnelLogJoint, NeuTraLogJoint,
+                     GaussianLinearRegressionLogJoint,
+                     PoissonChangepointLogJoint)
+#: What the whole-step kernel (K1) takes: those, the tempered bridge
+#: between two of them and :data:`BUILTIN_DENSITIES`.
+STEP_DENSITIES = DENSITIES + (TemperedLogJoint,) + BUILTIN_DENSITIES
 
 
 def hmc_step_supported(q_shape, dtype: Optional[torch.dtype] = None) -> bool:
@@ -111,6 +129,26 @@ def kernel_library():
         for fn in (lib.zs_fused_hmc_step, lib.zs_fused_tempered_hmc_step,
                    lib.zs_fused_chees_step, lib.zs_fused_leapfrog):
             fn.restype = i32
+        lib.zs_cuda_error_string.argtypes = [i32]
+        lib.zs_cuda_error_string.restype = ctypes.c_char_p
+        lib._zs_typed = True
+    return lib, record
+
+
+def builtin_library():
+    """Build (at first use) and load K1's library for the built-ins of
+    :data:`BUILTIN_DENSITIES` (``csrc/hmc_builtins.cu``, the same kernel
+    body as :func:`kernel_library`'s, built beside it); returns ``(cdll,
+    build_record)``."""
+    from zhusuan_tpu_torch.ops._build import load_library
+
+    lib, record = load_library("hmc_builtins")
+    if not getattr(lib, "_zs_typed", False):
+        ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.zs_fused_builtin_hmc_step.argtypes = (
+            [ptr, ptr, i32, i32] + [ptr] * 5 + [i32] * 4 + [ptr] * 3
+            + [i32, i32, i32, u32, u32, u32] + [ptr] * 8)
+        lib.zs_fused_builtin_hmc_step.restype = i32
         lib.zs_cuda_error_string.argtypes = [i32]
         lib.zs_cuda_error_string.restype = ctypes.c_char_p
         lib._zs_typed = True
@@ -156,7 +194,7 @@ def check_noise(noise, q):
         raise ValueError("noise must be on q's device {}.".format(q.device))
 
 
-def _check_inputs(density, q, mass, noise):
+def _check_inputs(density, q, mass, noise, observed):
     if q.ndim != 2:
         raise ValueError(
             "q must be [n_chains, dim]; got shape {}.".format(tuple(q.shape)))
@@ -167,6 +205,33 @@ def _check_inputs(density, q, mass, noise):
             d, tuple(mass.shape)))
     check_device(q, ("mass", mass))
     check_noise(noise, q)
+    observed = observed or {}
+    for name in density.chain_observed:
+        v = observed.get(name)
+        if not isinstance(v, torch.Tensor) or tuple(v.shape) != (c, 1):
+            raise ValueError(
+                "{} reads the observation {!r} as a [{}, 1] tensor; got "
+                "{!r}.".format(type(density).__name__, name, c,
+                               None if v is None else getattr(v, "shape", v)))
+        check_device(q, (name, v))
+
+
+def _builtin_layout(density, dev):
+    """``(base id, aux arrays, rows of the data table, shared floats a
+    block and a warp)`` of a built-in of :data:`BUILTIN_DENSITIES`."""
+    aux = density.kernel_args(dev, aux=True)
+    base = getattr(density, "base", None)
+    base_id = -1 if base is None else base.kernel_id
+    d = density.dim
+    if isinstance(density, WhitenedLogJoint):
+        return base_id, aux, 0, d * (d | 1), 2 * WhitenedLogJoint.MAX_DIM
+    if isinstance(density, NeuTraLogJoint):
+        return (base_id, aux, 0, aux[0].numel(),
+                64 + 32 * len(density.flows))
+    if isinstance(density, (GaussianLinearRegressionLogJoint,
+                            PoissonChangepointLogJoint)):
+        return base_id, aux, density.kernel_args(dev)[0].shape[0], 0, 0
+    return base_id, aux, 0, 0, 0
 
 
 def device_scalar(value, dev, dtype=torch.float32):
@@ -194,7 +259,7 @@ def noise_pointers(noise):
 
 
 def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
-                   t: int, *, noise=None):
+                   t: int, *, noise=None, observed=None):
     """Run one full HMC transition for every chain.
 
     On a CUDA tensor this launches the CUDA kernel (or raises); on a CPU
@@ -213,13 +278,17 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
     :param t: iteration number, the first word of the Philox counter.
     :param noise: optional ``(eps [c, d], u_mh [c])`` standard normals and
         uniforms replacing the draws (testing hook).
+    :param observed: the sampler's observations; a built-in with
+        ``chain_observed`` reads those leaves (``[c, 1]`` each) for each
+        chain, and every other leaf is ignored, as the built-ins do.
     :return: ``(q', p0, acceptance, old_log_prob, new_log_prob, old_h,
         new_h)``.
     """
-    _check_inputs(density, q, mass, noise)
+    _check_inputs(density, q, mass, noise, observed)
     if q.device.type == "cpu":
         return fused_hmc_step_reference(density, q, mass, step_size,
-                                        n_leapfrogs, key, t, noise=noise)
+                                        n_leapfrogs, key, t, noise=noise,
+                                        observed=observed)
     if q.dtype not in KERNEL_DTYPES or mass.dtype != torch.float32:
         raise TypeError(
             "the CUDA kernel takes float32 or bfloat16 q and float32 mass; "
@@ -240,21 +309,44 @@ def fused_hmc_step(density, q, mass, step_size, n_leapfrogs: int, key,
     vecs = [torch.empty((c,), dtype=torch.float32, device=dev)
             for _ in range(5)]
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
-    if isinstance(density, TemperedLogJoint):
+    if isinstance(density, BUILTIN_DENSITIES):
+        if q.dtype != torch.float32:
+            raise TypeError("the CUDA kernel takes {} on float32 q only; got "
+                            "{}.".format(type(density).__name__, q.dtype))
+        why = density.kernel_ineligible()
+        if why is not None:
+            raise ValueError("the CUDA kernel cannot take this {}: {}."
+                             .format(type(density).__name__, why))
+        base_id, aux, n_rows, smem_block, smem_warp = _builtin_layout(
+            density, dev)
+        # The per-chain values (the change point) are read through a
+        # pointer set at this launch: the sampler's observation of the
+        # sweep.
+        held = [observed[k].to(torch.float32).contiguous()
+                for k in density.chain_observed]
+        library, entry = builtin_library, "zs_fused_builtin_hmc_step"
+        head = (q.data_ptr(), mass.data_ptr(), density.kernel_id, base_id,
+                *(None if v is None else v.data_ptr()
+                  for v in (*density.kernel_args(dev), *aux)),
+                held[0].data_ptr() if held else None, 1, n_rows,
+                smem_block, smem_warp)
+        params = (*density.kernel_args(dev), *aux, *held)
+    elif isinstance(density, TemperedLogJoint):
         beta = device_scalar(density.beta, dev)
-        entry = "zs_fused_tempered_hmc_step"
-        dens = (*density_pointers(density.prior, dev),
+        library, entry = kernel_library, "zs_fused_tempered_hmc_step"
+        head = (q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
+                *density_pointers(density.prior, dev),
                 *density_pointers(density.target, dev), beta.data_ptr())
         params = (*density.prior.kernel_args(dev),
                   *density.target.kernel_args(dev), beta)
     else:
-        entry = "zs_fused_hmc_step"
-        dens = density_pointers(density, dev)
+        library, entry = kernel_library, "zs_fused_hmc_step"
+        head = (q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
+                *density_pointers(density, dev))
         params = density.kernel_args(dev)
     launch_kernel(
-        fused_hmc_step, kernel_library, entry, dev,
-        q.data_ptr(), int(q.dtype == torch.bfloat16), mass.data_ptr(),
-        *dens, ss.data_ptr(), eps_ptr, u_ptr,
+        fused_hmc_step, library, entry, dev,
+        *head, ss.data_ptr(), eps_ptr, u_ptr,
         c, d, int(n_leapfrogs), k0, k1, int(t) & 0xFFFFFFFF,
         out_q.data_ptr(), out_p.data_ptr(),
         *[v.data_ptr() for v in vecs],
@@ -268,7 +360,7 @@ fused_hmc_step.launches = 0
 
 
 def fused_hmc_step_reference(density, q, mass, step_size, n_leapfrogs: int,
-                             key, t: int, *, noise=None):
+                             key, t: int, *, noise=None, observed=None):
     """Plain torch version of :func:`fused_hmc_step`: the kernel's Philox
     draws (or the injected ``noise``), then the sampler's plain transition
     :func:`..mcmc.base.hmc_transition` (autograd gradient). Computes in
@@ -276,7 +368,7 @@ def fused_hmc_step_reference(density, q, mass, step_size, n_leapfrogs: int,
     back in ``q``'s dtype."""
     from zhusuan_tpu_torch.mcmc import base
 
-    _check_inputs(density, q, mass, noise)
+    _check_inputs(density, q, mass, noise, observed)
     if noise is None:
         eps = philox_normal(key, t, q.shape, STREAM_MOMENTUM, q.device)
         u = philox_uniform(key, t, (q.shape[0],), STREAM_MH, q.device)
@@ -287,7 +379,7 @@ def fused_hmc_step_reference(density, q, mass, step_size, n_leapfrogs: int,
     x0 = {name: q.to(compute)}
     m = {name: mass.to(compute)}
     p0 = base.tree_random_momentum(None, x0, m, {name: eps})
-    log_post = base.make_log_joint_fn(density, {})
+    log_post = base.make_log_joint_fn(density, observed or {})
     with torch.no_grad():
         out_q, acc, old_lp, new_lp, old_h, new_h, *_ = base.hmc_transition(
             x0, p0, u, torch.as_tensor(step_size, dtype=compute,
