@@ -1,0 +1,15 @@
+"""The share of its roofline that hmc_step's kernel reaches in the profiled
+job: the least time of each launch's work (``roofline/hmc_step.py``) over
+the launch's time in the device trace."""
+
+from benchmark.metrics._common import kernel_share
+
+NAME = "hmc_step_roofline"
+UNIT = "%"
+LAYER = "kernel K1 (ops/hmc_step.py, csrc/hmc_step.cu)"
+MOVES = "draws_per_s"
+SOURCE = "device_trace"
+
+
+def read(run):
+    return kernel_share(run, "hmc_step")

@@ -1,0 +1,32 @@
+"""The chip's peaks and the least time of a piece of work.
+
+Published rates of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at
+its full 700 W power limit): 3.35 TB/s of HBM3 bandwidth and 67 TFLOP/s
+of float32 outside the tensor cores. The kernels measured here compute in
+float32 on the CUDA cores, so that is their peak. A card set below 700 W
+runs slower under load; the run prints the card's limit beside its
+numbers.
+"""
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+POWER_LIMIT_W = 700.0
+
+# Operations per element the kernels' necessary work takes: Philox4x32-10
+# and Box-Muller for one normal (the ten rounds' multiplies, xors and key
+# adds per 4 normals; log, sqrt, cos or sin and the products per 2), and
+# one evaluation of the diagonal Gaussian's gradient and log-density.
+# Integer operations are counted at the float32 rate.
+OPS_NORMAL = 50
+OPS_GRAD = 3
+OPS_LOG_PROB = 5
+
+
+def least_time(n_bytes: float, n_ops: float):
+    """``{"seconds", "bound_by", "bytes", "ops"}``: the larger of the bytes
+    over the memory rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_OPS_PER_S
+    return {"seconds": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
