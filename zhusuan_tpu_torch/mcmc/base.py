@@ -19,6 +19,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from zhusuan_tpu_torch.framework.meta_bn import MetaBayesianNet
+from zhusuan_tpu_torch.profiling import _NO_SPAN, span
 from zhusuan_tpu_torch.utils import merge_dicts
 
 __all__ = [
@@ -143,6 +144,14 @@ def dual_averaging_update(
     )
 
 
+def adapt_span(name: str, gate):
+    """The span of one adaptation step (``zs.adapt.<what>``): a
+    :func:`~zhusuan_tpu_torch.profiling.span` while ``gate`` is on (a
+    tensor gate counts as on), nothing once it is the Python False, when
+    the step only hands back the frozen value."""
+    return _NO_SPAN if gate is False else span(name)
+
+
 def ewmv_update(q, ewmv_t, ewmv_mean, ewmv_var, gate, n_chain_dims, decay):
     """One EW moving-variance accumulator update over the chain axes
     (reference hmc.py:115-159), gated by ``gate``.
@@ -179,6 +188,8 @@ def run_driver(one, pick, state, n_iters: int, collect: bool,
     iteration-major buffers. The draws of an iteration depend on the key
     and the iteration only, so the output IS the full trajectory sliced
     ``thinning-1::thinning`` and the final state is the unthinned run's.
+    Each call of ``one`` is a ``zs.iter`` span and each store a
+    ``zs.collect`` span (:func:`~zhusuan_tpu_torch.profiling.span`).
 
     :return: ``(final_state, outs or None)``; ``outs`` has ``n_iters //
         thinning`` rows.
@@ -204,10 +215,12 @@ def run_driver(one, pick, state, n_iters: int, collect: bool,
                 outs[f][row].copy_(v)
 
     for i in range(n_iters):
-        state, info = one(state, i)
+        with span("zs.iter"):
+            state, info = one(state, i)
         row, hit = divmod(i + 1, thinning)
         if collect and hit == 0 and row <= n_out:
-            store(row - 1, pick(info))
+            with span("zs.collect"):
+                store(row - 1, pick(info))
     return state, outs
 
 

@@ -33,6 +33,7 @@ import torch
 
 from zhusuan_tpu_torch.mcmc.base import (
     _select,
+    adapt_span,
     dual_averaging_update,
     hmc_transition,
     make_grad_fn,
@@ -54,6 +55,7 @@ from zhusuan_tpu_torch.ops.chees_step import (
     fused_chees_step,
 )
 from zhusuan_tpu_torch.ops.densities import BuiltinDensity
+from zhusuan_tpu_torch.profiling import span
 
 __all__ = ["ChEESHMC", "ChEESState", "ChEESInfo", "state_from_numpy",
            "state_to_numpy"]
@@ -277,86 +279,99 @@ class ChEESHMC:
 
         dtype = state.step_size.dtype
         mass = self._unit_mass(q, dtype)
-        # Jittered trajectory time and the leapfrog count (a device value).
-        jitter = max(_round_to(_halton2(state.t), dtype), 1.0 / 64.0)
-        traj_time = jitter * torch.exp(state.log_traj)
-        eps = state.step_size
-        n_steps = self._n_steps(traj_time, eps)
+        with span("zs.transition"):
+            # Jittered trajectory time and the leapfrog count (a device
+            # value).
+            with span("zs.chees.jitter"):
+                jitter = max(_round_to(_halton2(state.t), dtype),
+                             1.0 / 64.0)
+            traj_time = jitter * torch.exp(state.log_traj)
+            eps = state.step_size
+            n_steps = self._n_steps(traj_time, eps)
 
-        eps_in = u_in = None
-        if noise is not None:
-            eps_in, u_in = noise
-            if isinstance(eps_in, torch.Tensor):
-                (name,) = q
-                eps_in = {name: eps_in}
-        # With injected noise and no key, the kernel's Philox is unused.
-        key = (0, 0) if noise is not None and key is None else as_key(key)
-        new_t = state.t + 1
+            eps_in = u_in = None
+            if noise is not None:
+                eps_in, u_in = noise
+                if isinstance(eps_in, torch.Tensor):
+                    (name,) = q
+                    eps_in = {name: eps_in}
+            # With injected noise and no key, the kernel's Philox is
+            # unused.
+            key = ((0, 0) if noise is not None and key is None
+                   else as_key(key))
+            new_t = state.t + 1
 
-        if self._use_fused_step(meta_bn, observed, q, mass):
-            ((name, x),) = q.items()
-            (out_q, prop_q, prop_p, accept_prob, _,
-             sel_log_prob) = fused_chees_step(
-                meta_bn, x, mass[name], eps, n_steps, key, new_t,
-                noise=None if noise is None else (eps_in[name], u_in))
-            accepted_q = {name: out_q}
-            new_q, new_p = {name: prop_q}, {name: prop_p}
-        else:
-            x0 = q[next(iter(q))]
-            gen = (None if noise is not None
-                   else iteration_generator(key, new_t, x0.device))
-            p = tree_random_momentum(gen, q, mass, eps_in)
-            if u_in is None:
-                u_in = torch.rand(x0.shape[:1], generator=gen, dtype=dtype,
-                                  device=x0.device)
-            old_lp = cache[0] if cache is not None else old_lp_pre
-            # The plain trajectory is a Python loop: the count goes to the
-            # host (one sync per iteration).
-            (accepted_q, accept_prob, _, sel_log_prob, _, _, _, new_q,
-             new_p) = hmc_transition(
-                q, p, u_in, eps, int(n_steps), make_grad_fn(log_post),
-                log_post, mass, 1, old_lp)
+            if self._use_fused_step(meta_bn, observed, q, mass):
+                ((name, x),) = q.items()
+                (out_q, prop_q, prop_p, accept_prob, _,
+                 sel_log_prob) = fused_chees_step(
+                    meta_bn, x, mass[name], eps, n_steps, key, new_t,
+                    noise=None if noise is None else (eps_in[name], u_in))
+                accepted_q = {name: out_q}
+                new_q, new_p = {name: prop_q}, {name: prop_p}
+            else:
+                x0 = q[next(iter(q))]
+                gen = (None if noise is not None
+                       else iteration_generator(key, new_t, x0.device))
+                p = tree_random_momentum(gen, q, mass, eps_in)
+                if u_in is None:
+                    u_in = torch.rand(x0.shape[:1], generator=gen,
+                                      dtype=dtype, device=x0.device)
+                old_lp = cache[0] if cache is not None else old_lp_pre
+                # The plain trajectory is a Python loop: the count goes to
+                # the host (one sync per iteration).
+                with span("zs.sync.chees_leapfrogs"):
+                    n_leapfrogs = int(n_steps)
+                (accepted_q, accept_prob, _, sel_log_prob, _, _, _, new_q,
+                 new_p) = hmc_transition(
+                    q, p, u_in, eps, n_leapfrogs, make_grad_fn(log_post),
+                    log_post, mass, 1, old_lp)
 
         # Pin the adaptation math to the state dtype (JAX fix de43ee6).
         accept_prob = accept_prob.to(dtype)
-        # Harmonic-mean acceptance across chains (Hoffman et al. 2021).
-        harmonic_accept = 1.0 / torch.mean(
-            1.0 / torch.clamp(accept_prob, min=1e-10))
-        step_size, new_da_step, new_h_bar, new_log_eps_bar = (
-            dual_averaging_update(
-                state.da_step, state.h_bar, state.log_epsilon_bar,
-                state.step_size, harmonic_accept, adapt,
-                fresh_start=state.da_step == 0,
-                mu=self.mu, target=self.target_acceptance_rate,
-                gamma=self.gamma, t0=self.t0, kappa=self.kappa,
-            ))
+        # Harmonic-mean acceptance across chains (Hoffman et al. 2021):
+        # the statistic the step size is dual-averaged on.
+        with adapt_span("zs.adapt.step_size", adapt):
+            harmonic_accept = 1.0 / torch.mean(
+                1.0 / torch.clamp(accept_prob, min=1e-10))
+            step_size, new_da_step, new_h_bar, new_log_eps_bar = (
+                dual_averaging_update(
+                    state.da_step, state.h_bar, state.log_epsilon_bar,
+                    state.step_size, harmonic_accept, adapt,
+                    fresh_start=state.da_step == 0,
+                    mu=self.mu, target=self.target_acceptance_rate,
+                    gamma=self.gamma, t0=self.t0, kappa=self.kappa,
+                ))
 
         # --- trajectory-length Adam on the ChEES gradient --------------- #
-        if adapt is False:
-            m, v, adam_t, log_traj = (state.adam_m, state.adam_v,
-                                      state.adam_t, state.log_traj)
-        else:
-            g_traj = self._chees_grad(q, new_q, new_p, mass, accept_prob,
-                                      jitter)
-            b1, b2 = 0.9, 0.95
-            adam_t = state.adam_t + (1.0 if adapt is True
-                                     else adapt.to(dtype))
-            m = _select(adapt, b1 * state.adam_m + (1 - b1) * g_traj,
-                        state.adam_m)
-            v = _select(adapt, b2 * state.adam_v + (1 - b2) * g_traj ** 2,
-                        state.adam_v)
-            safe_t = torch.clamp(adam_t, min=1.0)
-            m_hat = m / (1 - b1 ** safe_t)
-            v_hat = v / (1 - b2 ** safe_t)
-            delta = self.traj_lr * m_hat / (torch.sqrt(v_hat) + 1e-8)
-            # Ascent on ChEES; clipped so one noisy iteration cannot
-            # explode T.
-            delta = torch.clamp(delta, -0.5, 0.5)
-            log_traj = _select(adapt, state.log_traj + delta,
-                               state.log_traj)
-        # Keep T within [eps, max_leapfrogs eps], also when frozen.
-        log_traj = torch.clamp(log_traj, min=torch.log(step_size),
-                               max=torch.log(step_size * self.max_leapfrogs))
+        with adapt_span("zs.adapt.trajectory", adapt):
+            if adapt is False:
+                m, v, adam_t, log_traj = (state.adam_m, state.adam_v,
+                                          state.adam_t, state.log_traj)
+            else:
+                g_traj = self._chees_grad(q, new_q, new_p, mass,
+                                          accept_prob, jitter)
+                b1, b2 = 0.9, 0.95
+                adam_t = state.adam_t + (1.0 if adapt is True
+                                         else adapt.to(dtype))
+                m = _select(adapt, b1 * state.adam_m + (1 - b1) * g_traj,
+                            state.adam_m)
+                v = _select(adapt,
+                            b2 * state.adam_v + (1 - b2) * g_traj ** 2,
+                            state.adam_v)
+                safe_t = torch.clamp(adam_t, min=1.0)
+                m_hat = m / (1 - b1 ** safe_t)
+                v_hat = v / (1 - b2 ** safe_t)
+                delta = self.traj_lr * m_hat / (torch.sqrt(v_hat) + 1e-8)
+                # Ascent on ChEES; clipped so one noisy iteration cannot
+                # explode T.
+                delta = torch.clamp(delta, -0.5, 0.5)
+                log_traj = _select(adapt, state.log_traj + delta,
+                                   state.log_traj)
+            # Keep T within [eps, max_leapfrogs eps], also when frozen.
+            log_traj = torch.clamp(
+                log_traj, min=torch.log(step_size),
+                max=torch.log(step_size * self.max_leapfrogs))
 
         new_state = ChEESState(
             q=accepted_q,

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from zhusuan_tpu_torch.mcmc.base import (
+    adapt_span,
     dual_averaging_update,
     ewmv_update,
     get_acceptance_rate,
@@ -66,6 +67,7 @@ from zhusuan_tpu_torch.ops.hmc_step import (
     hmc_step_supported,
 )
 from zhusuan_tpu_torch.ops.leapfrog import fused_leapfrog, leapfrog_supported
+from zhusuan_tpu_torch.profiling import span
 
 __all__ = ["HMC", "HMCState", "HMCInfo", "state_from_numpy",
            "state_to_numpy", "warmup_schedule"]
@@ -276,7 +278,8 @@ class HMC:
         last_below = 1.0 < target
         while True:
             acc = trial_acceptance(step_size).to(step_size.dtype)
-            below = bool(acc < target)
+            with span("zs.sync.init_search"):
+                below = bool(acc < target)
             new_step_size = (step_size / factor if below
                              else step_size * factor)
             go = last_below == below
@@ -395,9 +398,10 @@ class HMC:
         if self.adapt_mass is not None:
             gate_mass = (adapt_mass if adapt_mass is not None
                          else self.adapt_mass)
-            ewmv_t, ewmv_mean, ewmv_var, mass = mass_update(
-                state, gate_mass, n_chain_dims, self.mass_decay,
-                self.mass_collect_iters)
+            with adapt_span("zs.adapt.mass", gate_mass):
+                ewmv_t, ewmv_mean, ewmv_var, mass = mass_update(
+                    state, gate_mass, n_chain_dims, self.mass_decay,
+                    self.mass_collect_iters)
         else:
             ewmv_t, ewmv_mean, ewmv_var = (
                 state.ewmv_t, state.ewmv_mean, state.ewmv_var)
@@ -416,16 +420,21 @@ class HMC:
             if_init_ss = (init_step_size_search is None
                           and (new_t == 1
                                or new_t == self.mass_collect_iters))
-            if reinit_step_size is not None:
-                if_init_ss = if_init_ss or bool(reinit_step_size)
+            if reinit_step_size is not None and not if_init_ss:
+                if isinstance(reinit_step_size, torch.Tensor):
+                    with span("zs.sync.reinit"):
+                        if_init_ss = bool(reinit_step_size)
+                else:
+                    if_init_ss = bool(reinit_step_size)
             if if_init_ss:
                 if gen is None and noise is None:
                     gen = iteration_generator(key, new_t, x0.device)
-                p_s = (tree_random_momentum(gen, q, mass, eps)
-                       if use_fused else p)
-                step_size = self._init_step_size_search(
-                    q, p_s, mass, grad_fn, log_post, n_chain_dims,
-                    state.step_size)
+                with span("zs.init_search"):
+                    p_s = (tree_random_momentum(gen, q, mass, eps)
+                           if use_fused else p)
+                    step_size = self._init_step_size_search(
+                        q, p_s, mass, grad_fn, log_post, n_chain_dims,
+                        state.step_size)
             else:
                 step_size = state.step_size
         else:
@@ -447,49 +456,54 @@ class HMC:
             trajectory_step = step_size * u_jit
 
         new_cache = None
-        if use_fused:
-            ((name, x),) = state.q.items()
-            # The carried (possibly bf16) array goes in; the kernel
-            # upcasts in registers. The jittered step is a device scalar.
-            (out_q, p0, acceptance_rate, old_log_prob, new_log_prob, old_h,
-             new_h) = fused_hmc_step(
-                meta_bn, x, mass[name], trajectory_step, self.n_leapfrogs,
-                key, new_t,
-                noise=None if noise is None else (eps[name], u_in),
-                observed=observed)
-            accepted_q = {name: out_q}
-            p = {name: p0}
-            new_cache = (new_log_prob, None)
-        else:
-            old_lp_in, g0 = cache if cache is not None else (old_lp_pre,
-                                                             None)
-            if u_in is None:
-                u_in = torch.rand(x0.shape[:n_chain_dims], generator=gen,
-                                  dtype=x0.dtype, device=x0.device)
-            # --- leapfrog + MH test (hmc.py:474-498) ------------------- #
-            (accepted_q, acceptance_rate, old_log_prob, new_log_prob, old_h,
-             new_h, accepted_g, _, _) = hmc_transition(
-                q, p, u_in, trajectory_step, self.n_leapfrogs, grad_fn,
-                log_post, mass, n_chain_dims, old_lp_in, g0,
-                self._fused_trajectory(meta_bn, observed, q, mass,
-                                       n_chain_dims))
-            if self.check_numerics:
-                # The reference's "Try better initialization" error
-                # (hmc.py:51-53); reads the device (a host sync).
-                _check_numerics(
-                    old_log_prob,
-                    "HMC: old_log_prob has numeric errors! Try better "
-                    "initialization.")
-            if cache is not None:
-                new_cache = (new_log_prob, accepted_g)
+        with span("zs.transition"):
+            if use_fused:
+                ((name, x),) = state.q.items()
+                # The carried (possibly bf16) array goes in; the kernel
+                # upcasts in registers. The jittered step is a device
+                # scalar.
+                (out_q, p0, acceptance_rate, old_log_prob, new_log_prob,
+                 old_h, new_h) = fused_hmc_step(
+                    meta_bn, x, mass[name], trajectory_step,
+                    self.n_leapfrogs, key, new_t,
+                    noise=None if noise is None else (eps[name], u_in),
+                    observed=observed)
+                accepted_q = {name: out_q}
+                p = {name: p0}
+                new_cache = (new_log_prob, None)
+            else:
+                old_lp_in, g0 = (cache if cache is not None
+                                 else (old_lp_pre, None))
+                if u_in is None:
+                    u_in = torch.rand(x0.shape[:n_chain_dims],
+                                      generator=gen, dtype=x0.dtype,
+                                      device=x0.device)
+                # --- leapfrog + MH test (hmc.py:474-498) --------------- #
+                (accepted_q, acceptance_rate, old_log_prob, new_log_prob,
+                 old_h, new_h, accepted_g, _, _) = hmc_transition(
+                    q, p, u_in, trajectory_step, self.n_leapfrogs, grad_fn,
+                    log_post, mass, n_chain_dims, old_lp_in, g0,
+                    self._fused_trajectory(meta_bn, observed, q, mass,
+                                           n_chain_dims))
+                if self.check_numerics:
+                    # The reference's "Try better initialization" error
+                    # (hmc.py:51-53); reads the device (a host sync).
+                    _check_numerics(
+                        old_log_prob,
+                        "HMC: old_log_prob has numeric errors! Try better "
+                        "initialization.")
+                if cache is not None:
+                    new_cache = (new_log_prob, accepted_g)
 
         # --- step-size adaptation (hmc.py:500-505) --------------------- #
         if self.adapt_step_size is not None:
             gate_ss = (adapt_step_size if adapt_step_size is not None
                        else self.adapt_step_size)
-            updated_step_size, da_step, h_bar, log_eps_bar = (
-                self._tune_step_size(state, torch.mean(acceptance_rate),
-                                     gate_ss, if_init_ss))
+            with adapt_span("zs.adapt.step_size", gate_ss):
+                updated_step_size, da_step, h_bar, log_eps_bar = (
+                    self._tune_step_size(
+                        state, torch.mean(acceptance_rate), gate_ss,
+                        if_init_ss))
         else:
             updated_step_size = step_size
             da_step, h_bar, log_eps_bar = (

@@ -45,6 +45,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from zhusuan_tpu_torch.mcmc.base import (
+    adapt_span,
     dual_averaging_update,
     make_log_joint_fn,
     run_driver,
@@ -65,6 +66,7 @@ from zhusuan_tpu_torch.ops.nuts_step import (
     fused_nuts_transition,
     nuts_step_supported,
 )
+from zhusuan_tpu_torch.profiling import span
 
 __all__ = ["NUTS", "NUTSInfo", "nuts_transition"]
 
@@ -160,6 +162,13 @@ def draw_noise(generator, n_chains: int, dim: int, max_tree_depth: int,
             torch.rand(n_chains, D, **kw))
 
 
+def _any_alive(mask) -> bool:
+    """``bool(mask.any())``, a host read of the device: one
+    ``zs.sync.nuts_tree`` span."""
+    with span("zs.sync.nuts_tree"):
+        return bool(mask.any())
+
+
 def nuts_transition(vag, q0, inv_mass, step_size, max_tree_depth: int,
                     max_delta_energy: float, noise):
     """One NUTS transition for every chain, batched with masks.
@@ -218,7 +227,7 @@ def nuts_transition(vag, q0, inv_mass, step_size, max_tree_depth: int,
     ckpt_psum = torch.zeros_like(ckpt_p)
 
     for k in range(D):
-        if k and not bool(alive.any()):
+        if k and not _any_alive(alive):
             break
         right = go_right[:, k]
         r2 = right[:, None]
@@ -233,7 +242,7 @@ def nuts_transition(vag, q0, inv_mass, step_size, max_tree_depth: int,
         sq_prop, slp_prop, sh_prop = qq, zero, zero
         for i in range(1 << k):
             s_alive = alive & ~s_turn & ~s_div
-            if i and i % _LEAF_SYNC == 0 and not bool(s_alive.any()):
+            if i and i % _LEAF_SYNC == 0 and not _any_alive(s_alive):
                 break
             sa = s_alive[:, None]
             # --- one leapfrog step (grad carried from the edge) -------- #
@@ -541,9 +550,10 @@ class NUTS:
         if self.adapt_mass is not None:
             gate_mass = adapt_mass if adapt_mass is not None \
                 else self.adapt_mass
-            ewmv_t, ewmv_mean, ewmv_var, mass = mass_update(
-                state, gate_mass, n_chain_dims, self.mass_decay,
-                self.mass_collect_iters)
+            with adapt_span("zs.adapt.mass", gate_mass):
+                ewmv_t, ewmv_mean, ewmv_var, mass = mass_update(
+                    state, gate_mass, n_chain_dims, self.mass_decay,
+                    self.mass_collect_iters)
         else:
             ewmv_t, ewmv_mean, ewmv_var = (
                 state.ewmv_t, state.ewmv_mean, state.ewmv_var)
@@ -557,27 +567,29 @@ class NUTS:
         eps = state.step_size.to(flat.dtype)
         D = self.max_tree_depth
 
-        if self._use_fused_step(meta_bn, observed, state.q, mass,
-                                n_chain_dims):
-            outs = fused_nuts_transition(
-                meta_bn, flat.ravel(state.q, (n_chains,)), inv_mass[None, :],
-                eps, D, self.max_delta_energy, as_key(key), new_t,
-                noise=noise)
-        else:
-            q_flat = flat.ravel(q, (n_chains,))
+        with span("zs.transition"):
+            if self._use_fused_step(meta_bn, observed, state.q, mass,
+                                    n_chain_dims):
+                outs = fused_nuts_transition(
+                    meta_bn, flat.ravel(state.q, (n_chains,)),
+                    inv_mass[None, :], eps, D, self.max_delta_energy,
+                    as_key(key), new_t, noise=noise)
+            else:
+                q_flat = flat.ravel(q, (n_chains,))
 
-            def log_prob(x):
-                latent = flat.unravel(x.reshape(chain_shape + (flat.dim,)),
-                                      chain_shape)
-                return log_post(latent).reshape(n_chains)
+                def log_prob(x):
+                    latent = flat.unravel(
+                        x.reshape(chain_shape + (flat.dim,)), chain_shape)
+                    return log_post(latent).reshape(n_chains)
 
-            if noise is None:
-                gen = iteration_generator(as_key(key), new_t, q_flat.device)
-                noise = draw_noise(gen, n_chains, flat.dim, D, flat.dtype,
-                                   q_flat.device)
-            outs = nuts_transition(value_and_grad(log_prob), q_flat,
-                                   inv_mass, eps, D, self.max_delta_energy,
-                                   noise)
+                if noise is None:
+                    gen = iteration_generator(as_key(key), new_t,
+                                              q_flat.device)
+                    noise = draw_noise(gen, n_chains, flat.dim, D,
+                                       flat.dtype, q_flat.device)
+                outs = nuts_transition(value_and_grad(log_prob), q_flat,
+                                       inv_mass, eps, D,
+                                       self.max_delta_energy, noise)
         (q_new_flat, lp_new, h_new, accept_stat, depth, n_leap, turning,
          divergent) = [v.reshape(chain_shape + v.shape[1:]) for v in outs]
         q_new = flat.unravel(q_new_flat, chain_shape)
@@ -586,17 +598,19 @@ class NUTS:
         if self.adapt_step_size is not None:
             gate = adapt_step_size if adapt_step_size is not None \
                 else self.adapt_step_size
-            step_size, da_step, h_bar, log_eps_bar = dual_averaging_update(
-                state.da_step, state.h_bar, state.log_epsilon_bar,
-                state.step_size, torch.mean(accept_stat), gate,
-                fresh_start=state.t == 0,
-                mu=self.mu, target=self.target_acceptance_rate,
-                gamma=self.gamma, t0=self.t0, kappa=self.kappa)
-            ss_dtype = state.step_size.dtype
-            step_size = step_size.to(ss_dtype)
-            da_step = da_step.to(state.da_step.dtype)
-            h_bar = h_bar.to(ss_dtype)
-            log_eps_bar = log_eps_bar.to(ss_dtype)
+            with adapt_span("zs.adapt.step_size", gate):
+                step_size, da_step, h_bar, log_eps_bar = (
+                    dual_averaging_update(
+                        state.da_step, state.h_bar, state.log_epsilon_bar,
+                        state.step_size, torch.mean(accept_stat), gate,
+                        fresh_start=state.t == 0,
+                        mu=self.mu, target=self.target_acceptance_rate,
+                        gamma=self.gamma, t0=self.t0, kappa=self.kappa))
+                ss_dtype = state.step_size.dtype
+                step_size = step_size.to(ss_dtype)
+                da_step = da_step.to(state.da_step.dtype)
+                h_bar = h_bar.to(ss_dtype)
+                log_eps_bar = log_eps_bar.to(ss_dtype)
         else:
             step_size, da_step, h_bar, log_eps_bar = (
                 state.step_size, state.da_step, state.h_bar,

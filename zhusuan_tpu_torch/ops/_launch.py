@@ -6,7 +6,9 @@ one on the current stream of the tensors' device and does what every wrapper
 owes a launch: a non-zero code raises with the CUDA error string, a launch
 that went through adds one to the wrapper's ``launches`` and records its
 float check inside :func:`~.checks.checked` (:func:`~.checks.record_kernel`).
-Nothing synchronises and nothing is caught.
+Nothing synchronises and nothing is caught. Each launch is a ``zs.launch``
+span (:func:`~zhusuan_tpu_torch.profiling.span`), so a profiler's trace
+gives the host's time per launch.
 
 It is kept light, because a small kernel's back-to-back time is the host's
 time to launch it: the typed ctypes function is looked up once per entry,
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from zhusuan_tpu_torch.ops.checks import record_kernel
+from zhusuan_tpu_torch.profiling import span
 
 __all__ = ["launch_kernel", "current_stream_pointer"]
 
@@ -58,16 +61,18 @@ def launch_kernel(wrapper, kernel_library, entry: str, device, *args,
         entries skipped), for :func:`~.checks.record_kernel`.
     :raises RuntimeError: when the entry returns a non-zero CUDA error code.
     """
-    fn, error_string = _entry(kernel_library, entry)
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    if index == current:
-        rc = fn(*args, current_stream_pointer(index))
-    else:
-        with torch.cuda.device(index):
+    with span("zs.launch"):
+        fn, error_string = _entry(kernel_library, entry)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
             rc = fn(*args, current_stream_pointer(index))
-    if rc != 0:
-        raise RuntimeError("{} launch failed: CUDA error {} ({}).".format(
-            wrapper.__name__, rc, error_string(rc).decode()))
-    wrapper.launches += 1
-    record_kernel(wrapper.__name__, inputs, outputs)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, current_stream_pointer(index))
+        if rc != 0:
+            raise RuntimeError("{} launch failed: CUDA error {} ({})."
+                               .format(wrapper.__name__, rc,
+                                       error_string(rc).decode()))
+        wrapper.launches += 1
+        record_kernel(wrapper.__name__, inputs, outputs)

@@ -30,6 +30,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from zhusuan_tpu_torch.profiling import span
+
 __all__ = ["check_numerics", "checked", "user_checks", "float_checks",
            "record_kernel"]
 
@@ -163,10 +165,11 @@ def check_numerics(x, message: str, enabled: bool = True):
     """Return ``x``, flagging NaN or Inf (reference ``tf.check_numerics``).
 
     Outside :func:`checked` it raises ``FloatingPointError`` at once (a
-    host read). Inside a :func:`checked` call it records into the call's
-    device flag and raises when the call returns; with ``user_checks`` left
-    out of the call's ``errors`` it does nothing. When ``enabled`` is False
-    this is the identity.
+    host read, a ``zs.sync.check_numerics`` span). Inside a
+    :func:`checked` call it records into the call's device flag and raises
+    when the call returns; with ``user_checks`` left out of the call's
+    ``errors`` it does nothing. When ``enabled`` is False this is the
+    identity.
     """
     if not enabled:
         return x
@@ -177,7 +180,9 @@ def check_numerics(x, message: str, enabled: bool = True):
                        "check_numerics failed for '{}': found NaN/Inf."
                        .format(message))
         return x
-    if not bool(torch.isfinite(x).all()):
+    with span("zs.sync.check_numerics"):
+        finite = bool(torch.isfinite(x).all())
+    if not finite:
         raise FloatingPointError(
             "check_numerics failed for {!r}: found NaN/Inf.".format(message))
     return x

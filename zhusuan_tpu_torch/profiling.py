@@ -3,6 +3,11 @@
 
 - :func:`named_scope`: ``torch.profiler.record_function``; annotate model
   functions and loops so a trace names them.
+- :func:`span`: the program's own annotation, a ``record_function`` only
+  while a profiler records and a shared no-op otherwise, so it can sit in
+  the run loops and kernel wrappers. Its ``zs.*`` spans (run loop,
+  adaptation, transitions, kernel launches, host reads) land in the trace
+  :func:`trace` writes.
 - :func:`trace`: a context manager around ``torch.profiler.profile`` over
   the CPU and, where there is one, the card, writing a trace that
   TensorBoard's profiler plugin or Perfetto loads (``*.pt.trace.json``)
@@ -19,9 +24,41 @@ import time
 
 import torch
 
-__all__ = ["named_scope", "trace", "SpeedMeter", "ess_per_sec"]
+__all__ = ["named_scope", "span", "trace", "SpeedMeter", "ess_per_sec"]
 
 named_scope = torch.profiler.record_function
+
+# The flag torch.profiler sets while it records (on start, off on stop):
+# one attribute read, where entering a record_function costs a call into
+# torch whether or not anything records.
+_autograd_profiler = torch.autograd.profiler
+
+
+class _NoSpan:
+    """The span of a run that nothing profiles: enters and exits doing
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A context manager naming the enclosed block ``name`` in a profiler
+    trace (a ``user_annotation`` on the clock of the device operations it
+    launches; nested spans nest). While no ``torch.profiler`` records it
+    is one shared no-op: it reads one flag, allocates nothing and calls
+    nothing of torch's."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

@@ -15,6 +15,8 @@ from typing import Any, Dict
 
 import torch
 
+from zhusuan_tpu_torch.profiling import span
+
 __all__ = ["log_sum_exp", "log_mean_exp", "merge_dicts", "split_by_names",
            "add_name_scope", "docinherit", "if_raise", "cached_property",
            "tree_map", "tree_leaves"]
@@ -70,13 +72,14 @@ def split_by_names(d: Dict[str, Any], names) -> Dict[str, Any]:
 
 def add_name_scope(fn):
     """Decorator labelling ``fn``'s work with its name in profiler traces
-    (``torch.profiler.record_function``; reference ``zhusuan/utils.py:
-    211-217`` used ``tf.name_scope``, the JAX package ``jax.named_scope``).
+    (:func:`~zhusuan_tpu_torch.profiling.span`: free while nothing
+    profiles; reference ``zhusuan/utils.py:211-217`` used
+    ``tf.name_scope``, the JAX package ``jax.named_scope``).
     """
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(fn.__name__):
+        with span(fn.__name__):
             return fn(*args, **kwargs)
 
     return wrapper
