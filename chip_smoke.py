@@ -20,8 +20,9 @@ the others. To time one alone, run it as the other phases are run alone
    built-ins it alone evaluates, the same body), ``csrc/nuts_step.cu``,
    ``csrc/sgmcmc_step.cu`` (the SGLD, PSGLD, SGHMC and SGNHT kernels),
    ``csrc/linalg.cu`` (the Cholesky-plus-inverse kernel),
-   ``csrc/advi_step.cu`` (the whole-fit ADVI trainer) and
-   ``csrc/random.cu`` (the standalone samplers), one ``nvcc`` each,
+   ``csrc/advi_step.cu`` (the whole-fit ADVI trainer),
+   ``csrc/random.cu`` (the standalone samplers) and ``csrc/ess.cu`` (the
+   one-pass ESS of the diagnostics), one ``nvcc`` each,
    started together, timing the build and printing ptxas' register and
    spill report;
 3. kernel vs plain: the HMC step kernel (diagonal density) against its
@@ -36,7 +37,8 @@ the others. To time one alone, run it as the other phases are run alone
    32768 chains x 100 dims, 200 adaptive iterations, then 500 sampling
    iterations with bfloat16 samples, then ``ess_batch_device`` -- on the
    kernel path (3 timed trials) and on the plain path, with the kernel's
-   launch count read around the kernel-path run;
+   launch count read around the kernel-path run, and the ESS kernel's
+   (``fused_ess``) counted from 0 over both: one launch a trial's check;
 6. NUTS kernel vs plain: the fused NUTS transition against its plain torch
    version on the same injected noise, at 4096 x 100 depth 6, 4096 x 100
    depth 10 on the std ``linspace(0.1, 30)`` target (trees reach the cap),
@@ -505,6 +507,18 @@ the others. To time one alone, run it as the other phases are run alone
    launches are those the children's example runs count (their
    ``k1_routes`` lines).
 
+39. ESS kernel vs plain (``phase_ess_vs_plain``): ``fused_ess`` against the
+   FFT path it replaces on the card (``diagnostics._ess_fft``) on the same
+   draws at the benchmark's two 32768-chain checks (``ESS_CASES``:
+   [500, 32768 x 100] bfloat16 and [300, 32768 x 100] float32), AR(1)
+   columns with phi from -0.5 to 0.99: every column within ``ESS_RTOL``
+   but at most ``ESS_MAX_DIFFERING`` of them, each at a lag whose float64
+   rho lies within ``ESS_TIE`` of 0 (there float32 may stop one lag apart);
+   the cutoffs' distribution; both timed, beside the bound (the draws read
+   once, or the estimator's multiply-adds up to each cutoff): the
+   ``fused_ess`` entry of the kernels' record, whose launches are phase
+   5's.
+
 Each entry of the kernels' record carries its bound (``bound_ms``: the
 larger of the bytes it must move over 3.35 TB/s and the operations it does
 over 67 TFLOP/s, counted from the sources by the ``_*_bound`` helpers at
@@ -635,7 +649,8 @@ def phase_build():
     from zhusuan_tpu_torch.ops._build import build_libraries
 
     libs = build_libraries(["hmc_step", "hmc_builtins", "nuts_step",
-                            "sgmcmc_step", "linalg", "advi_step", "random"])
+                            "sgmcmc_step", "linalg", "advi_step", "random",
+                            "ess"])
     for name, (_, record) in libs.items():
         ptxas = [ln.strip() for ln in record["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -899,6 +914,12 @@ def run_main_path(torch, dev, fused):
 
 
 def phase_main_path(torch, dev):
+    """Both paths of :func:`run_main_path`; returns the HMC step kernel's
+    launches on the kernel path and the ESS kernel's on both (each trial's
+    check on the card is one launch of ``fused_ess``, counted from 0)."""
+    from zhusuan_tpu_torch.ops.ess import fused_ess
+
+    fused_ess.launches = 0
     kernel = run_main_path(torch, dev, fused=True)
     check(kernel["warmup_launches"] == N_ADAPT,
           "warm-up launched the kernel {} times, not {}".format(
@@ -908,6 +929,10 @@ def phase_main_path(torch, dev):
               N_ITERS, kernel["sample_launches_per_trial"]))
     plain = run_main_path(torch, dev, fused=False)
     check(plain["launches"] == 0, "the plain path launched the kernel")
+    ess_launches = fused_ess.launches
+    check(ess_launches == 2 * N_TRIALS,
+          "the ESS checks launched fused_ess {} times, not {}".format(
+              ess_launches, 2 * N_TRIALS))
     for rec in (kernel, plain):
         check(rec["max_rel_std_err"] < 0.1,
               "{} path: pooled std off by {:.3f}".format(
@@ -916,8 +941,9 @@ def phase_main_path(torch, dev):
               "{} path: mean acceptance {:.3f}".format(
                   rec["path"], rec["mean_acceptance"]))
     print("phase5 main_path " + json.dumps({"kernel": kernel,
-                                            "plain": plain}))
-    return kernel["launches"]
+                                            "plain": plain,
+                                            "ess_launches": ess_launches}))
+    return kernel["launches"], ess_launches
 
 
 def _nuts_problem(torch, dev, c, d, std_max, seed, unit_mass=False):
@@ -6637,6 +6663,141 @@ def phase_builtin_routes(torch, dev):
     return recs, worst
 
 
+# --------------------------------------------------------------------- #
+# Phase 39: the ESS kernel against its plain version, the FFT path
+# --------------------------------------------------------------------- #
+# The two checks of the benchmark's 32768-chain cells: (rows, dtype) over
+# N_CHAINS x DIM columns.
+ESS_CASES = ((500, "bfloat16"), (300, "float32"))
+ESS_RTOL = 1e-5  # per column, kernel against the FFT path
+# A column may differ by more where one side's float32 rho takes the other
+# sign at a lag whose float64 rho is this close to 0 (its cutoff moves),
+# on at most ESS_MAX_DIFFERING of the columns.
+ESS_TIE = 1e-5
+ESS_MAX_DIFFERING = 1e-4
+
+
+def _ar1_draws(torch, dev, n, dtype, seed):
+    """``[n, N_CHAINS * DIM]`` stationary AR(1) draws of ``dtype``, made in
+    float32 on the card: each chain's DIM coordinates with phi from -0.5
+    to 0.99, so that cutoffs run from 1 lag to about a hundred, as the
+    columns of an HMC job on the benchmark's target do."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cols = N_CHAINS * DIM
+    phi = torch.linspace(-0.5, 0.99, DIM, device=dev).repeat(N_CHAINS)
+    x = torch.empty(n, cols, device=dev)
+    x[0] = torch.randn(cols, generator=g, device=dev) / torch.sqrt(
+        1.0 - phi * phi)
+    for i in range(1, n):
+        x[i] = phi * x[i - 1] + torch.randn(cols, generator=g, device=dev)
+    return x.to(getattr(torch, dtype))
+
+
+def _rho64(torch, x):
+    """float64 ``rho [n, k]`` of the estimator for ``[n, k]`` draws."""
+    from zhusuan_tpu_torch.diagnostics import _batched_reference_acov
+
+    acov = _batched_reference_acov(x.double())
+    return acov / acov[0] - 1.0 / (x.shape[0] - 1)
+
+
+def _cutoffs(torch, x, chunk=1 << 18):
+    """The lag of each column's first negative float32 rho (``n`` where
+    none is), over ``chunk`` columns at a time."""
+    from zhusuan_tpu_torch.diagnostics import _batched_reference_acov
+
+    n, out = x.shape[0], []
+    for start in range(0, x.shape[1], chunk):
+        acov = _batched_reference_acov(x[:, start:start + chunk].float())
+        stop = ~(acov / acov[0] - 1.0 / (n - 1) >= 0)  # NaN counts as -1
+        first = torch.argmax(stop.to(torch.uint8), dim=0)
+        out.append(torch.where(stop.any(dim=0), first,
+                               torch.full_like(first, n)))
+    return torch.cat(out)
+
+
+def _ess_bound(torch, n, itemsize, cutoffs):
+    """The ESS check on ``[n, cols]`` draws: reads them once and writes a
+    float a column; the estimator's own arithmetic is each column's
+    autocovariances up to its cutoff, ``sum_{t <= c} (n - t)``
+    multiply-adds (two operations each), beside ``n`` adds for the
+    mean."""
+    cols = cutoffs.numel()
+    c = cutoffs.clamp(max=n - 1).double()
+    mads = float(((c + 1) * n - c * (c + 1) / 2).sum())
+    return _bound(n * cols * itemsize + 4 * cols, 2 * mads + n * cols)
+
+
+def phase_ess_vs_plain(torch, dev):
+    """The ESS kernel (``fused_ess``) against the FFT path it replaces on
+    the card (``diagnostics._ess_fft``) on the same draws at
+    ``ESS_CASES``: every column within ``ESS_RTOL``, but for at most
+    ``ESS_MAX_DIFFERING`` of them, each at a float64 rho within
+    ``ESS_TIE`` of 0; then both timed, beside the bound. Returns the worst
+    column's absolute error and the timings by case."""
+    from zhusuan_tpu_torch.diagnostics import _ess_fft
+    from zhusuan_tpu_torch.ops.ess import fused_ess
+
+    timing, worst = {}, 0.0
+    for n, dtype in ESS_CASES:
+        x = _ar1_draws(torch, dev, n, dtype, 39 + n)
+        cols = x.shape[1]
+        before = fused_ess.launches
+        got = fused_ess(x).double()
+        check(fused_ess.launches == before + 1,
+              "fused_ess did not launch once at [{}, {}]".format(n, cols))
+        want = _ess_fft(x).double()
+        err = (got - want).abs()
+        far = torch.nonzero(err > ESS_RTOL * want.abs()).flatten()
+        ties = []
+        if far.numel():
+            rho = _rho64(torch, x[:, far])
+            neg = rho < 0
+            last = torch.where(neg.any(dim=0),
+                               torch.argmax(neg.to(torch.uint8), dim=0),
+                               torch.full_like(far, n - 1))
+            lags = torch.arange(n, device=dev)[:, None]
+            near = torch.where((lags >= 1) & (lags <= last), rho.abs(),
+                               torch.full_like(rho, float("inf")))
+            ties = near.min(dim=0).values.tolist()
+        check(far.numel() <= ESS_MAX_DIFFERING * cols,
+              "{} of {} columns of the ESS kernel off the FFT path at n "
+              "{} {}".format(far.numel(), cols, n, dtype))
+        tie = max(ties, default=None)
+        check(tie is None or tie < ESS_TIE,
+              "an ESS column off the FFT path with no float64 rho within "
+              "{} of 0 (n {} {}): {}".format(ESS_TIE, n, dtype, tie))
+        keep = torch.ones(cols, dtype=torch.bool, device=dev)
+        keep[far] = False
+        case_err = float(err[keep].max())
+        worst = max(worst, case_err)
+        total = got.reshape(N_CHAINS, DIM).min(dim=1).values.sum()
+        ref_total = want.reshape(N_CHAINS, DIM).min(dim=1).values.sum()
+        cut = _cutoffs(torch, x)
+        rec = {
+            "shape": [n, cols], "dtype": dtype,
+            "max_abs_err": case_err,
+            "max_rel_err": float((err[keep] / want[keep].abs().clamp(
+                min=1e-30)).max()),
+            "columns_at_ties": far.numel(),
+            "ties_max_abs_rho64": tie,
+            "job_total_rel_gap": float((total - ref_total).abs()
+                                       / ref_total),
+            "cutoff_mean": float(cut.double().mean()),
+            "cutoff_median": float(cut.double().median()),
+            "cutoff_max": int(cut.max()),
+            "past_lag_7": float((cut > 7).double().mean()),
+            "kernel_ms": _time_ms(torch, lambda: fused_ess(x), 20),
+            "plain_ms": _time_ms(torch, lambda: _ess_fft(x), 3),
+            **_ess_bound(torch, n, x.element_size(), cut),
+        }
+        timing["n{}_{}".format(n, dtype)] = rec
+        del x, got, want, err, cut
+        torch.cuda.empty_cache()
+    print("phase39 ess_vs_plain " + json.dumps(timing), flush=True)
+    return worst, timing
+
+
 def run_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6745,7 +6906,8 @@ def main():
     max_err, ms, plain_ms = run_phase("phase3", phase_kernel_vs_plain, torch,
                                       dev)
     run_phase("phase4", phase_philox, torch, dev)
-    launches = run_phase("phase5", phase_main_path, torch, dev)
+    launches, ess_launches = run_phase("phase5", phase_main_path, torch,
+                                       dev)
     nuts_err, nuts_timing = run_phase("phase6", phase_nuts_kernel_vs_plain,
                                       torch, dev)
     run_phase("phase7", phase_nuts_philox, torch, dev)
@@ -6782,6 +6944,7 @@ def main():
         "phase36", phase_covariance_topics_gans, torch, dev)
     route_t, route_err = run_phase("phase38", phase_builtin_routes, torch,
                                    dev)
+    ess_err, ess_t = run_phase("phase39", phase_ess_vs_plain, torch, dev)
     t0 = time.perf_counter()
     routes = run_example_phases(torch)
     print("example phases seconds {:.3f} ({} children)".format(
@@ -6879,6 +7042,24 @@ def main():
         "library_ms_8192x8192": rand_timing[kind]["large"]["library_ms"],
         "bound_ms_8192x8192": rand_timing[kind]["large"]["bound_ms"],
     } for kind, line in (("normal", 83), ("uniform", 117))]
+    ess_hmc, ess_nuts = (ess_t["n{}_{}".format(*case)] for case in ESS_CASES)
+    ess_rec = {
+        "name": "fused_ess",
+        "route": "cuda",
+        "source": "zhusuan_tpu_torch/csrc/ess.cu",
+        "replaces": None,  # the JAX package's ESS is numpy on the host
+        "plain": "zhusuan_tpu_torch/diagnostics.py::_ess_fft",
+        "launches": ess_launches,
+        "max_abs_err": ess_err,
+        "ms": ess_hmc["kernel_ms"],
+        "plain_ms": ess_hmc["plain_ms"],
+        **bound(ess_hmc),
+        "shape": ess_hmc["shape"],
+        "dtype": ess_hmc["dtype"],
+        "ms_n300_float32": ess_nuts["kernel_ms"],
+        "plain_ms_n300_float32": ess_nuts["plain_ms"],
+        "bound_ms_n300_float32": ess_nuts["bound_ms"],
+    }
     print(json.dumps({"kernels": [{
         "name": "fused_hmc_step",
         "route": "cuda",
@@ -7077,7 +7258,7 @@ def main():
                                        ("bound_ms", "bound_ms"))}),
         ("change point held per chain, changepoint, 60 counts",
          routes["changepoint"], route_t["changepoint"], route_err, {}))
-    ] + sgmcmc + [linalg_rec, advi_rec] + random_recs}))
+    ] + sgmcmc + [linalg_rec, advi_rec] + random_recs + [ess_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

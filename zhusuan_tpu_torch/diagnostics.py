@@ -12,7 +12,9 @@ The reference estimator, kept exactly: with ``mu = mean(x)``,
 accumulate ``rho_t = 1 - (var - acov(t)) / var_plus`` from t=0 upward until
 the first negative value, then ``ess = n / (1 + 2 * sum_rho)``. The per-lag
 loop becomes one batched FFT autocovariance (``torch.fft``) over all
-columns.
+columns; on the card, :func:`ess_batch_device` takes float32, bfloat16 and
+float16 draws to one hand-written kernel instead
+(:func:`~zhusuan_tpu_torch.ops.ess.fused_ess`), which reads them once.
 
 The JAX package computes R-hat, ``summary`` and the ranks on the host with
 numpy in float64. The port computes them in float64 on the draws' own
@@ -27,6 +29,8 @@ import math
 from typing import Optional
 
 import torch
+
+from zhusuan_tpu_torch.ops.ess import ess_layout, fused_ess
 
 __all__ = [
     "effective_sample_size",
@@ -97,12 +101,28 @@ def ess_batch(samples):
 def ess_batch_device(samples, chunk: int = 1 << 18):
     """Per-column ESS of ``[n, d]`` samples on their own device.
 
-    Same estimator as :func:`ess_batch`, chunked over columns to bound
-    device memory; each chunk is upcast on its own (a bfloat16 trajectory
-    is never copied whole to float32) to at least float32 (float64 input
-    stays float64). Returns a ``[d]`` tensor on the input's device.
+    Same estimator as :func:`ess_batch`. A CUDA tensor with contiguous
+    columns that :func:`~zhusuan_tpu_torch.ops.ess.ess_layout` takes
+    (float32, bfloat16 or float16, ``n >= 2``, ``n`` within the kernel's
+    shared memory) goes to the kernel
+    :func:`~zhusuan_tpu_torch.ops.ess.fused_ess` in one launch, in float32,
+    read in place whatever its row stride. Anything else takes the batched
+    FFT, chunked over ``chunk`` columns to bound device memory; each chunk
+    is upcast on its own to at least float32 (float64 input stays
+    float64). Neither path copies a trajectory whole. Returns a ``[d]``
+    tensor on the input's device.
     """
     samples = torch.as_tensor(samples)
+    n, d = samples.shape
+    if (samples.is_cuda and (d == 1 or samples.stride(1) == 1)
+            and ess_layout(n, d, samples.dtype) is not None):
+        return fused_ess(samples)
+    return _ess_fft(samples, chunk)
+
+
+def _ess_fft(samples, chunk: int = 1 << 18):
+    """:func:`ess_batch_device`'s FFT path: the estimator over ``chunk``
+    columns at a time, each chunk upcast to at least float32."""
     n, d = samples.shape
     dtype = torch.promote_types(samples.dtype, torch.float32)
     out = []

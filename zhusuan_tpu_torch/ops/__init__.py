@@ -17,8 +17,10 @@ _chol_inv_kernel``); and the whole-fit mean-field ADVI trainer
 (:mod:`.advi_step`, replacing ``ops/advi_step.py::fused_meanfield_advi``);
 and the standalone samplers (:mod:`.random`: ``gpu_normal`` and
 ``gpu_uniform``, replacing ``ops/random.py::tpu_normal`` and
-``tpu_uniform``). Every function of the JAX package that reaches
-``pl.pallas_call`` has its counterpart here. The sampler and trainer kernels
+``tpu_uniform``); and, replacing no TPU kernel, the one-pass effective
+sample size of the diagnostics on the card (:mod:`.ess`). Every function
+of the JAX package that reaches ``pl.pallas_call`` has its counterpart
+here. The sampler and trainer kernels
 evaluate the built-in densities of :mod:`.densities`; :mod:`.checks` holds
 the numerics guards (no kernel). Kernels are built from
 ``zhusuan_tpu_torch/csrc`` at first use, never at import.
@@ -53,6 +55,7 @@ from zhusuan_tpu_torch.ops.densities import (
     WeibullAFTLogJoint,
     WhitenedLogJoint,
 )
+from zhusuan_tpu_torch.ops.ess import ess_layout, fused_ess
 from zhusuan_tpu_torch.ops.hmc_step import (
     fused_hmc_step,
     fused_hmc_step_reference,
@@ -128,7 +131,9 @@ __all__ = [
     "cholesky_inverse",
     "cholesky_inverse_panel_reference",
     "cholesky_inverse_reference",
+    "ess_layout",
     "fused_chees_step",
+    "fused_ess",
     "fused_chees_step_reference",
     "fused_hmc_step",
     "fused_hmc_step_reference",

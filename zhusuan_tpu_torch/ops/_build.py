@@ -33,8 +33,9 @@ NVCC_FLAGS = (
 # where torch rounds twice). Every source gets it but the ones listed here.
 # linalg: held to a library factorization, which rounds differently anyway
 # (tolerances, never bit for bit), and its rank-16 update is a matrix
-# product whose rate is the FMA's.
-FMA_SOURCES = ("linalg",)
+# product whose rate is the FMA's. ess: held to the float64 estimator by
+# tolerance, its sums of products are the kernel's arithmetic.
+FMA_SOURCES = ("linalg", "ess")
 
 _LOADED = {}  # name -> (ctypes.CDLL, build record)
 
