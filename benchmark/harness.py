@@ -4,9 +4,11 @@ window, the check of a job against the plain reference, and the result.
 Everything is found by name: the cell ``workloads/<cell>.json`` names its
 configuration ``configs/<config>.json`` and its sampler's job driver
 ``samplers/<sampler>.py``, whose reference is ``reference/<sampler>.py``;
-a per-layer metric is any ``metrics/<metric>.py`` whose reader finds
-something to read, and a kernel's least time comes from
-``roofline/<kernel>.py``.
+the configuration names its target, the posterior it samples, whose
+program side is ``targets/<target>.py`` and whose plain side is
+``reference/targets/<target>.py``; a per-layer metric is any
+``metrics/<metric>.py`` whose reader finds something to read, and a
+kernel's least time comes from ``roofline/<kernel>.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,16 @@ def load_cell(name: str):
     return cell, load_json("configs", cell["config"])
 
 
+def context(cell, config, device, seed: int):
+    """What a cell's driver reads: the cell, its configuration, both sides
+    of its target (``target``: ``targets/<target>.py``; ``plain``:
+    ``reference/targets/<target>.py``), the device and the seed."""
+    return {"cell": cell, "config": config,
+            "target": module("targets", config["target"]),
+            "plain": module("reference/targets", config["target"]),
+            "device": device, "seed": int(seed)}
+
+
 def names(kind: str, ext: str):
     """The names of the files ``<kind>/*<ext>``, sorted."""
     return sorted(f[:-len(ext)] for f in os.listdir(os.path.join(BENCH_DIR,
@@ -57,7 +69,10 @@ def names(kind: str, ext: str):
 
 
 def module(kind: str, name: str):
-    return importlib.import_module("benchmark.{}.{}".format(kind, name))
+    """The module ``<kind>/<name>.py`` (``kind`` may name a subdirectory,
+    as ``reference/targets``)."""
+    return importlib.import_module("benchmark.{}.{}".format(
+        kind.replace("/", "."), name))
 
 
 def metric_modules():
@@ -279,8 +294,7 @@ def main(argv_args, t_start: float, age_at_start: float, device=None):
         device = torch.device("cuda", 0)
     print("card: " + card_state(), file=sys.stderr)
     driver = module("samplers", cell["sampler"])
-    ctx = {"cell": cell, "config": config, "device": device,
-           "seed": int(argv_args.seed)}
+    ctx = context(cell, config, device, argv_args.seed)
     driver.build(ctx)
     warm = run_job(torch, driver, ctx, WARM_JOB)
     if warm["failed"]:

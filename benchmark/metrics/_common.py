@@ -26,6 +26,7 @@ def kernel_share(run, kernel: str):
     counts = launch_counts(run)
     if not times or len(times) != len(counts):
         return None
-    c, d = run.cell["chains"], len(run.config["std"])
-    least = sum(mod.launch(c, d, n)["seconds"] for n in counts)
+    c = run.cell["chains"]
+    least = sum(mod.launch(c, run.dim, n, run.cost)["seconds"]
+                for n in counts)
     return 100.0 * least / sum(t for _, t in times)

@@ -43,8 +43,7 @@ def main() -> int:
     driver = harness.module("samplers", cell["sampler"])
     reference = harness.module("reference", cell["sampler"])
     lower = getattr(torch, LOWER[config["precision"]])
-    ctx = {"cell": cell, "config": config,
-           "device": torch.device("cuda", 0), "seed": 0}
+    ctx = harness.context(cell, config, torch.device("cuda", 0), 0)
     driver.build(ctx)
     runs = [("program", s) for s in args.seeds]
     runs += [("control", s) for s in args.control_seeds]

@@ -33,12 +33,12 @@ import torch
 from benchmark.reference import philox
 from benchmark.reference.adapt import ChEESLength, DualAveraging
 from benchmark.reference.common import (
-    density_of,
     draw_of,
     metropolis,
     off_share,
     position_before,
     rel_gap,
+    target_of,
 )
 from benchmark.reference.ess import ess_gap, ess_total
 
@@ -87,7 +87,7 @@ class _Warmup:
             job, cell["n_warmup"], dtype, counts, write)
         self.adapt_dtype = (torch.float32 if dtype == torch.float64
                             else dtype)
-        self.target = density_of(config, dev, dtype)
+        self.target = target_of(config).density(config, dev, dtype)
         self.da = DualAveraging(
             args["step_size"], self.adapt_dtype, dev,
             target=args.get("target_acceptance_rate", 0.651))
@@ -124,7 +124,7 @@ class _Warmup:
 def check(job, cell, config):
     f64 = torch.float64
     dev = job["q0"].device
-    std = torch.tensor(config["std"], device=dev)
+    std = target_of(config).scale(config).to(dev)
     counts = _counts(job)
     warm = _Warmup(job, cell, config, f64, counts)
     worst, n_gap, lengths = 0.0, 0, []

@@ -1,31 +1,20 @@
-"""What the plain samplers share: the target, the leapfrog integrator, the
-Metropolis step, and the numbers that compare a run with the reference."""
+"""What the plain samplers share: the configuration's target found by
+name, the leapfrog integrator, the Metropolis step, and the numbers that
+compare a run with the reference."""
 
 from __future__ import annotations
+
+import importlib
 
 import torch
 
 
-class DiagonalGaussian:
-    """``log p(x) = sum_j -0.5 (x_j - loc_j)^2 / std_j^2`` (no constant)."""
-
-    def __init__(self, loc, std, dtype):
-        self.loc = torch.as_tensor(loc).to(dtype)
-        self.std = torch.as_tensor(std).to(dtype)
-        self.inv_var = 1.0 / (self.std * self.std)
-
-    def log_prob(self, x):
-        z = x - self.loc
-        return (-0.5 * z * z * self.inv_var).sum(dim=-1)
-
-    def grad(self, x):
-        return -(x - self.loc) * self.inv_var
-
-
-def density_of(config, device, dtype):
-    """The configuration's density in ``dtype``."""
-    return DiagonalGaussian(torch.tensor(config["loc"], device=device),
-                            torch.tensor(config["std"], device=device), dtype)
+def target_of(config):
+    """The plain side of the configuration's target,
+    ``reference/targets/<target>.py``: ``dim``, ``density``, ``scale``
+    and ``cost`` of ``config``."""
+    return importlib.import_module("benchmark.reference.targets."
+                                   + config["target"])
 
 
 def position_before(job, t: int):
@@ -78,7 +67,7 @@ def metropolis(target, q, p, u, step, n: int, inv_mass):
 def off_share(got, want, std, tol: float, got_acc=None, want_acc=None,
               acc_tol: float = 0.0):
     """Share of chains (rows) with a coordinate off by more than ``tol``
-    target standard deviations, or with an acceptance statistic off by
+    times the target's scale ``std``, or with an acceptance statistic off by
     more than ``acc_tol`` where both are given; non-finite is off."""
     gap = ((got.to(torch.float64) - want.to(torch.float64)).abs()
            / std.to(torch.float64))

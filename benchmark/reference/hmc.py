@@ -36,12 +36,12 @@ import torch
 from benchmark.reference import philox
 from benchmark.reference.adapt import DualAveraging, MovingVariance
 from benchmark.reference.common import (
-    density_of,
     energy,
     leapfrog,
     metropolis,
     off_share,
     rel_gap,
+    target_of,
 )
 from benchmark.reference.ess import ess_gap, ess_total
 
@@ -122,8 +122,9 @@ def check(job, cell, config):
     replayed from the program's own state at the warm-up's end."""
     q0 = job["q0"]
     f64 = torch.float64
-    std = torch.tensor(config["std"], device=q0.device)
-    target = density_of(config, q0.device, f64)
+    plain = target_of(config)
+    std = plain.scale(config).to(q0.device)
+    target = plain.density(config, q0.device, f64)
     args, nw = cell["args"], cell["n_warmup"]
     _, step, _, mass = warmup(args, target, job["key"], q0, nw, f64)
     out = {"step_size_gap": rel_gap(job["step_size"], step),
@@ -145,7 +146,7 @@ def stand_in(job, cell, config, dtype):
     noise, the sampling from that warm-up's end, the draws in the cell's
     collect dtype, and the ESS in ``dtype``."""
     q0, key = job["q0"], job["key"]
-    target = density_of(config, q0.device, dtype)
+    target = target_of(config).density(config, q0.device, dtype)
     args, nw = cell["args"], cell["n_warmup"]
     state = warmup(args, target, key, q0, nw, dtype)
     collect = job["samples"].dtype

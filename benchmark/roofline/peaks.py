@@ -12,14 +12,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 POWER_LIMIT_W = 700.0
 
-# Operations per element the kernels' necessary work takes: Philox4x32-10
-# and Box-Muller for one normal (the ten rounds' multiplies, xors and key
-# adds per 4 normals; log, sqrt, cos or sin and the products per 2), and
-# one evaluation of the diagonal Gaussian's gradient and log-density.
-# Integer operations are counted at the float32 rate.
+# Operations per element that Philox4x32-10 and Box-Muller take for one
+# normal (the ten rounds' multiplies, xors and key adds per 4 normals;
+# log, sqrt, cos or sin and the products per 2). Integer operations are
+# counted at the float32 rate. A density's own work is its target's
+# (``reference/targets/<target>.py::cost``).
 OPS_NORMAL = 50
-OPS_GRAD = 3
-OPS_LOG_PROB = 5
 
 
 def least_time(n_bytes: float, n_ops: float):

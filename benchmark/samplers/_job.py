@@ -1,5 +1,8 @@
-"""What every sampler's job shares: the density and starting points made
-from the configuration and the seed, and the ESS check at the end."""
+"""What every sampler's job shares: the target's density and starting
+points made from the configuration and the seed, and the ESS check at the
+end. A job gives the sampler the target's latent dict
+(``ctx["target"].latents``) and reads its draws, positions and mass back
+flat (``ctx["target"].flat``), ``[..., chains, dim]``."""
 
 from __future__ import annotations
 
@@ -9,11 +12,12 @@ from benchmark.harness import job_key, job_words
 
 
 def build(ctx, sampler: str):
-    """Put the configuration's density and the cell's sampler
+    """Put the target's density, the program's built-in made from the
+    configuration on the device, and the cell's sampler
     (``zhusuan_tpu_torch.<sampler>(**args)``) into ``ctx``."""
     import zhusuan_tpu_torch
 
-    ctx["density"] = density(ctx)
+    ctx["density"] = ctx["target"].density(ctx["config"], ctx["device"])
     ctx["sampler"] = getattr(zhusuan_tpu_torch, sampler)(**ctx["cell"]["args"])
 
 
@@ -24,16 +28,6 @@ def release(ctx):
     ctx.pop("density", None)
 
 
-def density(ctx):
-    """The configuration's target as the program's built-in density."""
-    from zhusuan_tpu_torch import DiagonalGaussianLogJoint
-
-    cfg, dev = ctx["config"], ctx["device"]
-    return DiagonalGaussianLogJoint(
-        "x", torch.tensor(cfg["loc"], dtype=torch.float32, device=dev),
-        torch.tensor(cfg["std"], dtype=torch.float32, device=dev))
-
-
 def start(ctx, index: int):
     """``(key, q0)``: the job's Philox key and its starting points, drawn
     on the card from ``(seed, job)``: ``init_std`` times standard normals,
@@ -41,7 +35,7 @@ def start(ctx, index: int):
     cell, dev = ctx["cell"], ctx["device"]
     g = torch.Generator(device=dev)
     g.manual_seed(job_words(ctx["seed"], index) >> 1)
-    q0 = torch.randn((cell["chains"], len(ctx["config"]["std"])),
+    q0 = torch.randn((cell["chains"], ctx["plain"].dim(ctx["config"])),
                      generator=g, device=dev)
     q0.mul_(cell["init_std"])
     return job_key(ctx["seed"], index), q0

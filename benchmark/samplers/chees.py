@@ -21,18 +21,19 @@ release = _job.release
 
 def job(ctx, index, spans):
     cell, chees, dens = ctx["cell"], ctx["sampler"], ctx["density"]
+    target = ctx["target"]
     nw, ns = cell["n_warmup"], cell["n_sample"]
     key, q0 = _job.start(ctx, index)
     with spans.stage("warmup"):
-        state = chees.init({"x": q0})
+        state = chees.init(target.latents(q0))
         state, warm = chees.run(dens, {}, state, key, nw, n_adapt=nw)
     with spans.stage("sample"):
         state, out = chees.run(dens, {}, state, key, ns, n_adapt=0)
-    draws = out["samples"]["x"]
+    draws = target.flat(out["samples"])
     ess = _job.ess_stage(ctx, spans, draws)
     keep = {"key": key, "q0": q0, "ess": ess, "step_size": state.step_size,
             "check_seed": _job.check_seed(ctx, index),
-            "warm_samples": warm["samples"]["x"],
+            "warm_samples": target.flat(warm["samples"]),
             "warm_length": warm["trajectory_length"],
             "warm_accept": warm["acceptance_rate"],
             "accept": out["acceptance_rate"],

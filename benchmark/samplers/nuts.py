@@ -22,21 +22,22 @@ release = _job.release
 
 def job(ctx, index, spans):
     cell, nuts, dens = ctx["cell"], ctx["sampler"], ctx["density"]
+    target = ctx["target"]
     nw, ns = cell["n_warmup"], cell["n_sample"]
     key, q0 = _job.start(ctx, index)
     with spans.stage("warmup"):
-        state = nuts.init({"x": q0}, n_chain_dims=1)
+        state = nuts.init(target.latents(q0), n_chain_dims=1)
         state, warm = nuts.run(dens, {}, state, key, nw, n_adapt=nw,
                                collect_fields=FIELDS)
-    mass = state.mass["x"]
+    mass = target.flat(state.mass)
     with spans.stage("sample"):
         state, out = nuts.run(dens, {}, state, key, ns, n_adapt=0,
                               collect_fields=FIELDS)
-    draws = out["samples"]["x"]
+    draws = target.flat(out["samples"])
     ess = _job.ess_stage(ctx, spans, draws)
     keep = {"key": key, "q0": q0, "ess": ess, "mass": mass,
             "check_seed": _job.check_seed(ctx, index),
-            "warm_samples": warm["samples"]["x"],
+            "warm_samples": target.flat(warm["samples"]),
             "warm_accept": warm["acceptance_rate"],
             "warm_step": warm["step_size"],
             "samples": draws, "accept": out["acceptance_rate"],

@@ -46,8 +46,7 @@ def run(cell, config, seed: int, n_jobs: int = 2):
     """``(records, kept job, check numbers, correct)`` of ``n_jobs`` jobs on
     the CPU, the last one checked."""
     driver = harness.module("samplers", cell["sampler"])
-    ctx = {"cell": cell, "config": config, "device": torch.device("cpu"),
-           "seed": seed}
+    ctx = harness.context(cell, config, torch.device("cpu"), seed)
     with route_kernels():
         driver.build(ctx)
         jobs, kept = [], None

@@ -101,6 +101,22 @@ def test_control_in_bfloat16_fails(name):
     assert not correct, numbers
 
 
+def test_nuts_rebuild_takes_the_programs_step():
+    """Where NUTS's trees first grow in the warm-up (iteration 10 here),
+    the narrowest scale's leapfrog sits near its stability edge and the
+    chains start far out: rebuilt at the worked-out step, 1e-7 off the
+    program's float32 step, 2.7% of this seed's chains take other leaves.
+    The check rebuilds at the step the program took."""
+    from benchmark.reference import nuts
+
+    cell, config = cpu_run.small_cell(
+        "nuts.neal100d.32k", chains=512, n_warmup=10, n_sample=2,
+        check_iterations=1)
+    with mock.patch.object(nuts, "_plan", lambda cell, words: [10]):
+        _, _, numbers, _ = cpu_run.run(cell, config, 11, n_jobs=1)
+    assert numbers["draws_off"] <= cell["limits"]["draws_off"], numbers
+
+
 @pytest.mark.parametrize("fault", [None, "unchanged"])
 def test_whole_run_without_the_card(fault, capsys):
     """``harness.main`` from set-up to the result line, the card's calls

@@ -54,20 +54,22 @@ def test_top_level_names_compare_whole():
 
 
 def test_loaded_modules_after_importing_everything():
-    """Import the harness, every driver, reference, metric and roofline
-    and the program's samplers in a fresh process: no forbidden module is
-    loaded, and the references load nothing of the program."""
+    """Import the harness, every driver, reference, target (both sides),
+    metric and roofline and the program's samplers in a fresh process: no
+    forbidden module is loaded, and the references load nothing of the
+    program."""
     code = """
 import sys
 from benchmark import harness, tracing
 mods = []
-for kind in ("reference", "roofline", "metrics"):
+for kind in ("reference", "reference/targets", "roofline", "metrics"):
     for n in harness.names(kind, ".py"):
         harness.module(kind, n)
 top = {m.split(".")[0] for m in sys.modules}
 assert "zhusuan_tpu_torch" not in top, "a reference loaded the program"
-for n in harness.names("samplers", ".py"):
-    harness.module("samplers", n)
+for kind in ("samplers", "targets"):
+    for n in harness.names(kind, ".py"):
+        harness.module(kind, n)
 import zhusuan_tpu_torch, zhusuan_tpu_torch.diagnostics
 print(harness.forbidden_modules())
 """

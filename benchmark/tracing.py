@@ -111,10 +111,14 @@ class Trace:
 
 class TracedRun:
     """What a metric's reader gets: the cell, its configuration, the
-    per-job stage spans, the profiled job's record and its trace."""
+    dimension and the density's work per chain (``cost``) from its
+    target's plain side, the per-job stage spans, the profiled job's
+    record and its trace."""
 
     def __init__(self, ctx, jobs, window_s: float, trace_path: str):
         self.cell, self.config = ctx["cell"], ctx["config"]
+        self.dim = ctx["plain"].dim(self.config)
+        self.cost = ctx["plain"].cost(self.config)
         self.jobs = [j for j in jobs if not j["failed"]]
         self.window_s = window_s
         self.profiled = next(j for j in jobs if j.get("profiled"))
